@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (nenbody_tpu_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each (any failure raises and the exit code is non-zero):
+  1. device   — the card's name and power limit; TF32 off.
+  2. build    — nvcc builds the three kernels from nenbody_tpu_torch/csrc
+                into build/nenbody_tpu_torch/; ptxas reports registers,
+                shared memory and spills per kernel.
+  3. kernels  — each kernel against its plain PyTorch version on the card,
+                at the main path's shapes, with the tolerance stated.
+  4. slice    — the main path through the user's entry points (Scene
+                rollouts at BASELINE configs 2, 3, 4, 5 and reference-100,
+                and the port's entry()), with every kernel's launch count
+                read before and after.
+  5. times    — CUDA-event times of each kernel and its plain version,
+                alternated (plain, kernel, kernel, plain), and steps/s of
+                the config-2 rollout and of entry().
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}. Imports no jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from nenbody_tpu_torch import PRESETS, Scene, SimConfig, VisionConfig
+from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
+from nenbody_tpu_torch.entry import entry
+from nenbody_tpu_torch.ops import boids as boids_ops
+from nenbody_tpu_torch.ops import common, pairwise, raycast
+from nenbody_tpu_torch.physics import dense
+from nenbody_tpu_torch.vision import camera
+
+KERNEL_INFO = {
+    "gravity": dict(source="nenbody_tpu_torch/csrc/gravity.cu",
+                    replaces="nenbody_tpu/ops/pairwise.py:42"),
+    "boids": dict(source="nenbody_tpu_torch/csrc/boids.cu",
+                  replaces="nenbody_tpu/ops/boids.py:34"),
+    "disc_eye": dict(source="nenbody_tpu_torch/csrc/disc_eye.cu",
+                     replaces="nenbody_tpu/ops/raycast.py:221",
+                     also_replaces="nenbody_tpu/ops/raycast.py:79"),
+}
+EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64)]
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def uniform(gen, shape, lo, hi):
+    return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+
+class Errors:
+    """The largest absolute error each kernel showed against its plain
+    version in phase 3."""
+
+    def __init__(self):
+        self.max_abs = {k: 0.0 for k in KERNEL_INFO}
+
+    def check(self, kernel, label, got, want, rtol, atol):
+        torch.cuda.synchronize()
+        got, want = got.double(), want.double()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: shape {tuple(got.shape)} or non-finite output")
+        diff = (got - want).abs()
+        bad = diff > atol + rtol * want.abs()
+        err = diff.max().item()
+        self.max_abs[kernel] = max(self.max_abs[kernel], err)
+        differing = (diff > 0).double().mean().item()
+        log("kernels", f"{label}: max_abs_err={err:.3e} differing={differing:.2e} "
+            f"beyond_tol={bad.double().mean().item():.2e} (rtol={rtol}, atol={atol})")
+        if bad.any():
+            raise AssertionError(f"{label}: {int(bad.sum())} elements beyond tolerance")
+
+
+def phase_kernels(errors: Errors, gen) -> None:
+    # gravity at N=1,000 (tests/test_kernels.py:28 tolerances)
+    gcfg = GravityConfig()
+    pos = uniform(gen, (1000, 2), -100, 100)
+    errors.check("gravity", "gravity N=1000", pairwise.gravity_forces_tiled(pos, gcfg),
+                 pairwise.gravity_forces_plain(pos, gcfg), 3e-5, 1e-7)
+    # batched + cross form (pos_j), ragged tails
+    pb = uniform(gen, (3, 300, 2), -100, 100)
+    pj = uniform(gen, (3, 77, 2), -100, 100)
+    errors.check("gravity", "gravity B=3 N=300 cross M=77",
+                 pairwise.gravity_forces_tiled(pb, gcfg, pj),
+                 pairwise.gravity_forces_plain(pb, gcfg, pj), 3e-5, 1e-7)
+    # approx reciprocal (tests/test_kernels.py:31 bound, normalised)
+    pos = uniform(gen, (300, 2), -100, 100)
+    want = pairwise.gravity_forces_plain(pos, gcfg)
+    got = pairwise.gravity_forces_tiled(pos, GravityConfig(approx_reciprocal=True))
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log("kernels", f"gravity approx N=300: normalised err={rel:.3e} (bound 1e-2)")
+    if not rel < 1e-2:
+        raise AssertionError("gravity approx_reciprocal beyond its bound")
+    # N=65,536 against float64: the sum cancels heavily, so the error is
+    # normalised by max |g_i|; the stated bound is N * 2^-24 (a worst-case
+    # sequential fp32 sum of N terms).
+    n = 65536
+    pos = uniform(gen, (n, 2), -100, 100)
+    want64 = pairwise.gravity_forces_plain(pos.double(), gcfg)
+    got = pairwise.gravity_forces_tiled(pos, gcfg)
+    plain32 = pairwise.gravity_forces_plain(pos, gcfg)
+    torch.cuda.synchronize()
+    scale = want64.norm(dim=-1).max()
+    k_err = ((got.double() - want64).abs().max() / scale).item()
+    p_err = ((plain32.double() - want64).abs().max() / scale).item()
+    bound = n * 2.0 ** -24
+    errors.max_abs["gravity"] = max(errors.max_abs["gravity"],
+                                    (got.double() - want64).abs().max().item())
+    log("kernels", f"gravity N=65536 vs float64: kernel err/max|g|={k_err:.3e}, "
+        f"plain fp32 err/max|g|={p_err:.3e}, bound {bound:.3e}")
+    if not k_err < bound:
+        raise AssertionError("gravity N=65536 beyond its float64 bound")
+
+    # boids at N=4,096 (tests/test_kernels.py:60 tolerances), and clustered
+    # so that all three rules fire, at test_kernels.py:76's N=128 (at large
+    # clustered N the separation sum cancels over hundreds of neighbours and
+    # the summation order alone moves it past atol)
+    bcfg = BoidsConfig()
+    for label, n, lo, hi in (("spread", 4096, -100, 100), ("clustered", 128, -8, 8)):
+        pos = uniform(gen, (n, 2), lo, hi)
+        vel = uniform(gen, (n, 2), -1, 1)
+        errors.check("boids", f"boids N={n} {label}",
+                     boids_ops.boids_velocity_tiled(pos, vel, bcfg),
+                     boids_ops.boids_velocity_plain(pos, vel, bcfg), 3e-5, 1e-6)
+    # global_alignment (kernel skips rule 3) equals the full fold at |v| < 250
+    errors.check("boids", "boids N=128 global_alignment vs full fold",
+                 boids_ops.boids_velocity_tiled(pos, vel, BoidsConfig(global_alignment=True)),
+                 dense.boids_accels(pos, vel, bcfg), 3e-5, 1e-6)
+    pb = uniform(gen, (5, 333, 2), -20, 20)
+    vb = uniform(gen, (5, 333, 2), -1, 1)
+    errors.check("boids", "boids B=5 N=333", boids_ops.boids_velocity_tiled(pb, vb, bcfg),
+                 boids_ops.boids_velocity_plain(pb, vb, bcfg), 3e-5, 1e-6)
+
+    # the disc eye (tests/test_kernels.py:209-210 tolerances)
+    for b, n, w in EYE_SHAPES:
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        pos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa)
+            gs, gd = raycast.disc_eye(pos, dirs, pos, vcfg)
+            ws, wd = raycast.disc_eye_plain(pos, dirs, pos, vcfg)
+            label = f"disc_eye B={b} N={n} W={w} aa={aa}"
+            errors.check("disc_eye", label + " depth", gd, wd, 1e-5, 1e-4)
+            errors.check("disc_eye", label + " shade", gs, ws, 1e-5, 1e-5)
+
+
+def phase_small_reference() -> None:
+    """The slice on the kernels (CUDA) against the dense path (CPU) at a
+    small size, for 5 steps of each controller, batched and unbatched."""
+    for controller in ("gravity", "boids"):
+        for num_envs in (None, 3):
+            cfg = SimConfig(n=96, controller=controller, vision=VisionConfig(width=48))
+            ref = Scene(dataclasses.replace(cfg, backend="dense"), device="cpu")
+            s0 = ref.spawn(1) if num_envs is None else ref.spawn_envs(num_envs, 1)
+            _, want = ref.rollout(s0, 5, record=("pos", "obs"))
+            ker = Scene(cfg, device="cuda")
+            s0c = dataclasses.replace(s0, pos=s0.pos.cuda(), vel=s0.vel.cuda(), t=s0.t.cuda())
+            _, got = ker.rollout(s0c, 5, record=("pos", "obs"))
+            torch.cuda.synchronize()
+            # positions differ in the last bits (sums in another order), so
+            # an eye-edge pixel may flip: bound the share of such pixels
+            dpos = (got["pos"].cpu() - want["pos"]).abs().max().item()
+            flips = ((got["obs"].cpu() - want["obs"]).abs() > 1e-3).double().mean().item()
+            log("kernels", f"slice {controller} envs={num_envs}: kernels(cuda) vs dense(cpu) "
+                f"5 steps max|dpos|={dpos:.2e} (bound 1e-3), obs pixels off by >1e-3: "
+                f"{flips:.2e} (bound 1e-3)")
+            if not (dpos < 1e-3 and flips < 1e-3):
+                raise AssertionError(f"slice {controller} disagrees with the dense path")
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(f"expected {what}")
+
+
+def finite_cuda(label, *tensors):
+    for t in tensors:
+        if not t.is_cuda or not torch.isfinite(t).all():
+            raise AssertionError(f"{label}: output not finite or not on CUDA")
+
+
+def phase_slice() -> dict:
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    scene = Scene(PRESETS["gravity-vision-1024"](), device="cuda")
+    state, traj = scene.rollout(scene.spawn(0), 100, record=("obs",))
+    finite_cuda("config 2", state.pos, state.vel, traj["obs"])
+    expect(traj["obs"].shape == (100, 1024, 64), "config-2 obs [100, 1024, 64]")
+
+    scene = Scene(PRESETS["boids-4096"](), device="cuda")
+    state, traj = scene.rollout(scene.spawn(0), 20, record=("obs",))
+    finite_cuda("config 3", state.pos, state.vel, traj["obs"])
+    expect(traj["obs"].shape == (20, 4096, 256), "config-3 obs [20, 4096, 256]")
+
+    scene = Scene(PRESETS["reference-100"](), device="cuda")
+    state, traj = scene.rollout(scene.spawn(0), 100, record=("obs",))
+    finite_cuda("reference-100", state.pos, state.vel, traj["obs"])
+    expect(traj["obs"].shape == (100, 100, 1024), "reference-100 obs [100, 100, 1024]")
+
+    scene = Scene(PRESETS["gravity-65536"](), device="cuda")
+    state, traj = scene.rollout(scene.spawn(0), 3, record=("pos",))
+    finite_cuda("config 4", state.pos, state.vel, traj["pos"])
+
+    scene = Scene(PRESETS["envs-4096x256"](), device="cuda")
+    batch = scene.step(scene.spawn_envs(4096, seed=0))
+    obs = scene.observe(batch)
+    finite_cuda("config 5", batch.pos, batch.vel, obs)
+    expect(obs.shape == (4096, 256, 64), "config-5 obs [4096, 256, 64]")
+
+    fn, (policy, pos, vel) = entry("cuda")
+    for _ in range(10):
+        pos, vel, obs, reward = fn(policy, pos, vel)
+    finite_cuda("entry", pos, vel, obs, reward)
+    expect(obs.shape == (1024, 66) and reward.shape == (1024,),
+           "entry obs [1024, 66] and reward [1024]")
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    log("slice", f"configs 2, 3, 4, 5, reference-100 and entry() ran in "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"the main path never launched {missing}")
+    return counts
+
+
+def cuda_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def alternate(plain, kernel, iters_plain: int, iters_kernel: int):
+    """(plain ms, kernel ms), each the mean of two runs in the order plain,
+    kernel, kernel, plain."""
+    p1 = cuda_ms(plain, iters_plain)
+    k1 = cuda_ms(kernel, iters_kernel)
+    k2 = cuda_ms(kernel, iters_kernel)
+    p2 = cuda_ms(plain, iters_plain)
+    return (p1 + p2) / 2, (k1 + k2) / 2
+
+
+def phase_times(gen, card: str) -> dict:
+    times = {}
+    n = 65536
+    pos = uniform(gen, (n, 2), -100, 100)
+    vel = uniform(gen, (n, 2), -1, 1)
+    gcfg, bcfg = GravityConfig(), BoidsConfig()
+    p_ms, k_ms = alternate(lambda: pairwise.gravity_forces_plain(pos, gcfg),
+                           lambda: pairwise.gravity_forces_tiled(pos, gcfg), 2, 5)
+    times["gravity"] = (k_ms, p_ms)
+    log("times", f"gravity N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair evals/s; "
+        f"plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
+    p_ms, k_ms = alternate(lambda: boids_ops.boids_velocity_plain(pos, vel, bcfg),
+                           lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg), 1, 5)
+    log("times", f"boids N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair evals/s; "
+        f"plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
+    pos4 = uniform(gen, (4096, 2), -100, 100)
+    vel4 = uniform(gen, (4096, 2), -1, 1)
+    p4, k4 = alternate(lambda: boids_ops.boids_velocity_plain(pos4, vel4, bcfg),
+                       lambda: boids_ops.boids_velocity_tiled(pos4, vel4, bcfg), 3, 20)
+    times["boids"] = (k4, p4)
+    log("times", f"boids N=4096 (config 3): kernel {k4:.3f} ms; plain {p4:.3f} ms [{card}]")
+
+    for b, n_e, w in EYE_SHAPES:
+        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+        epos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa)
+            p_ms, k_ms = alternate(lambda: raycast.disc_eye_plain(epos, dirs, epos, vcfg),
+                                   lambda: raycast.disc_eye(epos, dirs, epos, vcfg), 2, 10)
+            frames = b * n_e
+            if (b, n_e, w, aa) == (1, 1024, 64, False):
+                times["disc_eye"] = (k_ms, p_ms)
+            log("times", f"disc_eye B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
+                f"{frames / k_ms * 1e3:.4e} agent-frames/s; plain {p_ms:.3f} ms = "
+                f"{frames / p_ms * 1e3:.4e} agent-frames/s [{card}]")
+
+    # steps/s of the config-2 rollout and of entry(): kernels vs dense, on the card
+    def rollout_rate(backend: str) -> float:
+        cfg = dataclasses.replace(PRESETS["gravity-vision-1024"](), backend=backend)
+        scene = Scene(cfg, device="cuda")
+        state = scene.spawn(0)
+        scene.rollout(state, 2, record=("obs",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene.rollout(state, 50, record=("obs",))
+        torch.cuda.synchronize()
+        return 50 / (time.perf_counter() - t0)
+
+    def entry_rate(backend: str) -> float:
+        cfg = dataclasses.replace(PRESETS["gravity-vision-1024"](), backend=backend)
+        fn, (policy, pos, vel) = entry("cuda", cfg=cfg)
+        fn(policy, pos, vel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            pos, vel, _, _ = fn(policy, pos, vel)
+        torch.cuda.synchronize()
+        return 50 / (time.perf_counter() - t0)
+
+    for name, rate in (("config-2 rollout (record obs)", rollout_rate),
+                       ("entry() step", entry_rate)):
+        d1, k1, k2, d2 = rate("dense"), rate("pallas"), rate("pallas"), rate("dense")
+        log("times", f"{name}: kernels {(k1 + k2) / 2:.2f} steps/s; dense "
+            f"{(d1 + d2) / 2:.2f} steps/s [{card}]")
+    return times
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("device", f"{kind}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"count {torch.cuda.device_count()}; nvidia-smi: {smi}")
+
+    lib = common.kernel_library()
+    log("build", f"{lib.path.name} built in {lib.build_seconds:.1f} s")
+    for line in lib.ptxas_log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            log("build", line.strip())
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errors = Errors()
+    with torch.no_grad():
+        phase_kernels(errors, gen)
+        phase_small_reference()
+        counts = phase_slice()
+        times = phase_times(gen, smi)
+
+    kernels = []
+    for name, info in KERNEL_INFO.items():
+        k_ms, p_ms = times[name]
+        kernels.append({"name": name, "route": "cuda", **info, "launches": counts[name],
+                        "max_abs_err": errors.max_abs[name], "ms": k_ms, "plain_ms": p_ms})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
+    sys.stdout.flush()
