@@ -5,39 +5,58 @@
 
 Phases, one line each (any failure raises and the exit code is non-zero):
   1. device   — the card's name and power limit; TF32 off.
-  2. build    — nvcc builds the three kernels from nenbody_tpu_torch/csrc
-                into build/nenbody_tpu_torch/; ptxas reports registers,
-                shared memory and spills per kernel.
+  2. build    — nvcc builds the five kernels from nenbody_tpu_torch/csrc
+                into build/nenbody_tpu_torch/ (one nvcc per source, all at
+                once); ptxas reports registers, shared memory and spills.
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the main path's shapes, with the tolerance stated.
-  4. slice    — the main path through the user's entry points (Scene
+                at the main paths' shapes (the backward kernels also at the
+                trainers'), with the tolerance stated; the autograd
+                Functions' gradients on the card against plain autograd on
+                the CPU.
+  4. slice    — the serving path through the user's entry points (Scene
                 rollouts at BASELINE configs 2, 3, 4, 5 and reference-100,
-                and the port's entry()), with every kernel's launch count
-                read before and after.
+                and the port's entry()), launch counts read before and after.
+     train    — APG diff_vision's parameter gradients, kernel route against
+                dense autograd on the card; then the training path through
+                the user's entry points at config-5 width (4,096 envs x 256
+                agents x 64 px, horizon 8): `train --algo reinforce` and
+                `--algo apg` of the CLI, then APG with diff_vision
+                (antialias, visibility reward); metrics finite,
+                grad_norm > 0, parameters moved, launch counts read before
+                and after. Runs with autograd on.
   5. times    — CUDA-event times of each kernel and its plain version,
-                alternated (plain, kernel, kernel, plain), and steps/s of
-                the config-2 rollout and of entry().
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Imports no jax.
+                alternated (plain, kernel, kernel, plain), the eye with and
+                without its winner index, steps/s of the config-2 rollout
+                and of entry(), and seconds per training iteration and
+                agent-frames/s of each trainer.
+The line before the last is a JSON object with one entry per kernel
+(`launches` sums the two paths' counts); the last line is
+{"ok": true, "device": {...}}. Imports no jax.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import subprocess
 import sys
 import time
 
 import torch
+from torch.optim.optimizer import register_optimizer_step_pre_hook
 
-from nenbody_tpu_torch import PRESETS, Scene, SimConfig, VisionConfig
+from nenbody_tpu_torch import PRESETS, Scene, SimConfig, VisionConfig, cli
 from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
 from nenbody_tpu_torch.entry import entry
 from nenbody_tpu_torch.ops import boids as boids_ops
 from nenbody_tpu_torch.ops import common, pairwise, raycast
 from nenbody_tpu_torch.physics import dense
-from nenbody_tpu_torch.vision import camera
+from nenbody_tpu_torch.rl import apg
+from nenbody_tpu_torch.rl.env import VisionEnv
+from nenbody_tpu_torch.vision import camera, render
 
 KERNEL_INFO = {
     "gravity": dict(source="nenbody_tpu_torch/csrc/gravity.cu",
@@ -47,8 +66,16 @@ KERNEL_INFO = {
     "disc_eye": dict(source="nenbody_tpu_torch/csrc/disc_eye.cu",
                      replaces="nenbody_tpu/ops/raycast.py:221",
                      also_replaces="nenbody_tpu/ops/raycast.py:79"),
+    "gravity_vjp": dict(source="nenbody_tpu_torch/csrc/gravity_vjp.cu",
+                        replaces="nenbody_tpu/ops/pairwise.py:161"),
+    "disc_eye_bwd": dict(source="nenbody_tpu_torch/csrc/disc_eye_bwd.cu",
+                         replaces="nenbody_tpu/ops/raycast.py:649"),
 }
 EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64)]
+SERVING = ("gravity", "boids", "disc_eye")
+TRAINING = ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd")
+# BASELINE config 5 width for the trainers
+TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH, TRAIN_HORIZON = 4096, 256, 64, 8
 
 
 def log(phase: str, msg: str) -> None:
@@ -80,6 +107,21 @@ class Errors:
             f"beyond_tol={bad.double().mean().item():.2e} (rtol={rtol}, atol={atol})")
         if bad.any():
             raise AssertionError(f"{label}: {int(bad.sum())} elements beyond tolerance")
+
+    def check_scaled(self, kernel, label, got, want, bound):
+        """|got - want| / max|want| < bound, for sums that cancel (the error
+        scales with the largest output, not with each element)."""
+        torch.cuda.synchronize()
+        got, want = got.double(), want.double()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: shape {tuple(got.shape)} or non-finite output")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        self.max_abs[kernel] = max(self.max_abs[kernel], err)
+        log("kernels", f"{label}: max_abs_err={err:.3e} err/max|want|="
+            f"{err / scale if scale else err:.3e} (bound {bound:.1e})")
+        if scale == 0.0 and err != 0.0 or scale and not err / scale < bound:
+            raise AssertionError(f"{label}: beyond its bound")
 
 
 def phase_kernels(errors: Errors, gen) -> None:
@@ -156,6 +198,87 @@ def phase_kernels(errors: Errors, gen) -> None:
             errors.check("disc_eye", label + " shade", gs, ws, 1e-5, 1e-5)
 
 
+def phase_backward_kernels(errors: Errors, gen) -> None:
+    # the gravity VJP (tests/test_kernels.py:141-155's normalized bound: the
+    # closed form summed in another order)
+    gcfg = GravityConfig()
+    for shape in ((1, 2), (257, 2), (1000, 2), (3, 300, 2), (TRAIN_ENVS, TRAIN_AGENTS, 2)):
+        pos = uniform(gen, shape, -100, 100)
+        u = torch.randn(shape, generator=gen, device="cuda")
+        label = f"gravity_vjp {'x'.join(map(str, shape[:-1]))}"
+        errors.check_scaled("gravity_vjp", label, pairwise.gravity_vjp_tiled(pos, u, gcfg),
+                            pairwise.gravity_vjp_plain(pos, u, gcfg), 3e-5)
+    # N=65,536 against float64, normalised by max |grad|; the stated bound is
+    # N * 2^-24 (a worst-case sequential fp32 sum of N terms), as for gravity
+    n = 65536
+    pos = uniform(gen, (n, 2), -100, 100)
+    u = torch.randn((n, 2), generator=gen, device="cuda")
+    want64 = pairwise.gravity_vjp_plain(pos.double(), u.double(), gcfg)
+    plain32 = pairwise.gravity_vjp_plain(pos, u, gcfg)
+    torch.cuda.synchronize()
+    p_err = ((plain32.double() - want64).abs().max() / want64.abs().max()).item()
+    log("kernels", f"gravity_vjp N=65536: plain fp32 err/max|grad| vs float64 {p_err:.3e}")
+    errors.check_scaled("gravity_vjp", "gravity_vjp N=65536 vs float64",
+                        pairwise.gravity_vjp_tiled(pos, u, gcfg), want64, n * 2.0 ** -24)
+
+    # the disc backward against autograd through the plain renderer, with
+    # random cotangents (tests/test_diff_vision.py:31-57's tolerances: per-
+    # pixel terms round apart; target sums run in atomic, run-to-run order),
+    # at every forward shape and at the trainers' (config-5 width)
+    for b, n, w in EYE_SHAPES + [(TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)]:
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        pos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
+        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-3
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa)
+            _, _, winner = raycast.disc_eye_with_winner(pos, dirs, pos, vcfg)
+            got = raycast.render_rows_vjp_cross(pos, dirs, winner, us, ud, vcfg)
+            want = raycast.render_rows_vjp_cross_plain(pos, dirs, us, ud, vcfg)
+            for name, g, x in zip(("d_eye", "d_dir", "d_tgt"), got, want):
+                errors.check("disc_eye_bwd", f"disc_eye_bwd B={b} N={n} W={w} aa={aa} {name}",
+                             g, x, 2e-4, 2e-4 * x.abs().max().item())
+
+
+def phase_grad_reference() -> None:
+    """The autograd Functions on the card (forward and backward kernels)
+    against plain autograd of the dense backend on the CPU, same inputs:
+    gravity against float64 (float32 autograd through the dense force
+    cancels: it is the less exact side, DESIGN.md section 4b), the eye
+    against float32 (the same forward arithmetic)."""
+    gen = torch.Generator().manual_seed(3)
+    pos0 = torch.rand((3, 96, 2), generator=gen) * 60 - 30
+    vel0 = torch.rand((3, 96, 2), generator=gen) * 2 - 1
+    us = torch.randn((3, 96, 48), generator=gen)
+    gcfg = GravityConfig()
+
+    def grad_of(loss_fn, device, dtype=torch.float32):
+        p = pos0.to(device, dtype, copy=True).requires_grad_()
+        v = vel0.to(device, dtype, copy=True).requires_grad_()
+        loss_fn(p, v).backward()
+        return [None if x.grad is None else x.grad.cpu().double() for x in (p, v)]
+
+    got = grad_of(lambda p, v: (pairwise.gravity_forces_diff(p, gcfg) ** 2).sum(), "cuda")[0]
+    want = grad_of(lambda p, v: (dense.gravity_forces(p, gcfg) ** 2).sum(), "cpu",
+                   torch.float64)[0]
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log("kernels", f"gravity_forces_diff (cuda) vs dense float64 autograd (cpu): "
+        f"err/max|grad| {err:.3e} (bound 3e-5)")
+    if not err < 3e-5:
+        raise AssertionError("gravity_forces_diff disagrees with dense autograd")
+    for aa in (False, True):
+        vcfg = VisionConfig(width=48, antialias=aa)
+        got = grad_of(lambda p, v: (raycast.render_rows_diff(p, v, vcfg)[0]
+                                    * us.to(p.device)).sum(), "cuda")
+        want = grad_of(lambda p, v: (render.render_rows(p, v, vcfg)[0] * us).sum(), "cpu")
+        errs = [((g - x).abs().max() / x.abs().max()).item() for g, x in zip(got, want)]
+        log("kernels", f"render_rows_diff (cuda) vs dense autograd (cpu), aa={aa}: "
+            f"err/max|grad| pos {errs[0]:.3e} vel {errs[1]:.3e} (bound 2e-4)")
+        if not max(errs) < 2e-4:
+            raise AssertionError("render_rows_diff disagrees with dense autograd")
+
+
 def phase_small_reference() -> None:
     """The slice on the kernels (CUDA) against the dense path (CPU) at a
     small size, for 5 steps of each controller, batched and unbatched."""
@@ -229,10 +352,125 @@ def phase_slice() -> dict:
     counts = common.launch_counts()
     log("slice", f"configs 2, 3, 4, 5, reference-100 and entry() ran in "
         f"{time.perf_counter() - t0:.2f} s; launches {counts}")
-    missing = [k for k, c in counts.items() if c == 0]
+    missing = [k for k in SERVING if counts[k] == 0]
     if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+        raise AssertionError(f"the serving path never launched {missing}")
     return counts
+
+
+def phase_apg_routes() -> None:
+    """APG with diff_vision (antialias, visibility reward, the CLI's default
+    actuation) at config-5 width on fewer envs: the kernel route against
+    backend='dense' (plain autograd) on the card, same seed. At horizon 1
+    the parameter gradients must agree (bound 1e-3 of their norm: the eye's
+    backward kernel against autograd, rtol 2e-4 per element in phase 3).
+    At horizon 8 both grad norms are printed, not held to a bound: from
+    horizon 2 on, this gradient is ill-conditioned in the inputs (PERF.md
+    section 7: a 1e-6 relative change of the spawn moves it by factors),
+    so a different summation order may too."""
+    for horizon, envs in ((1, 16), (8, 4)):
+        grads = {}
+        for backend in ("pallas", "dense"):
+            cfg = SimConfig(n=TRAIN_AGENTS, controller="gravity", backend=backend,
+                            vision=VisionConfig(width=TRAIN_WIDTH, antialias=True))
+            env = VisionEnv(cfg, reward_mode="visibility")
+            ts = apg.init_apg_state(env, seed=0, device="cuda")
+            apg.make_apg_step(env, horizon=horizon, num_envs=envs, diff_vision=True)(ts)
+            grads[backend] = torch.cat([p.grad.flatten() for p in ts.policy.parameters()])
+        got, want = grads["pallas"], grads["dense"]
+        expect(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+               f"finite APG gradients at horizon {horizon}")
+        rel = ((got - want).norm() / want.norm()).item()
+        log("train", f"apg diff_vision {envs} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon "
+            f"{horizon}: grad_norm kernels {got.norm().item():.6e}, dense "
+            f"{want.norm().item():.6e}, |difference| / |dense| {rel:.3e}"
+            + (" (bound 1e-3)" if horizon == 1 else " (no bound: ill-conditioned)"))
+        if horizon == 1 and not rel < 1e-3:
+            raise AssertionError("APG gradients: the kernel route disagrees with dense autograd")
+
+
+class ParamWatch:
+    """Snapshots the parameters of the first optimizer that steps inside the
+    block, before that step (a global optimizer pre-hook), to tell whether
+    the run moved them."""
+
+    def __enter__(self):
+        self.before = self.optimizer = None
+
+        def pre_hook(optimizer, args, kwargs):
+            if self.optimizer is None:
+                self.optimizer = optimizer
+                self.before = [p.detach().clone() for p in self._params()]
+
+        self.handle = register_optimizer_step_pre_hook(pre_hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def _params(self):
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    def moved(self) -> float:
+        if self.optimizer is None:
+            return 0.0
+        return max((p.detach() - b).abs().max().item()
+                   for p, b in zip(self._params(), self.before))
+
+
+def check_metrics(label: str, rows, iters: int, moved: float) -> None:
+    expect(len(rows) == iters, f"{label}: {iters} metric lines")
+    for row in rows:
+        expect(all(math.isfinite(v) for v in row.values()), f"{label}: finite metrics {row}")
+        if "grad_norm" in row:
+            expect(row["grad_norm"] > 0, f"{label}: grad_norm > 0 {row}")
+    expect(moved > 0, f"{label}: the parameters moved")
+    log("train", f"{label}: parameters moved by up to {moved:.3e}; last {json.dumps(rows[-1])}")
+
+
+def phase_train():
+    """The training path at config-5 width; returns (each run's metric rows,
+    the launch counts of the path)."""
+    common.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs = {}
+    for algo in ("reinforce", "apg"):
+        out = io.StringIO()
+        with ParamWatch() as watch, contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--algo", algo, "--envs", str(TRAIN_ENVS),
+                           "--agents", str(TRAIN_AGENTS), "--vision-width", str(TRAIN_WIDTH),
+                           "--horizon", str(TRAIN_HORIZON), "--iters", "3", "--seed", "0"])
+        expect(rc == 0, f"train --algo {algo} exits 0")
+        runs[algo] = [json.loads(line) for line in out.getvalue().splitlines()]
+        check_metrics(f"train --algo {algo}", runs[algo], 3, watch.moved())
+
+    env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity",
+                              vision=VisionConfig(width=TRAIN_WIDTH, antialias=True)),
+                    reward_mode="visibility")
+    ts = apg.init_apg_state(env, seed=0, device="cuda")
+    step = apg.make_apg_step(env, horizon=TRAIN_HORIZON, num_envs=TRAIN_ENVS, diff_vision=True)
+    rows = []
+    with ParamWatch() as watch:
+        for i in range(2):
+            t1 = time.perf_counter()
+            ts, metrics = step(ts)
+            row = {k: float(v) for k, v in metrics.items()}
+            row.update(iter=i, sec=time.perf_counter() - t1,
+                       agent_frames=TRAIN_ENVS * TRAIN_AGENTS * TRAIN_HORIZON)
+            rows.append(row)
+    runs["apg diff_vision"] = rows
+    check_metrics("apg diff_vision (antialias, visibility)", rows, 2, watch.moved())
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    log("train", f"REINFORCE, APG and APG diff_vision at {TRAIN_ENVS} x {TRAIN_AGENTS} x "
+        f"{TRAIN_WIDTH}, horizon {TRAIN_HORIZON}, ran in {time.perf_counter() - t0:.2f} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"launches {counts}")
+    missing = [k for k in TRAINING if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the training path never launched {missing}")
+    return runs, counts
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -294,6 +532,43 @@ def phase_times(gen, card: str) -> dict:
                 f"{frames / k_ms * 1e3:.4e} agent-frames/s; plain {p_ms:.3f} ms = "
                 f"{frames / p_ms * 1e3:.4e} agent-frames/s [{card}]")
 
+    # the backward kernels against their plain versions
+    u = torch.randn((n, 2), generator=gen, device="cuda")
+    p_ms, k_ms = alternate(lambda: pairwise.gravity_vjp_plain(pos, u, gcfg),
+                           lambda: pairwise.gravity_vjp_tiled(pos, u, gcfg), 2, 5)
+    times["gravity_vjp"] = (k_ms, p_ms)
+    log("times", f"gravity_vjp N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair "
+        f"evals/s; plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
+    for b, n_e, w in ((1, 1024, 64), (64, 256, 64)):
+        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+        epos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
+        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-3
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa)
+            _, _, winner = raycast.disc_eye_with_winner(epos, dirs, epos, vcfg)
+            p_ms, k_ms = alternate(
+                lambda: raycast.render_rows_vjp_cross_plain(epos, dirs, us, ud, vcfg),
+                lambda: raycast.render_rows_vjp_cross(epos, dirs, winner, us, ud, vcfg), 2, 10)
+            if (b, n_e, w, aa) == (1, 1024, 64, False):
+                times["disc_eye_bwd"] = (k_ms, p_ms)
+            log("times", f"disc_eye_bwd B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
+                f"{b * n_e / k_ms * 1e3:.4e} agent-frames/s; plain (autograd through the "
+                f"plain renderer) {p_ms:.3f} ms [{card}]")
+    # what writing the winner index costs the forward, at the trainers' shape
+    shape = (TRAIN_ENVS, TRAIN_AGENTS, 2)
+    epos = uniform(gen, shape, -100, 100)
+    dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+    for aa in (False, True):
+        vcfg = VisionConfig(width=TRAIN_WIDTH, antialias=aa)
+        bare, with_winner = alternate(
+            lambda: raycast.disc_eye(epos, dirs, epos, vcfg),
+            lambda: raycast.disc_eye_with_winner(epos, dirs, epos, vcfg), 5, 5)
+        log("times", f"disc_eye {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH} aa={aa}: "
+            f"without the winner index {bare:.3f} ms, writing it {with_winner:.3f} ms "
+            f"({with_winner / bare - 1:+.2%}) [{card}]")
+
     # steps/s of the config-2 rollout and of entry(): kernels vs dense, on the card
     def rollout_rate(backend: str) -> float:
         cfg = dataclasses.replace(PRESETS["gravity-vision-1024"](), backend=backend)
@@ -325,6 +600,19 @@ def phase_times(gen, card: str) -> dict:
     return times
 
 
+def log_train_times(runs: dict, card: str) -> None:
+    """Seconds per training iteration (host clock; each iteration ends when
+    its metrics reach the host) and agent-frames/s, first iteration (build
+    and warm-up) left out."""
+    for label, rows in runs.items():
+        secs = [row["sec"] for row in rows[1:]]
+        sec = sum(secs) / len(secs)
+        log("times", f"train {label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon "
+            f"{TRAIN_HORIZON}: {sec:.4f} s/iteration ({', '.join(f'{x:.4f}' for x in secs)}) = "
+            f"{rows[0]['agent_frames'] / sec:.4e} agent-frames/s; first iteration "
+            f"{rows[0]['sec']:.4f} s [{card}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
@@ -348,14 +636,22 @@ def main() -> None:
     errors = Errors()
     with torch.no_grad():
         phase_kernels(errors, gen)
+        phase_backward_kernels(errors, gen)
         phase_small_reference()
-        counts = phase_slice()
+    phase_grad_reference()
+    with torch.no_grad():
+        serving = phase_slice()
+    phase_apg_routes()
+    runs, training = phase_train()
+    with torch.no_grad():
         times = phase_times(gen, smi)
+    log_train_times(runs, smi)
 
     kernels = []
     for name, info in KERNEL_INFO.items():
         k_ms, p_ms = times[name]
-        kernels.append({"name": name, "route": "cuda", **info, "launches": counts[name],
+        kernels.append({"name": name, "route": "cuda", **info,
+                        "launches": serving[name] + training[name],
                         "max_abs_err": errors.max_abs[name], "ms": k_ms, "plain_ms": p_ms})
     print(smi)
     print(json.dumps({"kernels": kernels}))

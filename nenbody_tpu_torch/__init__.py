@@ -1,12 +1,15 @@
 """nenbody_tpu_torch: the PyTorch and CUDA port of nenbody-tpu.
 
 A second package beside the JAX one (`nenbody_tpu`, the reference it is held
-against), for NVIDIA Hopper cards. It imports torch and never jax. Its main
-path is the JAX package's: seeded spawn -> a physics step (all-pairs gravity
-or boids) -> the per-agent 1D disc eye -> the shared MLP policy, for one env
-or a batch of envs, on three hand-written CUDA kernels (nenbody_tpu_torch/
-csrc, built with nvcc at first use) that replace the Pallas kernels of the
-JAX package; on CPU tensors each kernel's plain PyTorch version runs.
+against), for NVIDIA Hopper cards. It imports torch and never jax. Its
+paths are the JAX package's: serving (seeded spawn -> a physics step,
+all-pairs gravity or boids -> the per-agent 1D disc eye -> the shared MLP
+policy, for one env or a batch of envs) and training (REINFORCE and APG,
+rl.train and rl.apg, `python -m nenbody_tpu_torch train`), on hand-written
+CUDA kernels (nenbody_tpu_torch/csrc, built with nvcc at first use) that
+replace the Pallas kernels of the JAX package, the backward kernels of
+gravity and the eye included; on CPU tensors each kernel's plain PyTorch
+version runs.
 
 Module names mirror the JAX package's, so each counterpart is easy to find.
 """

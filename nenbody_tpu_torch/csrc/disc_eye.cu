@@ -17,6 +17,9 @@
 // the rule of the plain version's argmin. The epilogue shades the winner with
 // the squared-radial vignette and, with antialias, box-filters its edge
 // coverage against the background (raycast.py::_decode_winner's outputs).
+// When the wrapper passes a winner buffer (autograd needs the pixel), the
+// kernel also writes each pixel's winning target index (-1 for background):
+// the residual of the backward kernel, disc_eye_bwd.cu.
 //
 // What bounds it: the fp32 divide of off for each (eye, target, pixel) that
 // is nearer than the current winner. Design: a block owns EG eyes x PB
@@ -50,7 +53,8 @@ struct EyeParams {
 __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
                                 const float2* __restrict__ eye_dir,
                                 const float2* __restrict__ tgt, float* __restrict__ shade,
-                                float* __restrict__ depth, int ne, int nt, int w, EyeParams q) {
+                                float* __restrict__ depth, int* __restrict__ winner, int ne,
+                                int nt, int w, EyeParams q) {
   __shared__ float s_f[THREADS];
   __shared__ float s_uc[THREADS];
   __shared__ float s_du[THREADS];
@@ -70,6 +74,7 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
   const float u_p = 2.0f * ((float)p + 0.5f) / (float)w - 1.0f;
 
   float best_d = INFINITY, best_off = 0.f, best_du = 1.f;
+  int best_j = -1;
   for (int j0 = 0; j0 < nt; j0 += pb) {
     const int j = j0 + threadIdx.x;
     float fv = INFINITY, uc = 0.f, du = 1.f, thr = 0.f;
@@ -105,6 +110,7 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
           best_d = fk;
           best_off = off;
           best_du = duk;
+          best_j = j0 + k;
         }
       }
     }
@@ -113,6 +119,7 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
 
   if (e < ne && p < w) {
     const long long o = ((long long)b * ne + e) * w + p;
+    if (winner) winner[o] = best_j;
     if (best_d < INFINITY) {
       const float oc = fminf(fmaxf(best_off, -1.0f), 1.0f);
       float val = q.albedo * (1.0f - 0.25f * oc * oc);
@@ -133,9 +140,11 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
 }  // namespace
 
 // eye_pos, eye_dir [B, Ne, 2]; tgt [B, Nt, 2]; shade, depth [B, Ne, W]; all
-// fp32, contiguous. Returns cudaGetLastError() after the launch.
+// fp32, contiguous; winner [B, Ne, W] int32, or null to skip it. Returns
+// cudaGetLastError() after the launch.
 extern "C" int nbt_disc_eye(const void* eye_pos, const void* eye_dir, const void* tgt,
-                            void* shade, void* depth, int batch, int ne, int nt, int w,
+                            void* shade, void* depth, void* winner, int batch, int ne, int nt,
+                            int w,
                             float tan_half_fov, float near_plane, float far_plane, float radius,
                             float inv_width, float half_width, float background, float albedo,
                             int antialias, void* stream) {
@@ -149,7 +158,7 @@ extern "C" int nbt_disc_eye(const void* eye_pos, const void* eye_dir, const void
     disc_eye_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(eye_pos), static_cast<const float2*>(eye_dir),
         static_cast<const float2*>(tgt), static_cast<float*>(shade), static_cast<float*>(depth),
-        ne, nt, w, q);
+        static_cast<int*>(winner), ne, nt, w, q);
   }
   return static_cast<int>(cudaGetLastError());
 }

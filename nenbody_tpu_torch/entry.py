@@ -22,7 +22,7 @@ CONFIG_2 = SimConfig(n=1024, controller="gravity", vision=VisionConfig(width=64)
 def make_entry_fn(env: VisionEnv):
     """`fn(policy, pos, vel) -> (pos, vel, obs, reward)`: observe, the
     policy's deterministic mean action, then `env.step`. Runs without
-    autograd (the kernels are forward-only)."""
+    autograd (inference: the forward-only launches, no residuals saved)."""
 
     @torch.no_grad()
     def fn(policy: MLPPolicy, pos: torch.Tensor, vel: torch.Tensor):

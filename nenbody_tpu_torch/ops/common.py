@@ -18,6 +18,11 @@ Dispatch. Each wrapper in the ops modules runs its kernel's plain PyTorch
 version for a tensor on the CPU, and the kernel for a CUDA tensor; for any
 other device, or a tensor the kernel does not take, it raises. A wrapper
 adds one to its kernel's launch count each time it launches the kernel.
+
+Gradients. Under torch.is_grad_enabled(), an input that requires grad
+routes a forward wrapper through its torch.autograd.Function (`needs_grad`),
+whose backward is the backward kernel (the plain version on the CPU).
+Without grad, the forward-only launch runs and saves nothing.
 """
 
 from __future__ import annotations
@@ -49,8 +54,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "nbt_gravity_forces": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
     "nbt_boids_velocity": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
-    "nbt_disc_eye": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "nbt_disc_eye": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    "nbt_gravity_vjp": [_P, _P, _P, _I, _I, _F, _F, _P],
+    "nbt_disc_eye_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 # Largest grid y/z extent a launch may use (the batch of envs rides it).
@@ -166,6 +174,8 @@ KERNELS: Dict[str, Kernel] = {
     "gravity": Kernel("gravity", "nbt_gravity_forces"),
     "boids": Kernel("boids", "nbt_boids_velocity"),
     "disc_eye": Kernel("disc_eye", "nbt_disc_eye"),
+    "gravity_vjp": Kernel("gravity_vjp", "nbt_gravity_vjp"),
+    "disc_eye_bwd": Kernel("disc_eye_bwd", "nbt_disc_eye_bwd"),
 }
 
 
@@ -201,12 +211,14 @@ def check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: needs contiguous tensors")
         if t.shape[-1] != 2:
             raise ValueError(f"{name}: needs [..., N, 2] tensors, got {tuple(t.shape)}")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(
-                f"{name}: the CUDA kernel is forward-only (its backward kernel "
-                f"comes with training, ROADMAP queue 2); use backend='dense' "
-                f"to differentiate"
-            )
+
+
+def needs_grad(*tensors: torch.Tensor | None) -> bool:
+    """True when autograd must see the op: grad mode is on and an input
+    requires grad. The wrappers then route through their autograd Function."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
 
 
 def stream_handle() -> int:

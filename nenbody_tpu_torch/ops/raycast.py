@@ -1,5 +1,5 @@
-"""The disc eye on the hand-written CUDA kernel (counterpart of the disc
-forward of nenbody_tpu/ops/raycast.py).
+"""The disc eye and its pullback on hand-written CUDA kernels (counterpart
+of the disc forward and the disc custom VJP of nenbody_tpu/ops/raycast.py).
 
 The JAX package carries the disc eye on two Pallas kernels, `_raster_kernel`
 (over XLA-precomputed [N_e, N_t] projections) and `_raycast_kernel`
@@ -10,8 +10,17 @@ takes any width and any N, and follows the plain renderer's arithmetic
 (vision.render.eye_rows), including its tie rule (lowest target index wins
 an exact depth tie — stricter than the Pallas kernels, raycast.py:12-14).
 
-Per-agent albedo, the texture's raw winner mode and the backward kernel are
-not ported yet (ROADMAP queue 1 item 8, queue 2 kernel 10).
+The pullback (the Pallas `_raycast_bwd_kernel`) is
+nenbody_tpu_torch/csrc/disc_eye_bwd.cu, the backward of the autograd
+Function `RenderRowsDiff`: when autograd needs the render, the forward
+kernel also writes each pixel's winning target index, and the backward
+kernel pulls the cotangents back through that one winner (the design is in
+the kernel's header). `disc_eye` and `render_rows_tiled` route through the
+Function when an input requires grad; the plain backward is autograd
+through the plain renderer, chunk by chunk over eyes.
+
+Per-agent albedo and the texture's raw winner mode are not ported yet
+(ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -23,34 +32,57 @@ import torch
 from ..config import VisionConfig
 from ..vision import camera, render
 from .common import (
-    KERNELS, check_batch, check_kernel_args, flat_batch, stream_handle, use_kernel,
+    KERNELS, check_batch, check_kernel_args, flat_batch, needs_grad, stream_handle,
+    use_kernel,
 )
 
 # The plain version: the dense renderer, chunked over eyes.
 disc_eye_plain = render.render_eyes
 
 
-def _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg: VisionConfig):
-    check_kernel_args("disc_eye", eye_pos, eye_dir, tgt)
+def _eye_args(cfg: VisionConfig):
+    """The float and flag arguments both eye kernels take, in C order."""
+    w = cfg.width
+    return (camera.tan_half_fov(cfg), cfg.near, cfg.far, cfg.sprite_radius,
+            1.0 / w, 0.5 * w, cfg.background, cfg.sprite_albedo, int(cfg.antialias))
+
+
+def _check_eye_shapes(name, eye_pos, eye_dir, tgt):
+    check_kernel_args(name, eye_pos, eye_dir, tgt)
     if eye_pos.shape != eye_dir.shape or tgt.shape[:-2] != eye_pos.shape[:-2]:
         raise ValueError(
-            f"disc_eye: eyes {tuple(eye_pos.shape)}/{tuple(eye_dir.shape)} and "
+            f"{name}: eyes {tuple(eye_pos.shape)}/{tuple(eye_dir.shape)} and "
             f"targets {tuple(tgt.shape)} must share batch dims"
         )
+
+
+def _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg: VisionConfig, with_winner: bool = False):
+    """(shade, depth, winner) from the kernel; winner [..., N_e, W] int32 is
+    None unless asked for."""
+    _check_eye_shapes("disc_eye", eye_pos, eye_dir, tgt)
     ep, ed, tp = flat_batch(eye_pos), flat_batch(eye_dir), flat_batch(tgt)
     batch, ne, nt, w = ep.shape[0], ep.shape[1], tp.shape[1], cfg.width
     check_batch("disc_eye", batch)
     shape = eye_pos.shape[:-1] + (w,)
     shade = torch.empty(shape, dtype=torch.float32, device=eye_pos.device)
     depth = torch.empty(shape, dtype=torch.float32, device=eye_pos.device)
+    winner = (torch.empty(shape, dtype=torch.int32, device=eye_pos.device)
+              if with_winner else None)
     KERNELS["disc_eye"].launch(
         ep.data_ptr(), ed.data_ptr(), tp.data_ptr(), shade.data_ptr(),
-        depth.data_ptr(), batch, ne, nt, w,
-        camera.tan_half_fov(cfg), cfg.near, cfg.far, cfg.sprite_radius,
-        1.0 / w, 0.5 * w, cfg.background, cfg.sprite_albedo,
-        int(cfg.antialias), stream_handle(),
+        depth.data_ptr(), None if winner is None else winner.data_ptr(),
+        batch, ne, nt, w, *_eye_args(cfg), stream_handle(),
     )
-    return shade, depth
+    return shade, depth, winner
+
+
+def disc_eye_with_winner(eye_pos, eye_dir, tgt, cfg: VisionConfig):
+    """(shade, depth, winner [..., N_e, W] int32) from the kernel, CUDA
+    tensors only: the forward as RenderRowsDiff runs it, with the backward
+    kernel's residual."""
+    if not use_kernel(eye_pos, eye_dir, tgt):
+        raise ValueError("disc_eye_with_winner: the winner index comes from the CUDA kernel")
+    return _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg, with_winner=True)
 
 
 def disc_eye(
@@ -61,9 +93,12 @@ def disc_eye(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(shade, depth) [..., N_e, W] of eyes at eye_pos with unit headings
     eye_dir [..., N_e, 2] against targets [..., N_t, 2]: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors; through RenderRowsDiff
+    when autograd needs the render."""
+    if needs_grad(eye_pos, eye_dir, tgt):
+        return RenderRowsDiff.apply(eye_pos, eye_dir, tgt, cfg)
     if use_kernel(eye_pos, eye_dir, tgt):
-        return _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg)
+        return _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg)[:2]
     return disc_eye_plain(eye_pos, eye_dir, tgt, cfg)
 
 
@@ -77,8 +112,128 @@ def render_rows_tiled(
 
     pos, vel: [..., N, 2] -> (shade [..., N, W], depth [..., N, W]).
     `targets` [..., M, 2] renders the eyes against another position set;
-    partial rows depth-merge with vision.render.merge_rows.
+    partial rows depth-merge with vision.render.merge_rows. Differentiable
+    (through RenderRowsDiff) when an input requires grad.
     """
     render.check_disc(cfg)
     tgt = pos if targets is None else targets
     return disc_eye(pos, camera.unit_heading(vel), tgt, cfg)
+
+
+def render_rows_vjp_cross_plain(
+    pos: torch.Tensor,
+    dirs: torch.Tensor,
+    us: torch.Tensor,
+    ud: torch.Tensor,
+    cfg: VisionConfig,
+    targets: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's plain PyTorch version: autograd through the
+    plain renderer (vision.render.eye_rows), chunk by chunk over eyes so
+    that each chunk's [..., chunk, M, W] tensors stay within
+    PLAIN_PIXEL_BUDGET elements. Returns (d pos, d dirs, d targets)."""
+    tgt = pos if targets is None else targets
+    e, m = pos.shape[-2], tgt.shape[-2]
+    batch = pos[..., 0, 0].numel()
+    chunk = max(1, render.PLAIN_PIXEL_BUDGET // max(1, batch * m * cfg.width))
+    deye, ddirs = [], []
+    dtgt = torch.zeros_like(tgt)
+    with torch.enable_grad():
+        t = tgt.detach().requires_grad_()
+        for i in range(0, e, chunk):
+            p = pos[..., i:i + chunk, :].detach().requires_grad_()
+            d = dirs[..., i:i + chunk, :].detach().requires_grad_()
+            shade, depth = render.eye_rows(p, d, t, cfg)
+            loss = ((shade * us[..., i:i + chunk, :]).sum()
+                    + (depth * ud[..., i:i + chunk, :]).sum())
+            gp, gd, gt = torch.autograd.grad(loss, (p, d, t), materialize_grads=True)
+            deye.append(gp)
+            ddirs.append(gd)
+            dtgt += gt
+    return torch.cat(deye, dim=-2), torch.cat(ddirs, dim=-2), dtgt
+
+
+def _render_rows_vjp_cuda(pos, dirs, tgt, winner, us, ud, cfg: VisionConfig):
+    _check_eye_shapes("disc_eye_bwd", pos, dirs, tgt)
+    shape = pos.shape[:-1] + (cfg.width,)
+    if winner is None or winner.dtype != torch.int32 or winner.shape != shape:
+        raise ValueError(
+            f"disc_eye_bwd: needs the forward's int32 winner index {tuple(shape)}"
+        )
+    for t in (winner, us, ud):
+        if t.device != pos.device or not t.is_contiguous() or t.shape != shape:
+            raise ValueError(
+                f"disc_eye_bwd: cotangents and winner must be contiguous "
+                f"{tuple(shape)} on {pos.device}"
+            )
+    if us.dtype != torch.float32 or ud.dtype != torch.float32:
+        raise TypeError("disc_eye_bwd: needs float32 cotangents")
+    ep, ed, tp = flat_batch(pos), flat_batch(dirs), flat_batch(tgt)
+    batch, ne, nt = ep.shape[0], ep.shape[1], tp.shape[1]
+    check_batch("disc_eye_bwd", batch)
+    g_eye, g_dir, g_tgt = torch.zeros_like(pos), torch.zeros_like(dirs), torch.zeros_like(tgt)
+    KERNELS["disc_eye_bwd"].launch(
+        ep.data_ptr(), ed.data_ptr(), tp.data_ptr(), winner.data_ptr(), us.data_ptr(),
+        ud.data_ptr(), g_eye.data_ptr(), g_dir.data_ptr(), g_tgt.data_ptr(),
+        batch, ne, nt, cfg.width, *_eye_args(cfg), stream_handle(),
+    )
+    return g_eye, g_dir, g_tgt
+
+
+def render_rows_vjp_cross(
+    pos: torch.Tensor,
+    dirs: torch.Tensor,
+    winner: torch.Tensor | None,
+    us: torch.Tensor,
+    ud: torch.Tensor,
+    cfg: VisionConfig,
+    targets: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pullback of the eye render: cotangents (us, ud) [..., N, W] on
+    (shade, depth) -> (d eye-pos [..., N, 2], d dirs [..., N, 2],
+    d targets [..., M, 2]). The CUDA kernel for CUDA tensors, which needs
+    the winner index its forward wrote; the plain version (which ignores
+    `winner`) for CPU tensors."""
+    tgt = pos if targets is None else targets
+    if use_kernel(pos, dirs, tgt, us, ud):
+        return _render_rows_vjp_cuda(pos, dirs, tgt, winner, us, ud, cfg)
+    return render_rows_vjp_cross_plain(pos, dirs, us, ud, cfg, tgt)
+
+
+class RenderRowsDiff(torch.autograd.Function):
+    """(eye_pos, dirs, targets) -> (shade, depth) with the backward kernel
+    as its backward (raycast.py:840-863 of the JAX package). The heading
+    `dirs` is an input, so autograd pulls d dirs back through
+    camera.unit_heading to the velocity; when the targets are the eyes'
+    own positions, the same tensor is passed twice and autograd adds the
+    eye and target shares."""
+
+    @staticmethod
+    def forward(ctx, eye_pos, dirs, tgt, cfg: VisionConfig):
+        ctx.cfg = cfg
+        winner = None
+        if use_kernel(eye_pos, dirs, tgt):
+            shade, depth, winner = _disc_eye_cuda(
+                eye_pos, dirs, tgt, cfg, with_winner=any(ctx.needs_input_grad))
+        else:
+            shade, depth = disc_eye_plain(eye_pos, dirs, tgt, cfg)
+        ctx.save_for_backward(eye_pos, dirs, tgt, winner)
+        return shade, depth
+
+    @staticmethod
+    def backward(ctx, us, ud):
+        eye_pos, dirs, tgt, winner = ctx.saved_tensors
+        deye, ddirs, dtgt = render_rows_vjp_cross(
+            eye_pos, dirs, winner, us.contiguous(), ud.contiguous(), ctx.cfg, targets=tgt)
+        return deye, ddirs, dtgt, None
+
+
+def render_rows_diff(
+    pos: torch.Tensor, vel: torch.Tensor, cfg: VisionConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """render_rows_tiled through RenderRowsDiff, whatever grad mode says:
+    rollouts that look at the world differentiate through perception. Use
+    cfg.antialias=True for useful gradients: binary coverage is piecewise
+    constant in positions, the antialiased observation piecewise linear."""
+    render.check_disc(cfg)
+    return RenderRowsDiff.apply(pos, camera.unit_heading(vel), pos, cfg)

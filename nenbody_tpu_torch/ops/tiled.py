@@ -14,7 +14,9 @@ from .pairwise import gravity_forces_tiled
 
 def gravity_step(state: SceneState, cfg: SimConfig, generator=None) -> SceneState:
     """Reference integration (src/main.rs:434-436): v += g*dt; x += v
-    (or x += v*dt in corrected mode — dense.gravity_integrate)."""
+    (or x += v*dt in corrected mode — dense.gravity_integrate). When
+    autograd needs the forces they go through the VJP kernel's autograd
+    Function (gravity_forces_tiled routes), so rollouts differentiate."""
     g = gravity_forces_tiled(state.pos, cfg.gravity)
     return dense.gravity_integrate(state, g, cfg)
 

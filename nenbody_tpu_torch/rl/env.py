@@ -10,6 +10,12 @@ difference (closed-form counterfactual) and visibility.
 Unlike the JAX env, which is vmapped for batches, every method here takes
 leading batch dims directly ([B, N, 2] states): the kernels run the whole
 batch in one launch.
+
+Every method is differentiable on every backend: dense is plain autograd;
+on the kernel backend the wrappers route the forces through
+pairwise.GravityForcesDiff (the VJP kernel) and the observation through
+raycast.RenderRowsDiff (the eye's backward kernel) whenever autograd needs
+them (rl/apg.py), and launch forward-only otherwise.
 """
 
 from __future__ import annotations
@@ -73,7 +79,8 @@ class VisionEnv:
         return action.clamp(-self.max_accel, self.max_accel)
 
     def observe(self, state: SceneState) -> torch.Tensor:
-        """[..., N, W+2]: the eye line plus the raw ego velocity."""
+        """[..., N, W+2]: the eye line plus the raw ego velocity;
+        differentiable through perception when the state requires grad."""
         lines = self._render(state.pos, state.vel)[0]
         return torch.cat([lines, state.vel], dim=-1)
 
@@ -82,10 +89,12 @@ class VisionEnv:
             return dense.gravity_forces(pos, self.cfg.gravity)
         from ..ops import pairwise
 
+        # through the VJP kernel's autograd Function when autograd needs it
         return pairwise.gravity_forces_tiled(pos, self.cfg.gravity)
 
     def dynamics(self, state: SceneState, action: torch.Tensor) -> SceneState:
-        """Physics-only transition (no observation)."""
+        """Physics-only transition (no observation), differentiable on every
+        backend."""
         accel = self.actuate(action)
         g = self._forces(state.pos)
         gcfg = self.cfg.gravity

@@ -1,6 +1,6 @@
 """Gaussian MLP policy over per-agent 1D vision observations (counterpart of
-nenbody_tpu/rl/policy.py::MLPPolicy; the other policy families wait, ROADMAP
-queue 1 item 13).
+nenbody_tpu/rl/policy.py: MLPPolicy, sample_action, gaussian_log_prob; the
+other policy families wait, ROADMAP queue 1 item 13).
 
 One weight set is shared by all agents: the per-agent forward is a batched
 matmul over the agent axis. Actions are 2D control accelerations with a
@@ -10,6 +10,8 @@ learned state-independent log-std.
 from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
+
+import math
 
 import numpy as np
 import torch
@@ -58,6 +60,14 @@ class MLPPolicy(nn.Module):
         return mean, self.log_std
 
 
+def init_mlp_policy(obs_dim: int, seed: int, use_bf16: bool = True) -> MLPPolicy:
+    """An MLPPolicy whose weights come from `seed`, leaving the global
+    torch random state as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return MLPPolicy(obs_dim, use_bf16=use_bf16)
+
+
 def mlp_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     """Map flax MLPPolicy params to MLPPolicy's state_dict — the weight
     crossing between the packages.
@@ -76,3 +86,22 @@ def mlp_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
         out[f"{prefix}.bias"] = torch.tensor(np.asarray(p[name]["bias"], dtype=np.float32))
     out["log_std"] = torch.tensor(np.asarray(p["log_std"], dtype=np.float32))
     return out
+
+
+def sample_action(
+    policy: nn.Module, obs: torch.Tensor, generator: torch.Generator
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample a[..., 2] ~ N(mean, exp(log_std)) with noise from `generator`
+    (on obs's device); returns (action, log_prob [...])."""
+    mean, log_std = policy(obs)
+    eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    action = mean + torch.exp(log_std) * eps
+    return action, gaussian_log_prob(action, mean, log_std)
+
+
+def gaussian_log_prob(
+    action: torch.Tensor, mean: torch.Tensor, log_std: torch.Tensor
+) -> torch.Tensor:
+    """Sum over the action dim: [..., act_dim] -> [...]."""
+    z = (action - mean) / torch.exp(log_std)
+    return (-0.5 * z * z - log_std - 0.5 * math.log(2 * math.pi)).sum(dim=-1)

@@ -60,7 +60,11 @@ def make_step_fn(cfg: SimConfig) -> Callable[..., SceneState]:
 
 
 def _render_fn(cfg: SimConfig) -> Callable:
-    """`(pos, vel) -> (shade, depth)` on the route the backend picks."""
+    """`(pos, vel) -> (shade, depth)` on the route the backend picks. The
+    dense route is plain autograd; the kernel route goes through
+    raycast.RenderRowsDiff (the backward kernel) when grad is enabled and
+    an input requires grad, and through the forward-only launch otherwise
+    (the routing is raycast.disc_eye's)."""
     from .vision import render
 
     render.check_disc(cfg.vision)

@@ -7,7 +7,8 @@ Run them on a machine with a GPU (no jax needed there, hence --noconftest):
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are the JAX suite's between its Pallas kernels and its dense
-oracle (tests/test_kernels.py), with the reason beside each.
+oracle (tests/test_kernels.py, tests/test_diff_vision.py), with the reason
+beside each.
 """
 
 import dataclasses
@@ -20,7 +21,7 @@ from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
 from nenbody_tpu_torch.ops import boids as boids_ops
 from nenbody_tpu_torch.ops import common, pairwise, raycast
 from nenbody_tpu_torch.physics import dense
-from nenbody_tpu_torch.vision import camera
+from nenbody_tpu_torch.vision import camera, render
 
 pytestmark = pytest.mark.cuda
 
@@ -111,15 +112,115 @@ def test_disc_eye_kernel_matches_plain(cuda, b, n, w, aa):
 
 
 def test_launch_counts_and_grad_guard(cuda):
+    """Without grad the forward-only launches run; a tensor that requires
+    grad goes through the autograd Functions, whose backward launches the
+    backward kernels once each."""
     common.reset_launch_counts()
     cfg = SimConfig(n=64, controller="gravity", vision=VisionConfig(width=32))
     scene = Scene(cfg, device=cuda)
     scene.observe(scene.step(scene.spawn(0)))
     counts = common.launch_counts()
     assert counts["gravity"] == 1 and counts["disc_eye"] == 1
+    assert counts["gravity_vjp"] == 0 and counts["disc_eye_bwd"] == 0
     pos = _uniform((64, 2), -100, 100, 0, cuda).requires_grad_()
+    vel = _uniform((64, 2), -1, 1, 1, cuda).requires_grad_()
+    g = pairwise.gravity_forces_tiled(pos, GravityConfig())
+    shade, _ = raycast.render_rows_tiled(pos, vel, VisionConfig(width=32, antialias=True))
+    assert common.launch_counts()["gravity"] == 2 and common.launch_counts()["disc_eye"] == 2
+    ((g * g).sum() + shade.sum()).backward()
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    assert counts["gravity_vjp"] == 1 and counts["disc_eye_bwd"] == 1
+    assert torch.isfinite(pos.grad).all() and torch.isfinite(vel.grad).all()
     with pytest.raises(NotImplementedError):
-        pairwise.gravity_forces_tiled(pos, GravityConfig())
+        pairwise.gravity_forces_tiled(pos, GravityConfig(), pos.detach())
+    with pytest.raises(ValueError, match="winner"):
+        raycast.render_rows_vjp_cross(pos.detach(), vel.detach(), None, shade.detach(),
+                                      shade.detach(), VisionConfig(width=32))
+
+
+def _scaled_close(got, want, tol):
+    """|got - want| / max|want| < tol (the pair sums cancel)."""
+    torch.cuda.synchronize()
+    scale = want.abs().max()
+    assert scale > 0
+    assert ((got - want).abs().max() / scale).item() < tol
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (16, 2), (257, 2), (1000, 2), (3, 300, 2), (2, 77, 2),
+                                   (4096, 256, 2)])  # the last: the trainers' (config 5)
+def test_gravity_vjp_kernel_matches_plain(cuda, shape):
+    # the closed form in another summation order: test_kernels.py:141-155's
+    # normalized bound
+    pos = _uniform(shape, -100, 100, shape[-2], cuda)
+    u = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    cfg = GravityConfig()
+    got = pairwise.gravity_vjp_tiled(pos, u, cfg)
+    want = pairwise.gravity_vjp_plain(pos, u, cfg)
+    if shape[-2] == 1:  # the self-pair alone: exactly 0
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        _scaled_close(got, want, 3e-5)
+    # the backward is exact whatever the forward's approx_reciprocal
+    torch.testing.assert_close(
+        pairwise.gravity_vjp_tiled(pos, u, GravityConfig(approx_reciprocal=True)), got,
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 1024, 64), (1, 100, 1024), (1, 60, 32), (64, 256, 64),
+                                   (5, 33, 17), (4096, 256, 64)])  # the last: the trainers'
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_bwd_kernel_matches_plain(cuda, b, n, w, aa):
+    # test_diff_vision.py:31-57's tolerances: per-pixel terms round apart
+    # and the target sums run in atomic (run-to-run) order
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -100, 100, n, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    us = torch.randn(shape[:-1] + (w,), generator=gen, device=cuda)
+    ud = torch.randn(shape[:-1] + (w,), generator=gen, device=cuda) * 1e-3
+    shade, depth, winner = raycast.disc_eye_with_winner(pos, dirs, pos, cfg)
+    ws, wd = raycast.disc_eye_plain(pos, dirs, pos, cfg)
+    # bit for bit at power-of-two widths; at others the plain pixel centres
+    # divide by W through a reciprocal on the card (the forward's tolerances)
+    _close(depth, wd, 1e-5, 1e-4)
+    _close(shade, ws, 1e-5, 1e-5)
+    got = raycast.render_rows_vjp_cross(pos, dirs, winner, us, ud, cfg)
+    want = raycast.render_rows_vjp_cross_plain(pos, dirs, us, ud, cfg)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert x.abs().max() > 0
+        torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_autograd_functions_on_cuda_match_dense_cpu(cuda, aa):
+    """The Functions' gradients on the card against plain autograd of the
+    dense backend on the CPU, on the same inputs: gravity against float64,
+    because float32 autograd through the dense force cancels (it is the less
+    exact side, DESIGN.md section 4b; test_kernels.py:141-155's normalized
+    bound); the eye against float32 (the same forward arithmetic;
+    test_diff_vision.py's tolerances)."""
+    pos0 = _uniform((2, 48, 2), -30, 30, 5, "cpu")
+    vel0 = _uniform((2, 48, 2), -1, 1, 6, "cpu")
+    us = _uniform((2, 48, 40), -1, 1, 7, "cpu")
+    cfg, gcfg = VisionConfig(width=40, antialias=aa), GravityConfig()
+
+    def grads(loss_fn, device, dtype=torch.float32):
+        p = pos0.to(device, dtype, copy=True).requires_grad_()
+        v = vel0.to(device, dtype, copy=True).requires_grad_()
+        loss_fn(p, v).backward()
+        return [None if x.grad is None else x.grad.cpu().double() for x in (p, v)]
+
+    got = grads(lambda p, v: (pairwise.gravity_forces_diff(p, gcfg) ** 2).sum(), cuda)[0]
+    want = grads(lambda p, v: (dense.gravity_forces(p, gcfg) ** 2).sum(), "cpu",
+                 torch.float64)[0]
+    assert ((got - want).abs().max() / want.abs().max()).item() < 3e-5
+    got = grads(lambda p, v: (raycast.render_rows_diff(p, v, cfg)[0] * us.to(cuda)).sum(), cuda)
+    want = grads(lambda p, v: (render.render_rows(p, v, cfg)[0] * us).sum(), "cpu")
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
 
 
 @pytest.mark.parametrize("controller", ["gravity", "boids"])

@@ -188,8 +188,10 @@ def test_cpu_tensors_take_the_plain_version():
     p = _t(pos).requires_grad_()
     g = pairwise.gravity_forces_tiled(p, GravityConfig())
     tboids.boids_velocity_tiled(_t(pos), _t(vel), BoidsConfig())
-    assert common.launch_counts() == {"gravity": 0, "boids": 0, "disc_eye": 0}
+    assert common.launch_counts() == {"gravity": 0, "boids": 0, "disc_eye": 0,
+                                      "gravity_vjp": 0, "disc_eye_bwd": 0}
     (g * g).sum().backward()
+    assert common.launch_counts()["gravity_vjp"] == 0
     assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
     with pytest.raises(ValueError):
         common.use_kernel(torch.zeros(2, 2, device="meta"))
