@@ -5,14 +5,14 @@
 
 Phases, one line each (any failure raises and the exit code is non-zero):
   1. device   — the card's name and power limit; TF32 off.
-  2. build    — nvcc builds the five kernels from nenbody_tpu_torch/csrc
+  2. build    — nvcc builds the six kernels from nenbody_tpu_torch/csrc
                 into build/nenbody_tpu_torch/ (one nvcc per source, all at
                 once); ptxas reports registers, shared memory and spills.
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the main paths' shapes (the backward kernels also at the
-                trainers'), with the tolerance stated; the autograd
-                Functions' gradients on the card against plain autograd on
-                the CPU.
+                at the main paths' shapes (the backward kernels and the
+                wireframe eye also at the trainers'), with the tolerance
+                stated; the autograd Functions' gradients on the card
+                against plain autograd.
   4. slice    — the serving path through the user's entry points (Scene
                 rollouts at BASELINE configs 2, 3, 4, 5 and reference-100,
                 and the port's entry()), launch counts read before and after.
@@ -24,14 +24,24 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 (antialias, visibility reward); metrics finite,
                 grad_norm > 0, parameters moved, launch counts read before
                 and after. Runs with autograd on.
+     wireframe — the exact wireframe eye's paths, each with its launch
+                counts read before and after: Scene rollouts with
+                sprite_mode='wireframe' at config 2 and reference-100, then
+                `train --algo reinforce --sprite-mode wireframe` of the CLI
+                and APG with diff_vision (antialias, visibility) at
+                config-5 width.
   5. times    — CUDA-event times of each kernel and its plain version,
-                alternated (plain, kernel, kernel, plain), the eye with and
-                without its winner index, steps/s of the config-2 rollout
-                and of entry(), and seconds per training iteration and
-                agent-frames/s of each trainer.
+                alternated (plain, kernel, kernel, plain), the eyes with and
+                without their winner index, steps/s of the config-2 rollout
+                (both sprites), reference-100 (wireframe) and entry(), and
+                seconds per training iteration and agent-frames/s of each
+                trainer.
 The line before the last is a JSON object with one entry per kernel
-(`launches` sums the two paths' counts); the last line is
-{"ok": true, "device": {...}}. Imports no jax.
+(`launches` sums the paths' counts; `bound_ms` is the larger of the
+operations over the card's fp32 peak and the bytes over its memory rate,
+for the inputs timed; `library_ms` is null: no single PyTorch call computes
+any of these functions); the last line is {"ok": true, "device": {...}}.
+Imports no jax.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import subprocess
@@ -52,7 +63,7 @@ from nenbody_tpu_torch import PRESETS, Scene, SimConfig, VisionConfig, cli
 from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
 from nenbody_tpu_torch.entry import entry
 from nenbody_tpu_torch.ops import boids as boids_ops
-from nenbody_tpu_torch.ops import common, pairwise, raycast
+from nenbody_tpu_torch.ops import common, pairwise, raycast, wireframe
 from nenbody_tpu_torch.physics import dense
 from nenbody_tpu_torch.rl import apg
 from nenbody_tpu_torch.rl.env import VisionEnv
@@ -70,12 +81,32 @@ KERNEL_INFO = {
                         replaces="nenbody_tpu/ops/pairwise.py:161"),
     "disc_eye_bwd": dict(source="nenbody_tpu_torch/csrc/disc_eye_bwd.cu",
                          replaces="nenbody_tpu/ops/raycast.py:649"),
+    "wireframe_eye": dict(source="nenbody_tpu_torch/csrc/wireframe_eye.cu",
+                          replaces="nenbody_tpu/ops/wireframe.py:376",
+                          also_replaces=["nenbody_tpu/ops/wireframe.py:877",
+                                         "nenbody_tpu/ops/wireframe.py:545",
+                                         "nenbody_tpu/ops/wireframe.py:288"]),
 }
 EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64)]
+WF_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 1024, 1024), (64, 256, 64)]
 SERVING = ("gravity", "boids", "disc_eye")
 TRAINING = ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd")
+WF_SERVING = ("gravity", "boids", "wireframe_eye")
+WF_TRAINING = {"reinforce": ("gravity", "wireframe_eye"),
+               "apg diff_vision": ("gravity", "gravity_vjp", "wireframe_eye")}
 # BASELINE config 5 width for the trainers
 TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH, TRAIN_HORIZON = 4096, 256, 64, 8
+# One H100 SXM's published peaks (on-chip-measurement guide): fp32 outside
+# the tensor cores, and HBM3.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# fp32 operations each kernel's function does, counted from its plain
+# version's expressions (a divide, square root or comparison as one):
+# per pair for the physics, per (eye, target) pair and per covered
+# (eye, target, pixel) for the eyes
+GRAVITY_OPS, GRAVITY_VJP_OPS, BOIDS_OPS = 11, 25, 22
+DISC_PAIR_OPS, DISC_PIXEL_OPS = 16, 6
+WF_PAIR_OPS, WF_PAIR_AA_OPS, WF_EDGE_OPS = 54, 114, 13
+DISC_BWD_PIXEL_OPS = 60
 
 
 def log(phase: str, msg: str) -> None:
@@ -281,10 +312,12 @@ def phase_grad_reference() -> None:
 
 def phase_small_reference() -> None:
     """The slice on the kernels (CUDA) against the dense path (CPU) at a
-    small size, for 5 steps of each controller, batched and unbatched."""
-    for controller in ("gravity", "boids"):
+    small size, for 5 steps of each controller and sprite, batched and
+    unbatched."""
+    for controller, sprite in itertools.product(("gravity", "boids"), ("disc", "wireframe")):
         for num_envs in (None, 3):
-            cfg = SimConfig(n=96, controller=controller, vision=VisionConfig(width=48))
+            cfg = SimConfig(n=96, controller=controller,
+                            vision=VisionConfig(width=48, sprite_mode=sprite))
             ref = Scene(dataclasses.replace(cfg, backend="dense"), device="cpu")
             s0 = ref.spawn(1) if num_envs is None else ref.spawn_envs(num_envs, 1)
             _, want = ref.rollout(s0, 5, record=("pos", "obs"))
@@ -296,7 +329,8 @@ def phase_small_reference() -> None:
             # an eye-edge pixel may flip: bound the share of such pixels
             dpos = (got["pos"].cpu() - want["pos"]).abs().max().item()
             flips = ((got["obs"].cpu() - want["obs"]).abs() > 1e-3).double().mean().item()
-            log("kernels", f"slice {controller} envs={num_envs}: kernels(cuda) vs dense(cpu) "
+            log("kernels", f"slice {controller} {sprite} envs={num_envs}: kernels(cuda) vs "
+                f"dense(cpu) "
                 f"5 steps max|dpos|={dpos:.2e} (bound 1e-3), obs pixels off by >1e-3: "
                 f"{flips:.2e} (bound 1e-3)")
             if not (dpos < 1e-3 and flips < 1e-3):
@@ -473,6 +507,208 @@ def phase_train():
     return runs, counts
 
 
+def wf_cfg(cfg: SimConfig, antialias: bool | None = None) -> SimConfig:
+    """`cfg` with the exact wireframe sprite (and antialias, if given)."""
+    aa = cfg.vision.antialias if antialias is None else antialias
+    return dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, sprite_mode="wireframe", antialias=aa))
+
+
+def phase_wireframe_kernel(errors: Errors, gen) -> None:
+    """wireframe_eye against its plain version at the paths' shapes, AA off
+    and on, at the JAX suite's tolerance (rtol 1e-5, atol 2e-4,
+    tests/test_wireframe_kernel.py); the kernel follows the plain division
+    route op for op, so no pixel may flip between hit and miss, and the
+    winner index must equal the plain argmin's wherever the depths differ.
+    At the trainers' shape (4,096 envs) the plain version runs on the
+    first and last 64 envs of the kernel's batch."""
+    shapes = [(b, n, w, None) for b, n, w in WF_SHAPES]
+    shapes.append((TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH, (slice(0, 64), slice(-64, None))))
+    for b, n, w, envs in shapes:
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        pos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            got = wireframe.wireframe_eye_with_winner(pos, dirs, pos, dirs, vcfg)
+            parts = [slice(None)] if envs is None else list(envs)
+            for part in parts:
+                gs, gd, gw = (x[part] for x in got)
+                ws, wd, ww = wireframe.wireframe_eye_plain(pos[part], dirs[part], pos[part],
+                                                           dirs[part], vcfg)
+                label = f"wireframe_eye B={b} N={n} W={w} aa={aa}" + (
+                    "" if envs is None else f" envs[{part.start}:{part.stop}]")
+                errors.check("wireframe_eye", label + " depth", gd, wd, 1e-5, 2e-4)
+                errors.check("wireframe_eye", label + " shade", gs, ws, 1e-5, 2e-4)
+                flips = int(((gd < vcfg.far) != (wd < vcfg.far)).sum())
+                other = gw.long() != ww
+                log("kernels", f"{label}: hit pixels {(wd < vcfg.far).double().mean().item():.3f}, "
+                    f"flipped {flips} (bound 0), winners differing {int(other.sum())}, "
+                    f"of them at differing depths {int((other & (gd != wd)).sum())} (bound 0)")
+                if flips or (other & (gd != wd)).any():
+                    raise AssertionError(f"{label}: flipped pixels or winners")
+
+
+def phase_wireframe_grads() -> None:
+    """RenderRowsWireframeDiff (kernel forward with the winner, winner
+    pullback) on the card against autograd through the plain renderer on
+    the card, same inputs, at 4 envs x 64 agents x 64 px, AA off and on:
+    rtol 2e-4, atol 2e-4 of the largest component (per-pixel terms round
+    apart; index_add_ sums targets in run-to-run order)."""
+    gen = torch.Generator().manual_seed(4)
+    pos0 = torch.rand((4, 64, 2), generator=gen) * 60 - 30
+    vel0 = torch.rand((4, 64, 2), generator=gen) * 2 - 1
+    us = torch.randn((4, 64, 64), generator=gen).cuda()
+    ud = torch.randn((4, 64, 64), generator=gen).cuda() * 1e-3
+    for aa in (False, True):
+        vcfg = VisionConfig(width=64, antialias=aa, sprite_mode="wireframe")
+        grads = []
+        for fn in (lambda p, v: wireframe.render_rows_wireframe_tiled(p, v, vcfg),
+                   lambda p, v: render.render_rows(p, v, vcfg)):
+            p = pos0.cuda().requires_grad_()
+            v = vel0.cuda().requires_grad_()
+            shade, depth = fn(p, v)
+            ((shade * us).sum() + (depth * ud).sum()).backward()
+            grads.append((p.grad, v.grad))
+        torch.cuda.synchronize()
+        for name, g, x in zip(("pos", "vel"), *grads):
+            scale = x.abs().max().item()
+            err = (g - x).abs().max().item()
+            log("kernels", f"RenderRowsWireframeDiff (cuda) vs plain autograd (cuda), aa={aa}, "
+                f"d{name}: max_abs_err {err:.3e}, max|want| {scale:.3e} "
+                f"(rtol 2e-4, atol 2e-4 max|want|)")
+            expect(scale > 0 and bool(torch.isfinite(g).all()), f"finite nonzero d{name}")
+            torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * scale)
+
+
+def phase_wireframe_slice() -> dict:
+    """Serving with the exact wireframe eye: Scene rollouts at config 2
+    (N=1,024, W=64, gravity) and reference-100 (N=100, W=1,024, boids: the
+    reference's own eye), launch counts read before and after."""
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    scene = Scene(wf_cfg(PRESETS["gravity-vision-1024"]()), device="cuda")
+    state, traj = scene.rollout(scene.spawn(0), 100, record=("obs",))
+    finite_cuda("config 2 wireframe", state.pos, state.vel, traj["obs"])
+    expect(traj["obs"].shape == (100, 1024, 64), "config-2 wireframe obs [100, 1024, 64]")
+    scene = Scene(wf_cfg(PRESETS["reference-100"]()), device="cuda")
+    state, traj = scene.rollout(scene.spawn(0), 100, record=("obs",))
+    finite_cuda("reference-100 wireframe", state.pos, state.vel, traj["obs"])
+    expect(traj["obs"].shape == (100, 100, 1024), "reference-100 wireframe obs [100, 100, 1024]")
+    expect(bool((traj["obs"] != scene.cfg.vision.background).any()), "sprites in view")
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    log("wireframe", f"config 2 and reference-100 wireframe rollouts ran in "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    missing = [k for k in WF_SERVING if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the wireframe serving path never launched {missing}")
+    return counts
+
+
+def phase_wireframe_train():
+    """The trainers with wireframe observations at config-5 width, each
+    with its launch counts read before and after: `train --algo reinforce
+    --sprite-mode wireframe` of the CLI (3 iterations), then APG with
+    diff_vision, antialias and the visibility reward (2 iterations).
+    Returns (each run's metric rows, the summed launch counts)."""
+    runs, total = {}, {k: 0 for k in KERNEL_INFO}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    common.reset_launch_counts()
+    out = io.StringIO()
+    with ParamWatch() as watch, contextlib.redirect_stdout(out):
+        rc = cli.main(["train", "--algo", "reinforce", "--sprite-mode", "wireframe",
+                       "--envs", str(TRAIN_ENVS), "--agents", str(TRAIN_AGENTS),
+                       "--vision-width", str(TRAIN_WIDTH), "--horizon", str(TRAIN_HORIZON),
+                       "--iters", "3", "--seed", "0"])
+    expect(rc == 0, "train --algo reinforce --sprite-mode wireframe exits 0")
+    runs["reinforce"] = [json.loads(line) for line in out.getvalue().splitlines()]
+    check_metrics("train --algo reinforce --sprite-mode wireframe", runs["reinforce"], 3,
+                  watch.moved())
+    counts = [common.launch_counts()]
+
+    common.reset_launch_counts()
+    env = VisionEnv(wf_cfg(SimConfig(n=TRAIN_AGENTS, controller="gravity",
+                                     vision=VisionConfig(width=TRAIN_WIDTH)), antialias=True),
+                    reward_mode="visibility")
+    ts = apg.init_apg_state(env, seed=0, device="cuda")
+    step = apg.make_apg_step(env, horizon=TRAIN_HORIZON, num_envs=TRAIN_ENVS, diff_vision=True)
+    rows = []
+    with ParamWatch() as watch:
+        for i in range(2):
+            t1 = time.perf_counter()
+            ts, metrics = step(ts)
+            row = {k: float(v) for k, v in metrics.items()}
+            row.update(iter=i, sec=time.perf_counter() - t1,
+                       agent_frames=TRAIN_ENVS * TRAIN_AGENTS * TRAIN_HORIZON)
+            rows.append(row)
+    runs["apg diff_vision"] = rows
+    check_metrics("wireframe apg diff_vision (antialias, visibility)", rows, 2, watch.moved())
+    torch.cuda.synchronize()
+    counts.append(common.launch_counts())
+    for (label, needed), c in zip(WF_TRAINING.items(), counts):
+        log("wireframe", f"{label} launches {c}")
+        missing = [k for k in needed if c[k] == 0]
+        if missing:
+            raise AssertionError(f"the wireframe {label} path never launched {missing}")
+        for k in total:
+            total[k] += c[k]
+    log("wireframe", f"wireframe REINFORCE and APG diff_vision at {TRAIN_ENVS} x "
+        f"{TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon {TRAIN_HORIZON}, ran in "
+        f"{time.perf_counter() - t0:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return runs, total
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: float, moved: int):
+    """(bound ms, what bounds it): the larger of the operations over the
+    fp32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def env_chunks(fn):
+    """Sum `fn(pos, dirs, vcfg)` over chunks of 128 envs of a batch."""
+    def summed(pos, dirs, vcfg) -> int:
+        if pos.dim() == 2:
+            return fn(pos, dirs, vcfg)
+        return sum(fn(pos[i:i + 128], dirs[i:i + 128], vcfg) for i in range(0, len(pos), 128))
+    return summed
+
+
+@env_chunks
+def disc_covered(pos, dirs, vcfg) -> int:
+    """(eye, target, pixel) triples of a self-render where the disc covers
+    the pixel: the pixel work this input needs."""
+    u, du, _, visible = camera.project(pos[..., None, :, :] - pos[..., :, None, :], dirs, vcfg)
+    u_p = camera.pixel_centers(vcfg, device=pos.device)
+    reach = du + (1.0 / vcfg.width if vcfg.antialias else 0.0)
+    return int((visible[..., None] & ((u_p - u[..., None]).abs() < reach[..., None])).sum())
+
+
+@env_chunks
+def wireframe_covered(pos, dirs, vcfg) -> int:
+    """(eye, target, pixel) triples of a self-render where the sprite's
+    near/far-clipped u-interval, widened by half a pixel, covers the pixel:
+    the pixels whose 3 edges this input needs evaluated."""
+    f, l, live = render.sprite_view(pos[..., :, None, :], dirs[..., :, None, :],
+                                    pos[..., None, :, :], dirs[..., None, :, :], vcfg)
+    aa = dataclasses.replace(vcfg, antialias=True)
+    u0 = torch.zeros((), device=pos.device)
+    lo = hi = None
+    for a, b in render.SPRITE_EDGES:
+        _, _, e_lo, e_hi = render.edge_fragment(f[a], l[a], f[b], l[b], live, u0, aa)
+        lo = e_lo if lo is None else torch.minimum(lo, e_lo)
+        hi = e_hi if hi is None else torch.maximum(hi, e_hi)
+    u_p, hp = camera.pixel_centers(vcfg, device=pos.device), 1.0 / vcfg.width
+    return int(((hi[..., None] > u_p - hp) & (lo[..., None] < u_p + hp)).sum())
+
+
 def cuda_ms(fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -503,7 +739,7 @@ def phase_times(gen, card: str) -> dict:
     gcfg, bcfg = GravityConfig(), BoidsConfig()
     p_ms, k_ms = alternate(lambda: pairwise.gravity_forces_plain(pos, gcfg),
                            lambda: pairwise.gravity_forces_tiled(pos, gcfg), 2, 5)
-    times["gravity"] = (k_ms, p_ms)
+    times["gravity"] = (k_ms, p_ms, *bound(n * n * GRAVITY_OPS, 2 * nbytes(pos)))
     log("times", f"gravity N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair evals/s; "
         f"plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
     p_ms, k_ms = alternate(lambda: boids_ops.boids_velocity_plain(pos, vel, bcfg),
@@ -514,7 +750,7 @@ def phase_times(gen, card: str) -> dict:
     vel4 = uniform(gen, (4096, 2), -1, 1)
     p4, k4 = alternate(lambda: boids_ops.boids_velocity_plain(pos4, vel4, bcfg),
                        lambda: boids_ops.boids_velocity_tiled(pos4, vel4, bcfg), 3, 20)
-    times["boids"] = (k4, p4)
+    times["boids"] = (k4, p4, *bound(4096 * 4096 * BOIDS_OPS, nbytes(pos4, vel4, vel4)))
     log("times", f"boids N=4096 (config 3): kernel {k4:.3f} ms; plain {p4:.3f} ms [{card}]")
 
     for b, n_e, w in EYE_SHAPES:
@@ -527,7 +763,10 @@ def phase_times(gen, card: str) -> dict:
                                    lambda: raycast.disc_eye(epos, dirs, epos, vcfg), 2, 10)
             frames = b * n_e
             if (b, n_e, w, aa) == (1, 1024, 64, False):
-                times["disc_eye"] = (k_ms, p_ms)
+                ops = (b * n_e * n_e * DISC_PAIR_OPS
+                       + disc_covered(epos, dirs, vcfg) * DISC_PIXEL_OPS)
+                times["disc_eye"] = (k_ms, p_ms, *bound(ops, nbytes(epos, dirs)
+                                                         + 2 * b * n_e * w * 4))
             log("times", f"disc_eye B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
                 f"{frames / k_ms * 1e3:.4e} agent-frames/s; plain {p_ms:.3f} ms = "
                 f"{frames / p_ms * 1e3:.4e} agent-frames/s [{card}]")
@@ -536,7 +775,7 @@ def phase_times(gen, card: str) -> dict:
     u = torch.randn((n, 2), generator=gen, device="cuda")
     p_ms, k_ms = alternate(lambda: pairwise.gravity_vjp_plain(pos, u, gcfg),
                            lambda: pairwise.gravity_vjp_tiled(pos, u, gcfg), 2, 5)
-    times["gravity_vjp"] = (k_ms, p_ms)
+    times["gravity_vjp"] = (k_ms, p_ms, *bound(n * n * GRAVITY_VJP_OPS, nbytes(pos, u, u)))
     log("times", f"gravity_vjp N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair "
         f"evals/s; plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
     for b, n_e, w in ((1, 1024, 64), (64, 256, 64)):
@@ -552,7 +791,9 @@ def phase_times(gen, card: str) -> dict:
                 lambda: raycast.render_rows_vjp_cross_plain(epos, dirs, us, ud, vcfg),
                 lambda: raycast.render_rows_vjp_cross(epos, dirs, winner, us, ud, vcfg), 2, 10)
             if (b, n_e, w, aa) == (1, 1024, 64, False):
-                times["disc_eye_bwd"] = (k_ms, p_ms)
+                ops = int((winner >= 0).sum()) * DISC_BWD_PIXEL_OPS
+                times["disc_eye_bwd"] = (k_ms, p_ms, *bound(
+                    ops, nbytes(epos, dirs, winner, us, ud) + 3 * nbytes(epos)))
             log("times", f"disc_eye_bwd B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
                 f"{b * n_e / k_ms * 1e3:.4e} agent-frames/s; plain (autograd through the "
                 f"plain renderer) {p_ms:.3f} ms [{card}]")
@@ -569,10 +810,44 @@ def phase_times(gen, card: str) -> dict:
             f"without the winner index {bare:.3f} ms, writing it {with_winner:.3f} ms "
             f"({with_winner / bare - 1:+.2%}) [{card}]")
 
-    # steps/s of the config-2 rollout and of entry(): kernels vs dense, on the card
-    def rollout_rate(backend: str) -> float:
-        cfg = dataclasses.replace(PRESETS["gravity-vision-1024"](), backend=backend)
-        scene = Scene(cfg, device="cuda")
+    # the wireframe eye against its plain version, and its bound, at the
+    # phase-3 shapes; at the trainers' shape the kernel alone, with and
+    # without its winner index
+    for b, n_e, w in WF_SHAPES + [(TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)]:
+        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+        epos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            ops = (b * n_e * n_e * (WF_PAIR_AA_OPS if aa else WF_PAIR_OPS)
+                   + wireframe_covered(epos, dirs, vcfg) * 3 * WF_EDGE_OPS)
+            b_ms, b_by = bound(ops, nbytes(epos, dirs) + 2 * b * n_e * w * 4)
+            frames = b * n_e
+            if b == TRAIN_ENVS:
+                k_ms, with_winner = alternate(
+                    lambda: wireframe.wireframe_eye(epos, dirs, epos, dirs, vcfg),
+                    lambda: wireframe.wireframe_eye_with_winner(epos, dirs, epos, dirs, vcfg),
+                    3, 3)
+                log("times", f"wireframe_eye {b} x {n_e} x {w} aa={aa}: kernel {k_ms:.3f} ms = "
+                    f"{frames / k_ms * 1e3:.4e} agent-frames/s, writing the winner index "
+                    f"{with_winner:.3f} ms; bound {b_ms:.4f} ms ({b_by}) [{card}]")
+                continue
+            p_ms, k_ms = alternate(lambda: wireframe.wireframe_eye_plain(epos, dirs, epos, dirs,
+                                                                         vcfg),
+                                   lambda: wireframe.wireframe_eye(epos, dirs, epos, dirs, vcfg),
+                                   2, 10)
+            if (b, n_e, w, aa) == (1, 1024, 64, False):
+                times["wireframe_eye"] = (k_ms, p_ms, b_ms, b_by)
+            log("times", f"wireframe_eye B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
+                f"{frames / k_ms * 1e3:.4e} agent-frames/s; plain {p_ms:.3f} ms = "
+                f"{frames / p_ms * 1e3:.4e} agent-frames/s; bound {b_ms:.4f} ms ({b_by}) "
+                f"[{card}]")
+
+    # steps/s of the rollouts and of entry(): kernels vs dense, on the card
+    def rollout_rate(backend: str, preset: str = "gravity-vision-1024",
+                     sprite: str = "disc") -> float:
+        cfg = dataclasses.replace(PRESETS[preset](), backend=backend)
+        scene = Scene(cfg if sprite == "disc" else wf_cfg(cfg), device="cuda")
         state = scene.spawn(0)
         scene.rollout(state, 2, record=("obs",))
         torch.cuda.synchronize()
@@ -592,19 +867,25 @@ def phase_times(gen, card: str) -> dict:
         torch.cuda.synchronize()
         return 50 / (time.perf_counter() - t0)
 
-    for name, rate in (("config-2 rollout (record obs)", rollout_rate),
-                       ("entry() step", entry_rate)):
+    for name, rate in (
+            ("config-2 rollout (record obs)", rollout_rate),
+            ("config-2 wireframe rollout (record obs)",
+             lambda be: rollout_rate(be, sprite="wireframe")),
+            ("reference-100 wireframe rollout (record obs)",
+             lambda be: rollout_rate(be, "reference-100", "wireframe")),
+            ("entry() step", entry_rate)):
         d1, k1, k2, d2 = rate("dense"), rate("pallas"), rate("pallas"), rate("dense")
         log("times", f"{name}: kernels {(k1 + k2) / 2:.2f} steps/s; dense "
             f"{(d1 + d2) / 2:.2f} steps/s [{card}]")
     return times
 
 
-def log_train_times(runs: dict, card: str) -> None:
+def log_train_times(runs: dict, card: str, prefix: str = "") -> None:
     """Seconds per training iteration (host clock; each iteration ends when
     its metrics reach the host) and agent-frames/s, first iteration (build
     and warm-up) left out."""
     for label, rows in runs.items():
+        label = prefix + label
         secs = [row["sec"] for row in rows[1:]]
         sec = sum(secs) / len(secs)
         log("times", f"train {label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon "
@@ -614,6 +895,7 @@ def log_train_times(runs: dict, card: str) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     kind = torch.cuda.get_device_name(0)
@@ -637,22 +919,29 @@ def main() -> None:
     with torch.no_grad():
         phase_kernels(errors, gen)
         phase_backward_kernels(errors, gen)
+        phase_wireframe_kernel(errors, gen)
         phase_small_reference()
     phase_grad_reference()
+    phase_wireframe_grads()
     with torch.no_grad():
-        serving = phase_slice()
+        paths = [phase_slice(), phase_wireframe_slice()]
     phase_apg_routes()
     runs, training = phase_train()
+    wf_runs, wf_training = phase_wireframe_train()
+    paths += [training, wf_training]
     with torch.no_grad():
         times = phase_times(gen, smi)
     log_train_times(runs, smi)
+    log_train_times(wf_runs, smi, prefix="wireframe ")
 
+    log("done", f"all phases ran in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, info in KERNEL_INFO.items():
-        k_ms, p_ms = times[name]
+        k_ms, p_ms, b_ms, b_by = times[name]
         kernels.append({"name": name, "route": "cuda", **info,
-                        "launches": serving[name] + training[name],
-                        "max_abs_err": errors.max_abs[name], "ms": k_ms, "plain_ms": p_ms})
+                        "launches": sum(counts[name] for counts in paths),
+                        "max_abs_err": errors.max_abs[name], "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -32,8 +32,9 @@ def _error(msg: str) -> int:
 
 
 def _train_env(args, reward_mode: str = "cohesion"):
-    """The train-family env (gravity + control dynamics, disc-eye obs) from
-    --agents/--vision-width/--antialias, as the JAX `_train_env` builds it.
+    """The train-family env (gravity + control dynamics, vision obs) from
+    --agents/--vision-width/--sprite-mode/--antialias, as the JAX
+    `_train_env` builds it.
     Prints a clean error and returns None on an invalid flag combination."""
     from .config import SimConfig, VisionConfig
     from .rl.env import VisionEnv
@@ -43,7 +44,8 @@ def _train_env(args, reward_mode: str = "cohesion"):
         return None
     cfg = SimConfig(
         n=args.agents, controller="gravity",
-        vision=VisionConfig(width=args.vision_width, antialias=args.antialias),
+        vision=VisionConfig(width=args.vision_width, sprite_mode=args.sprite_mode,
+                            antialias=args.antialias),
     )
     try:
         return VisionEnv(cfg, reward_mode=reward_mode)
@@ -58,9 +60,6 @@ def cmd_train(args) -> int:
                       f"the port trains with {' or '.join(TRAINERS)}")
     if args.algo not in TRAINERS:
         return _error(f"unknown --algo {args.algo!r}; choose {' or '.join(TRAINERS)}")
-    if args.sprite_mode == "wireframe":
-        return _error("--sprite-mode wireframe is not ported yet (ROADMAP queue 1 "
-                      "items 4 and 11, queue 2 kernels 7-9)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         return _error("--device cuda, but torch.cuda.is_available() is false "
@@ -104,7 +103,8 @@ def main(argv=None) -> int:
     p.add_argument("--agents", type=int, default=64)
     p.add_argument("--vision-width", type=int, default=64)
     p.add_argument("--sprite-mode", choices=["disc", "wireframe"], default="disc",
-                   help="eye-line sprite model (the port renders disc sprites)")
+                   help="eye-line sprite model for the observations: disc (fast, "
+                   "default) or wireframe (the reference's exact LineStrip triangle)")
     p.add_argument("--antialias", action="store_true",
                    help="MSAA-analog soft sprite edges in the observations")
     p.add_argument("--horizon", type=int, default=8)

@@ -145,7 +145,8 @@ class VisionConfig:
     #               FILLED sprite too. Orientation-dependent: the projected
     #               extent varies with the target's heading (nose radius 1,
     #               rear corners sqrt(2)), which the disc approximates at
-    #               constant radius. Not ported yet (the port raises).
+    #               constant radius (ops/wireframe.py, the
+    #               wireframe_eye kernel).
     #               antialias composes: the in-plane camera projects every
     #               edge onto the row center, so coverage is the box filter
     #               of the sprite's clipped u-interval against the pixel

@@ -10,7 +10,7 @@ an edited source is rebuilt and an unchanged one is loaded as it is. The
 library is loaded with ctypes; every pointer goes in as c_void_p.
 
 Flags. -fmad=false keeps every product rounded on its own, as the plain
-PyTorch versions round them: the boids rules and the eye coverage are
+PyTorch versions round them: the boids rules and the eyes' coverage are
 threshold tests, and a contracted multiply-add flips pairs at the boundary.
 No --use_fast_math.
 
@@ -59,6 +59,8 @@ SIGNATURES = {
     "nbt_gravity_vjp": [_P, _P, _P, _I, _I, _F, _F, _P],
     "nbt_disc_eye_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    "nbt_wireframe_eye": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 # Largest grid y/z extent a launch may use (the batch of envs rides it).
@@ -176,6 +178,7 @@ KERNELS: Dict[str, Kernel] = {
     "disc_eye": Kernel("disc_eye", "nbt_disc_eye"),
     "gravity_vjp": Kernel("gravity_vjp", "nbt_gravity_vjp"),
     "disc_eye_bwd": Kernel("disc_eye_bwd", "nbt_disc_eye_bwd"),
+    "wireframe_eye": Kernel("wireframe_eye", "nbt_wireframe_eye"),
 }
 
 

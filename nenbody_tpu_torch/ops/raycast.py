@@ -40,6 +40,12 @@ from .common import (
 disc_eye_plain = render.render_eyes
 
 
+def _check_disc(cfg: VisionConfig) -> None:
+    if cfg.sprite_mode != "disc":
+        raise ValueError("the disc eye needs sprite_mode='disc'; wireframe sprites render "
+                         "through ops.wireframe")
+
+
 def _eye_args(cfg: VisionConfig):
     """The float and flag arguments both eye kernels take, in C order."""
     w = cfg.width
@@ -115,7 +121,7 @@ def render_rows_tiled(
     partial rows depth-merge with vision.render.merge_rows. Differentiable
     (through RenderRowsDiff) when an input requires grad.
     """
-    render.check_disc(cfg)
+    _check_disc(cfg)
     tgt = pos if targets is None else targets
     return disc_eye(pos, camera.unit_heading(vel), tgt, cfg)
 
@@ -235,5 +241,5 @@ def render_rows_diff(
     rollouts that look at the world differentiate through perception. Use
     cfg.antialias=True for useful gradients: binary coverage is piecewise
     constant in positions, the antialiased observation piecewise linear."""
-    render.check_disc(cfg)
+    _check_disc(cfg)
     return RenderRowsDiff.apply(pos, camera.unit_heading(vel), pos, cfg)

@@ -2,13 +2,16 @@
 diff_vision, each timed untraced and then traced once with torch.profiler.
 
     python -m nenbody_tpu_torch.profile_train --out chiprun_out/prof_train.json
+    python -m nenbody_tpu_torch.profile_train --sprite-mode wireframe \\
+        --out chiprun_out/prof_train_wireframe.json
     python -m nenbody_tpu_torch.profile_train --device cpu --envs 2 --agents 16 \\
         --vision-width 16 --horizon 2 --runs 2 --out /tmp/prof.json
 
 Defaults are BASELINE config 5's width (4,096 envs x 256 agents x 64 px,
-horizon 8). For each trainer: `--warmup` iterations, then `--runs` untraced
-iterations, each on the host clock and ending when its metrics reach the
-host (median and all runs), then one traced iteration. Device time is the
+horizon 8), disc sprites unless --sprite-mode says otherwise. For each
+trainer: `--warmup` iterations, then `--runs` untraced iterations, each on
+the host clock and ending when its metrics reach the host (median and all
+runs), then one traced iteration. Device time is the
 sum of the trace's CUDA kernel, memcpy and memset events, by category (one
 per hand-written kernel, GEMMs, Adam, copies, the rest); `busy` is that sum
 over the untraced median. Also the kernels' launch counts in the traced
@@ -40,6 +43,7 @@ CATEGORIES = (
     ("gravity_kernel", ("gravity_kernel",)),
     ("disc_eye_bwd_kernel", ("disc_eye_bwd_kernel",)),
     ("disc_eye_kernel", ("disc_eye_kernel",)),
+    ("wireframe_eye_kernel", ("wireframe_eye_kernel",)),
     ("boids_kernel", ("boids_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
     ("adam", ("adam", "Adam")),
@@ -74,7 +78,8 @@ def device_ms_by_category(prof) -> dict:
 
 def make_step(args, algo: str, reward_mode: str, antialias: bool, diff_vision: bool):
     env = VisionEnv(SimConfig(n=args.agents, controller="gravity",
-                              vision=VisionConfig(width=args.vision_width, antialias=antialias)),
+                              vision=VisionConfig(width=args.vision_width, antialias=antialias,
+                                                  sprite_mode=args.sprite_mode)),
                     reward_mode=reward_mode)
     if algo == "apg":
         ts = apg.init_apg_state(env, seed=args.seed, device=args.device)
@@ -137,6 +142,7 @@ def main(argv=None) -> int:
     ap.add_argument("--agents", type=int, default=256)
     ap.add_argument("--vision-width", type=int, default=64)
     ap.add_argument("--horizon", type=int, default=8)
+    ap.add_argument("--sprite-mode", choices=["disc", "wireframe"], default="disc")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -148,7 +154,7 @@ def main(argv=None) -> int:
     result = {
         "card": card_name(args.device),
         "shape": {"envs": args.envs, "agents": args.agents, "width": args.vision_width,
-                  "horizon": args.horizon},
+                  "horizon": args.horizon, "sprite_mode": args.sprite_mode},
         "trainers": {name: profile_trainer(args, *spec) for name, *spec in TRAINERS},
     }
     args.out.parent.mkdir(parents=True, exist_ok=True)

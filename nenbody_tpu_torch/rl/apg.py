@@ -11,9 +11,10 @@ from detached states under torch.no_grad() (the JAX stop_gradient, which
 also keeps the eye's residuals out of memory), so gradients reach the policy
 only through the actions it emitted. diff_vision=True keeps the observation
 inside the gradient: the eye's autograd Function (ops/raycast.py, the
-backward kernel) carries d reward / d perception back into positions and
-headings; pair it with cfg.vision.antialias=True, which makes the eye lines
-piecewise linear in positions.
+disc's backward kernel; ops/wireframe.py, the wireframe's winner pullback)
+carries d reward / d perception back into positions and headings; pair it
+with cfg.vision.antialias=True, which makes the eye lines piecewise linear
+in positions.
 
 Deterministic (mean-action) policy; short horizons recommended. remat=True
 recomputes each dynamics step in the backward pass
@@ -117,7 +118,7 @@ def init_apg_state(
     seed: int = 0,
     lr: float = 1e-3,
     policy: Optional[nn.Module] = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> APGState:
     """A policy (the MLP by default, weights from `seed`) with an Adam
     optimizer on `device`, and the spawn generator seeded with `seed`."""

@@ -14,8 +14,12 @@ batch in one launch.
 Every method is differentiable on every backend: dense is plain autograd;
 on the kernel backend the wrappers route the forces through
 pairwise.GravityForcesDiff (the VJP kernel) and the observation through
-raycast.RenderRowsDiff (the eye's backward kernel) whenever autograd needs
-them (rl/apg.py), and launch forward-only otherwise.
+raycast.RenderRowsDiff (the disc eye's backward kernel) or
+wireframe.RenderRowsWireframeDiff (the wireframe eye's winner pullback),
+by cfg.vision.sprite_mode, whenever autograd needs them (rl/apg.py), and
+launch forward-only otherwise. The JAX trainers' `_batched_observe_fast`
+and `_batched_observe_diff` have no counterpart: the eye kernels take the
+batch whole.
 """
 
 from __future__ import annotations

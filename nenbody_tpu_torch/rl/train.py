@@ -117,7 +117,7 @@ def init_train_state(
     seed: int = 0,
     lr: float = 1e-3,
     policy: Optional[nn.Module] = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     mesh=None,
 ) -> TrainState:
     """Spawn `num_envs` envs and a policy (the MLP by default, weights from

@@ -12,7 +12,8 @@ Typical use:
 
 Routing: backend="dense" always runs the plain PyTorch functions;
 "auto" and "pallas" run the hand-written CUDA kernels on CUDA tensors (and
-their plain versions on CPU tensors). Batched states ([B, N, 2] leaves from
+their plain versions on CPU tensors), the disc eye or the exact wireframe
+eye by `cfg.vision.sprite_mode`. Batched states ([B, N, 2] leaves from
 `spawn_envs`) go to the kernels whole, with the env axis as a grid
 dimension. Rollouts are a Python loop; PyTorch runs eagerly, so there is no
 compiled scan to cache.
@@ -60,17 +61,22 @@ def make_step_fn(cfg: SimConfig) -> Callable[..., SceneState]:
 
 
 def _render_fn(cfg: SimConfig) -> Callable:
-    """`(pos, vel) -> (shade, depth)` on the route the backend picks. The
-    dense route is plain autograd; the kernel route goes through
-    raycast.RenderRowsDiff (the backward kernel) when grad is enabled and
-    an input requires grad, and through the forward-only launch otherwise
-    (the routing is raycast.disc_eye's)."""
-    from .vision import render
-
-    render.check_disc(cfg.vision)
+    """`(pos, vel) -> (shade, depth)` on the route the backend and the
+    sprite mode pick (the JAX `_vision_route`/`_vision_render_core`). The
+    dense route is plain autograd through vision.render, either sprite. The
+    kernel route is the disc eye (raycast.render_rows_tiled) or the exact
+    wireframe eye (wireframe.render_rows_wireframe_tiled), at any width;
+    each goes through its autograd Function when grad is enabled and an
+    input requires grad, and through the forward-only launch otherwise."""
     vcfg = cfg.vision
     if _resolve_backend(cfg) == "dense":
+        from .vision import render
+
         return lambda pos, vel: render.render_rows(pos, vel, vcfg)
+    if vcfg.sprite_mode == "wireframe":
+        from .ops import wireframe
+
+        return lambda pos, vel: wireframe.render_rows_wireframe_tiled(pos, vel, vcfg)
     from .ops import raycast
 
     return lambda pos, vel: raycast.render_rows_tiled(pos, vel, vcfg)
@@ -88,9 +94,10 @@ def make_observe_fn(cfg: SimConfig) -> Optional[Callable[[SceneState], torch.Ten
 class Scene:
     """Owns a config, a device and the random stream, and exposes
     spawn/step/observe/rollout for unbatched ([N, 2] leaves) and batched
-    ([B, N, 2] leaves) states."""
+    ([B, N, 2] leaves) states. The device is the card unless the caller
+    asks for another (`device="cpu"`); without a GPU the default raises."""
 
-    def __init__(self, cfg: SimConfig, device: str | torch.device = "cpu"):
+    def __init__(self, cfg: SimConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self._step = make_step_fn(cfg)

@@ -57,7 +57,7 @@ def _uniform(shape, lo, hi, generator, device) -> torch.Tensor:
 
 
 def spawn(
-    cfg: SimConfig, generator: torch.Generator, device: str | torch.device = "cpu"
+    cfg: SimConfig, generator: torch.Generator, device: str | torch.device = "cuda"
 ) -> SceneState:
     """Create an initial state with the reference spawn distributions.
 
@@ -73,7 +73,7 @@ def spawn_batch(
     cfg: SimConfig,
     generator: torch.Generator,
     num_envs: int | None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> SceneState:
     """Spawn `num_envs` independent environments, batched on a leading axis
     (`num_envs=None` gives one unbatched env)."""

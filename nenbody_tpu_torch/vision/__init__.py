@@ -1,5 +1,5 @@
-"""Per-agent 1D vision: camera math and the dense disc renderer
-(counterpart of nenbody_tpu/vision)."""
+"""Per-agent 1D vision: camera math and the dense renderer, disc and exact
+wireframe sprites (counterpart of nenbody_tpu/vision)."""
 
 from . import camera, render
 

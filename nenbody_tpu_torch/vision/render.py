@@ -1,16 +1,18 @@
-"""Dense PyTorch eye renderer, disc sprites — the port's vision oracle and
-the plain version of the CUDA eye kernel (counterpart of the disc subset of
-nenbody_tpu/vision/render.py: `_agent_row`, `render_rows`, `merge_rows`,
+"""Dense PyTorch eye renderer — the port's vision oracle and the plain
+version of the CUDA eye kernels (counterpart of nenbody_tpu/vision/render.py:
+`_agent_row`, `_agent_row_wireframe`, `render_rows`, `merge_rows`,
 `render_lines*`).
 
 Same contract as the JAX renderer: the nearest covering agent wins each
 pixel (the reference's depth test, src/main.rs:608-632), shaded with the
-squared-radial vignette (shaders/scene.frag:15-16: shade = albedo *
-(1 - off^2/4)), with the clear color for uncovered pixels (src/main.rs:543)
-and, with antialias, box-filter edge coverage (the 8x MSAA analog).
+squared-radial vignette (shaders/scene.frag:15-16), with the clear color for
+uncovered pixels (src/main.rs:543) and, with antialias, box-filter edge
+coverage (the 8x MSAA analog). Two sprite models: the disc splat
+(`eye_rows`) and the reference's exact LineStrip triangle
+(`eye_rows_wireframe`).
 
-The wireframe sprite, per-agent albedo, textures and RGB are not ported yet
-(ROADMAP queue 1).
+Per-agent albedo, textures, RGB and `render_single_row` are not ported yet
+(ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -101,14 +103,194 @@ def render_eyes(
     return torch.cat([r[0] for r in rows], dim=-2), torch.cat([r[1] for r in rows], dim=-2)
 
 
-def check_disc(cfg: VisionConfig) -> None:
-    """Raise for the sprite modes the port does not render yet."""
-    if cfg.sprite_mode != "disc":
-        raise NotImplementedError(
-            "sprite_mode='wireframe' is not ported yet (ROADMAP queue 1 "
-            "items 4 and 11, queue 2 kernels 7-9); the port renders disc "
-            "sprites"
-        )
+# The reference's sprite geometry (src/main.rs:130-139): wireframe triangle
+# verts with their uv coords, drawn as a LineStrip with index buffer
+# [0, 1, 2, 0] (three edges). uv shades through the squared-radial vignette
+# mix(tex, 0, |uv - 0.5|^2) of shaders/scene.frag:15-16.
+SPRITE_VERTS = ((-1.0, -1.0), (1.0, 0.0), (-1.0, 1.0))
+SPRITE_UVS = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0))
+SPRITE_EDGES = ((0, 1), (1, 2), (2, 0))
+# per edge: uv at its first vert and the uv step to its second (exact floats)
+EDGE_UV = tuple(
+    (SPRITE_UVS[a][0], SPRITE_UVS[a][1],
+     SPRITE_UVS[b][0] - SPRITE_UVS[a][0], SPRITE_UVS[b][1] - SPRITE_UVS[a][1])
+    for a, b in SPRITE_EDGES
+)
+# off-screen sentinel of an invalid edge's u-interval (outside [-1, 1])
+OFF_SCREEN = 4.0
+
+
+def sprite_view(eye_pos, eye_dir, tgt, hdg, cfg: VisionConfig):
+    """The target sprites' 3 verts in the eyes' view frames.
+
+    eye_pos, eye_dir, tgt, hdg: [..., 2], broadcast against each other
+    (eyes [..., E, 1, 2] against targets [..., 1, M, 2] for a dense render;
+    eyes against per-pixel winners for the pullback). Returns (f, l, live):
+    forward and lateral coordinates of each vert (lists of 3 tensors of the
+    broadcast shape) and the coincident-target cull, by exact equality
+    (_agent_row_wireframe:171-173 of the JAX renderer: the eye's own sprite
+    never shows). Each sprite turns to its target's heading (model matrix
+    T(pos) * Rz(atan2(vel)), src/main.rs:398-400)."""
+    r = cfg.sprite_radius
+    cth, sth = hdg[..., 0], hdg[..., 1]
+    px, py = tgt[..., 0], tgt[..., 1]
+    ex, ey = eye_pos[..., 0], eye_pos[..., 1]
+    dx, dy = eye_dir[..., 0], eye_dir[..., 1]
+    f, l = [], []
+    for vx, vy in SPRITE_VERTS:
+        relx = (px + ((vx * r) * cth - (vy * r) * sth)) - ex
+        rely = (py + ((vx * r) * sth + (vy * r) * cth)) - ey
+        f.append(relx * dx + rely * dy)
+        l.append(relx * dy - rely * dx)  # right = (dy, -dx)
+    live = (px != ex) | (py != ey)
+    return f, l, live
+
+
+def edge_fragment(fa, la, fb, lb, live, u_p, cfg: VisionConfig):
+    """One sprite edge (a, b) against the pixel centres u_p.
+
+    fa, la, fb, lb, live broadcast against u_p (add a trailing pixel axis
+    for [..., M] per-target fields). The pixel ray l = u*tan(hfov/2)*f hits
+    the edge at tau = (ut*fa - la) / (dl - ut*df), depth fa + tau*df.
+    Returns (depth, tau, lo, hi): depth +inf on a miss; (lo, hi) the edge's
+    slab-clipped u-interval with antialias (the OFF_SCREEN sentinels when
+    the edge is invalid), else None.
+
+    Antialias (_agent_row_wireframe:187-233): tau is clipped to the
+    [near, far] slab, the covered u-interval read off the clipped endpoints,
+    and the fragment evaluated at the pixel centre clamped into it;
+    operands are sanitised before each divide, so that autograd never meets
+    inf * 0. `fk < far` stays strict: a slab-clipped fragment can land at
+    exactly far."""
+    df = fb - fa
+    dl = lb - la
+    lo = hi = None
+    if cfg.antialias:
+        t = camera.tan_half_fov(cfg)
+        hp = 1.0 / cfg.width
+        big = df.abs() > 1e-30
+        safe_df = torch.where(big, df, 1e-30)
+        t_near = (cfg.near - fa) / safe_df
+        t_far = (cfg.far - fa) / safe_df
+        tau_lo = torch.where(big, torch.maximum(t_near.minimum(t_far), torch.zeros_like(df)), 0.0)
+        tau_hi = torch.where(big, torch.minimum(t_near.maximum(t_far), torch.ones_like(df)), 1.0)
+        in_slab = (fa > cfg.near) & (fa < cfg.far)
+        valid = live & torch.where(big, tau_lo < tau_hi, in_slab)
+        f_lo = torch.where(valid, fa + tau_lo * df, 1.0)
+        f_hi = torch.where(valid, fa + tau_hi * df, 1.0)
+        u_a = (la + tau_lo * dl) / (t * f_lo.clamp(min=1e-30))
+        u_b = (la + tau_hi * dl) / (t * f_hi.clamp(min=1e-30))
+        e_lo, e_hi = torch.minimum(u_a, u_b), torch.maximum(u_a, u_b)
+        lo = torch.where(valid, e_lo, OFF_SCREEN)
+        hi = torch.where(valid, e_hi, -OFF_SCREEN)
+        utc = torch.minimum(torch.maximum(u_p, e_lo), e_hi) * t
+        num = utc * fa - la
+        den = dl - utc * df
+        ok = den.abs() > 1e-12
+        tau = num / torch.where(ok, den, 1.0)
+        tau = torch.minimum(torch.maximum(tau, tau_lo), tau_hi)
+        fk = fa + tau * df
+        cover = (e_hi > u_p - hp) & (e_lo < u_p + hp)
+        hit = ok & valid & cover & (fk < cfg.far)
+    else:
+        ut = u_p * camera.tan_half_fov(cfg)
+        num = ut * fa - la
+        den = dl - ut * df
+        ok = den.abs() > 1e-12  # edge parallel to the ray
+        tau = num / torch.where(ok, den, 1.0)
+        fk = fa + tau * df
+        hit = ok & live & (tau >= 0.0) & (tau <= 1.0) & (fk > cfg.near) & (fk < cfg.far)
+    return torch.where(hit, fk, float("inf")), tau, lo, hi
+
+
+def fragment_shade(tau, uv, cfg: VisionConfig):
+    """albedo * (1 - |uv - 0.5|^2) at uv = uv_a + tau * duv: uv = (ua_x,
+    ua_y, du_x, du_y), floats or tensors broadcasting against tau."""
+    ux = (uv[0] + tau * uv[2]) - 0.5
+    uy = (uv[1] + tau * uv[3]) - 0.5
+    return cfg.sprite_albedo * (1.0 - (ux * ux + uy * uy))
+
+
+def coverage(sp_lo, sp_hi, u_p, cfg: VisionConfig):
+    """Box-filter share of the pixel footprint [u_p - hp, u_p + hp] that the
+    sprite's u-interval [sp_lo, sp_hi] covers (the MSAA analog)."""
+    hp = 1.0 / cfg.width
+    return ((torch.minimum(sp_hi, u_p + hp) - torch.maximum(sp_lo, u_p - hp))
+            / (2.0 * hp)).clamp(0.0, 1.0)
+
+
+def eye_rows_wireframe(
+    eye_pos: torch.Tensor,  # [..., E, 2] eye positions
+    eye_dir: torch.Tensor,  # [..., E, 2] unit headings
+    tgt: torch.Tensor,  # [..., M, 2] target positions (including self)
+    tgt_hdg: torch.Tensor,  # [..., M, 2] target unit headings
+    cfg: VisionConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Render E eye lines against M exact reference sprites: (shade, depth,
+    winner) [..., E, W], winner the winning target's index (-1 where no
+    sprite covers the pixel).
+
+    `_agent_row_wireframe` of the JAX renderer with the eye axis written
+    out. The depth test takes the argmin over the flattened [3M] (edge,
+    target) axis, edge-major, so a depth tie goes to the lower edge first
+    and then to the lower target. With antialias the winner's shade
+    box-filters against the background by the winning sprite's coverage
+    (the union of its 3 edge intervals)."""
+    f, l, live = sprite_view(eye_pos[..., :, None, :], eye_dir[..., :, None, :],
+                             tgt[..., None, :, :], tgt_hdg[..., None, :, :], cfg)
+    u_p = camera.pixel_centers(cfg, device=eye_pos.device)  # [W]
+    m = tgt.shape[-2]
+    depths, taus = [], []
+    sp_lo = sp_hi = None
+    for a, b in SPRITE_EDGES:
+        d_e, tau, lo, hi = edge_fragment(f[a][..., None], l[a][..., None], f[b][..., None],
+                                         l[b][..., None], live[..., None], u_p, cfg)
+        depths.append(d_e)
+        taus.append(tau)
+        if cfg.antialias:
+            sp_lo = lo if sp_lo is None else torch.minimum(sp_lo, lo)
+            sp_hi = hi if sp_hi is None else torch.maximum(sp_hi, hi)
+    flat_d = torch.stack(depths, dim=-3).flatten(-3, -2)  # [..., E, 3M, W]
+    k = flat_d.argmin(dim=-2)  # [..., E, W], the first minimum: edge-major
+    best = flat_d.gather(-2, k[..., None, :]).squeeze(-2)
+    tau_w = torch.stack(taus, dim=-3).flatten(-3, -2).gather(-2, k[..., None, :]).squeeze(-2)
+    del flat_d, depths, taus
+    hit = torch.isfinite(best)
+    winner = k % m
+    table = torch.tensor(EDGE_UV, dtype=torch.float32, device=eye_pos.device)[k // m]
+    sh = fragment_shade(tau_w, table.unbind(-1), cfg)
+    if cfg.antialias:
+        cov = coverage(sp_lo.squeeze(-1).gather(-1, winner), sp_hi.squeeze(-1).gather(-1, winner),
+                       u_p, cfg)
+        sh = cfg.background + cov * (sh - cfg.background)
+    shade = torch.where(hit, sh, torch.full_like(sh, cfg.background))
+    depth = torch.where(hit, best, torch.full_like(best, cfg.far))
+    return shade, depth, torch.where(hit, winner, -1)
+
+
+def render_eyes_wireframe(
+    eye_pos: torch.Tensor,
+    eye_dir: torch.Tensor,
+    tgt: torch.Tensor,
+    tgt_hdg: torch.Tensor,
+    cfg: VisionConfig,
+    chunk: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`eye_rows_wireframe` chunked over eyes so that each chunk's
+    [..., chunk, 3M, W] intermediates stay within PLAIN_PIXEL_BUDGET
+    elements. Returns (shade, depth, winner)."""
+    e, m = eye_pos.shape[-2], tgt.shape[-2]
+    batch = eye_pos[..., 0, 0].numel()
+    if chunk is None:
+        chunk = max(1, PLAIN_PIXEL_BUDGET // max(1, batch * 3 * m * cfg.width))
+    if chunk >= e:
+        return eye_rows_wireframe(eye_pos, eye_dir, tgt, tgt_hdg, cfg)
+    rows = [
+        eye_rows_wireframe(eye_pos[..., i:i + chunk, :], eye_dir[..., i:i + chunk, :], tgt,
+                           tgt_hdg, cfg)
+        for i in range(0, e, chunk)
+    ]
+    return tuple(torch.cat([r[i] for r in rows], dim=-2) for i in range(3))
 
 
 def render_rows(
@@ -117,16 +299,25 @@ def render_rows(
     cfg: VisionConfig,
     chunk: int | None = None,
     targets: torch.Tensor | None = None,
+    target_vel: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render every agent's eye line. pos, vel: [..., N, 2].
 
     Returns (shade [..., N, W], depth [..., N, W]). Work is O(N^2 * W).
     `targets` (default: pos itself) renders the eyes against a different
-    position set; partial renders merge with `merge_rows`.
+    position set; partial renders merge with `merge_rows`. With
+    sprite_mode='wireframe' the targets' sprites orient to their headings,
+    so `target_vel` must accompany `targets`.
     """
-    check_disc(cfg)
+    dirs = camera.unit_heading(vel)
     tgt = pos if targets is None else targets
-    return render_eyes(pos, camera.unit_heading(vel), tgt, cfg, chunk)
+    if cfg.sprite_mode == "wireframe":
+        tvel = vel if targets is None else target_vel
+        if tvel is None:
+            raise ValueError("wireframe sprites need target_vel with targets")
+        hdg = dirs if targets is None else camera.unit_heading(tvel)
+        return render_eyes_wireframe(pos, dirs, tgt, hdg, cfg, chunk)[:2]
+    return render_eyes(pos, dirs, tgt, cfg, chunk)
 
 
 def merge_rows(a, b):

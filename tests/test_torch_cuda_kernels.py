@@ -19,7 +19,7 @@ import torch
 from nenbody_tpu_torch import Scene, SimConfig, VisionConfig
 from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
 from nenbody_tpu_torch.ops import boids as boids_ops
-from nenbody_tpu_torch.ops import common, pairwise, raycast
+from nenbody_tpu_torch.ops import common, pairwise, raycast, wireframe
 from nenbody_tpu_torch.physics import dense
 from nenbody_tpu_torch.vision import camera, render
 
@@ -226,7 +226,7 @@ def test_autograd_functions_on_cuda_match_dense_cpu(cuda, aa):
 @pytest.mark.parametrize("controller", ["gravity", "boids"])
 def test_scene_rollout_matches_dense_cpu(cuda, controller):
     cfg = SimConfig(n=96, controller=controller, vision=VisionConfig(width=48))
-    ref = Scene(dataclasses.replace(cfg, backend="dense"))
+    ref = Scene(dataclasses.replace(cfg, backend="dense"), device="cpu")
     s0 = ref.spawn_envs(2, seed=3)
     _, want = ref.rollout(s0, 4, record=("pos", "obs"))
     ker = Scene(cfg, device=cuda)
@@ -237,3 +237,80 @@ def test_scene_rollout_matches_dense_cpu(cuda, controller):
     # last-bit position differences may flip an eye-edge pixel
     flips = ((got["obs"].cpu() - want["obs"]).abs() > 1e-3).double().mean().item()
     assert flips < 1e-3
+
+
+@pytest.mark.parametrize("b,n,w", [
+    (1, 24, 64), (1, 100, 1024), (1, 60, 32), (3, 72, 512), (64, 256, 64),
+    (1, 77, 100), (5, 33, 17),
+])
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_kernel_matches_plain(cuda, b, n, w, aa):
+    # the kernel follows the plain division route op for op (built with
+    # -fmad=false): at power-of-two widths no pixel flips and the winners
+    # agree; at others the plain pixel centres divide by W through a
+    # reciprocal on the card, so values hold tests/test_wireframe_kernel.py's
+    # tolerance and at most 1e-3 of the pixels may flip
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -40, 40, n, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe", far=200.0)
+    gs, gd, gw = wireframe.wireframe_eye_with_winner(pos, dirs, pos, dirs, cfg)
+    ws, wd, ww = wireframe.wireframe_eye_plain(pos, dirs, pos, dirs, cfg)
+    torch.cuda.synchronize()
+    flips = (gd < cfg.far) != (wd < cfg.far)
+    if w & (w - 1) == 0:
+        assert not flips.any() and torch.equal(gw.long(), ww)
+        _close(gd, wd, 1e-5, 2e-4)
+        _close(gs, ws, 1e-5, 2e-4)
+    else:
+        beyond = flips | ((gd - wd).abs() > 2e-4 + 1e-5 * wd.abs())
+        beyond |= (gs - ws).abs() > 2e-4 + 1e-5 * ws.abs()
+        assert beyond.double().mean().item() <= 1e-3
+    s2, d2 = wireframe.wireframe_eye(pos, dirs, pos, dirs, cfg)  # without the winner
+    assert torch.equal(s2, gs) and torch.equal(d2, gd)
+
+
+def test_wireframe_eye_kernel_tie_goes_to_the_lower_edge(cuda):
+    """tests/test_torch_wireframe.py's tie scene on the card: at the centre
+    pixel of an odd width (u = 0 in the kernel's arithmetic) target 0's edge
+    2 and target 1's edge 0 lie at depth 9; edge-major, target 1 wins."""
+    cfg = VisionConfig(width=17, sprite_mode="wireframe", far=200.0)
+    eye = torch.tensor([[0.0, 0.0]], device=cuda)
+    eye_dir = torch.tensor([[1.0, 0.0]], device=cuda)
+    tgt = torch.tensor([[10.0, 0.0], [10.0, 0.0]], device=cuda)
+    hdg = torch.tensor([[1.0, 0.0], [-1.0, 0.0]], device=cuda)
+    shade, depth, winner = wireframe.wireframe_eye_with_winner(eye, eye_dir, tgt, hdg, cfg)
+    torch.cuda.synchronize()
+    assert depth[0, 8].item() == 9.0 and winner[0, 8].item() == 1 and shade[0, 8].item() == 0.5
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_diff_on_cuda_matches_plain_autograd(cuda, aa):
+    """RenderRowsWireframeDiff on the card (the kernel's forward with its
+    winner index, the winner pullback) against autograd through the plain
+    renderer on the card; its launches: one forward, no backward kernel."""
+    pos0 = _uniform((4, 64, 2), -30, 30, 5, cuda)
+    vel0 = _uniform((4, 64, 2), -1, 1, 6, cuda)
+    us = _uniform((4, 64, 64), -1, 1, 7, cuda)
+    ud = _uniform((4, 64, 64), -1e-3, 1e-3, 8, cuda)
+    cfg = VisionConfig(width=64, antialias=aa, sprite_mode="wireframe")
+    grads, launches = [], []
+    for fn in (lambda p, v: wireframe.render_rows_wireframe_tiled(p, v, cfg),
+               lambda p, v: render.render_rows(p, v, cfg)):
+        common.reset_launch_counts()
+        p, v = pos0.clone().requires_grad_(), vel0.clone().requires_grad_()
+        shade, depth = fn(p, v)
+        ((shade * us).sum() + (depth * ud).sum()).backward()
+        grads.append((p.grad, v.grad))
+        launches.append(common.launch_counts())
+    assert launches[0] == {**{k: 0 for k in common.KERNELS}, "wireframe_eye": 1}
+    assert all(c == 0 for c in launches[1].values())  # the plain route
+    torch.cuda.synchronize()
+    for g, x in zip(*grads):
+        assert x.abs().max() > 0
+        torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
+    common.reset_launch_counts()
+    cfg_sim = SimConfig(n=64, controller="gravity", vision=cfg)
+    scene = Scene(cfg_sim, device=cuda)
+    scene.observe(scene.step(scene.spawn(0)))
+    assert common.launch_counts()["wireframe_eye"] == 1 and common.launch_counts()["disc_eye"] == 0

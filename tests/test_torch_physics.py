@@ -189,7 +189,7 @@ def test_cpu_tensors_take_the_plain_version():
     g = pairwise.gravity_forces_tiled(p, GravityConfig())
     tboids.boids_velocity_tiled(_t(pos), _t(vel), BoidsConfig())
     assert common.launch_counts() == {"gravity": 0, "boids": 0, "disc_eye": 0,
-                                      "gravity_vjp": 0, "disc_eye_bwd": 0}
+                                      "gravity_vjp": 0, "disc_eye_bwd": 0, "wireframe_eye": 0}
     (g * g).sum().backward()
     assert common.launch_counts()["gravity_vjp"] == 0
     assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
@@ -203,7 +203,7 @@ def test_random_walk_statistics():
     jax.random differ, so compare by statistics (test_physics_parity.py)."""
     cfg = SimConfig(n=4096, controller="random")
     gen = torch.Generator().manual_seed(7)
-    state = spawn(cfg, gen)
+    state = spawn(cfg, gen, "cpu")
     out = dense.random_step(state, cfg, generator=gen)
     kick = (out.vel - state.vel).numpy()
     a = cfg.random_walk.accel
@@ -220,7 +220,7 @@ def test_random_walk_statistics():
 
 def test_spawn_distribution_matches_jax():
     cfg = SimConfig(n=4096)
-    st = spawn(cfg, torch.Generator().manual_seed(0))
+    st = spawn(cfg, torch.Generator().manual_seed(0), "cpu")
     jst = jspawn(jax.random.key(0), JSimConfig(n=4096))
     pos, vel = st.pos.numpy(), st.vel.numpy()
     jpos, jvel = np.asarray(jst.pos), np.asarray(jst.vel)
@@ -230,7 +230,7 @@ def test_spawn_distribution_matches_jax():
         assert abs(a.mean() - b.mean()) < 0.05 * scale
         assert abs(a.std() - b.std()) < 0.05 * scale
     # seeded: the same seed gives the same spawn
-    st2 = spawn(cfg, torch.Generator().manual_seed(0))
+    st2 = spawn(cfg, torch.Generator().manual_seed(0), "cpu")
     assert torch.equal(st.pos, st2.pos)
 
 

@@ -103,7 +103,7 @@ def test_scene_rollout_matches_jax(controller, num_envs):
     n, w, steps = 48, 32, 3
     kw = dict(n=n, controller=controller)
     jscene = JScene(JSimConfig(**kw, backend="pallas", vision=JVisionConfig(width=w)))
-    scene = Scene(SimConfig(**kw, vision=VisionConfig(width=w)))
+    scene = Scene(SimConfig(**kw, vision=VisionConfig(width=w)), device="cpu")
     batch = () if num_envs is None else (num_envs,)
     rng = np.random.RandomState(5)
     lo = -30 if controller == "gravity" else -15  # boids: every rule fires
@@ -124,11 +124,11 @@ def test_scene_rollout_matches_jax(controller, num_envs):
 
 def test_random_controller_and_unported_backends():
     cfg = SimConfig(n=32, controller="random", vision=VisionConfig(width=8))
-    scene = Scene(cfg)
+    scene = Scene(cfg, device="cpu")
     a, _ = scene.rollout(scene.spawn(3), 2)
     b, _ = scene.rollout(scene.spawn(3), 2)
     torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=0)  # seeded stream
     assert int(a.t) == 2
     for backend in ("ring", "gspmd", "cells"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Scene(dataclasses.replace(cfg, backend=backend))
+            Scene(dataclasses.replace(cfg, backend=backend), device="cpu")

@@ -130,7 +130,7 @@ def test_reinforce_step_matches_jax(monkeypatch, reward_mode, antialias):
     jts2, jm = jax.jit(jtrain.make_train_step(jenv, apply_fn, opt, horizon=H))(jts)
 
     ts = train.init_train_state(env, B, seed=0, lr=LR,
-                                policy=_ported_policy(jts.params, env.obs_width))
+                                policy=_ported_policy(jts.params, env.obs_width), device="cpu")
     old = {k: v.clone() for k, v in ts.policy.state_dict().items()}
     ts2, m = train.make_train_step(env, horizon=H)(ts)
     for key in ("loss", "reward_mean", "return_mean"):
@@ -152,7 +152,7 @@ def test_apg_step_matches_jax(monkeypatch, reward_mode, diff_vision):
                                           diff_vision=diff_vision))(jts)
 
     ts = apg.init_apg_state(env, seed=0, lr=LR,
-                            policy=_ported_policy(jts.params, env.obs_width))
+                            policy=_ported_policy(jts.params, env.obs_width), device="cpu")
     old = {k: v.clone() for k, v in ts.policy.state_dict().items()}
     ts2, m = apg.make_apg_step(env, horizon=H, num_envs=B, diff_vision=diff_vision)(ts)
     for key in ("loss", "reward_mean", "grad_norm"):
@@ -201,7 +201,7 @@ def test_apg_step_with_default_actuation_matches_jax(monkeypatch, reward_mode, d
     want = mlp_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jts2.opt_state))
 
     ts = apg.init_apg_state(env, seed=0, lr=LR,
-                            policy=_ported_policy(jts.params, env.obs_width))
+                            policy=_ported_policy(jts.params, env.obs_width), device="cpu")
     _, m = apg.make_apg_step(env, horizon=h, num_envs=b, diff_vision=diff_vision)(ts)
     for key in ("loss", "reward_mean", "grad_norm"):
         np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=rtol, err_msg=key)
@@ -216,7 +216,7 @@ def test_apg_remat_equals_plain_backward():
     _, env = _envs("cohesion", False)
     grads = []
     for remat in (False, True):
-        ts = apg.init_apg_state(env, seed=4, lr=LR)
+        ts = apg.init_apg_state(env, seed=4, lr=LR, device="cpu")
         _, m = apg.make_apg_step(env, horizon=H, num_envs=B, remat=remat)(ts)
         grads.append(float(m["grad_norm"]))
     assert grads[0] > 0
@@ -233,7 +233,8 @@ def test_apg_diff_vision_gradient_is_load_bearing():
                     max_accel=1.0, smooth_clip=True, reward_mode="visibility")
     norms = {}
     for diff in (False, True):
-        ts = apg.init_apg_state(env, seed=0, lr=LR, policy=MLPPolicy(env.obs_width, use_bf16=False))
+        ts = apg.init_apg_state(env, seed=0, lr=LR, policy=MLPPolicy(env.obs_width, use_bf16=False),
+                                device="cpu")
         _, m = apg.make_apg_step(env, horizon=4, num_envs=8, diff_vision=diff)(ts)
         norms[diff] = float(m["grad_norm"])
     assert norms[False] == 0.0, f"stop-gradient APG leaked: {norms[False]}"
@@ -259,12 +260,12 @@ def test_torch_adam_equals_optax_adam():
 
 def test_train_states_are_seeded_and_mesh_waits_for_the_ring():
     _, env = _envs("cohesion", False)
-    a = train.init_train_state(env, 2, seed=9)
-    b = train.init_train_state(env, 2, seed=9)
+    a = train.init_train_state(env, 2, seed=9, device="cpu")
+    b = train.init_train_state(env, 2, seed=9, device="cpu")
     assert torch.equal(a.env_states.pos, b.env_states.pos)
     for (_, x), (_, y) in zip(a.policy.state_dict().items(), b.policy.state_dict().items()):
         assert torch.equal(x, y)
-    assert apg.init_apg_state(env, seed=9).policy.state_dict()["head.weight"].equal(
+    assert apg.init_apg_state(env, seed=9, device="cpu").policy.state_dict()["head.weight"].equal(
         a.policy.state_dict()["head.weight"])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
         train.make_train_step(env, mesh=object())
@@ -288,7 +289,7 @@ def test_train_cli_runs_on_cpu(capsys, algo):
 
 @pytest.mark.parametrize("argv,item", [
     (["--algo", "ppo"], "item 13"), (["--algo", "ac"], "item 13"), (["--algo", "es"], "item 13"),
-    (["--algo", "reinforce-gru"], "item 13"), (["--sprite-mode", "wireframe"], "items 4 and 11"),
+    (["--algo", "reinforce-gru"], "item 13"),
 ])
 def test_train_cli_names_the_roadmap_item_of_what_is_not_ported(capsys, argv, item):
     assert cli.main(["train", "--device", "cpu", *argv]) == 2

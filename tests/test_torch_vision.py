@@ -148,16 +148,20 @@ def test_disc_eye_depth_tie_goes_to_lowest_index():
 
 
 def test_cpu_eye_counts_no_launch_and_wireframe_raises():
+    """The disc eye's wrappers raise for a wireframe config (wireframe
+    sprites render through ops.wireframe, tests/test_torch_wireframe.py),
+    and a CPU render launches nothing."""
     common.reset_launch_counts()
     pos, vel = _arrays(16, 2)
     raycast.render_rows_tiled(_t(pos), _t(vel), VisionConfig(width=16))
     assert common.launch_counts()["disc_eye"] == 0
     wf = VisionConfig(width=16, sprite_mode="wireframe")
-    for fn in (raycast.render_rows_tiled, render.render_rows):
-        with pytest.raises(NotImplementedError):
+    for fn in (raycast.render_rows_tiled, raycast.render_rows_diff):
+        with pytest.raises(ValueError, match="wireframe"):
             fn(_t(pos), _t(vel), wf)
-    with pytest.raises(NotImplementedError):
-        Scene(SimConfig(n=16, vision=wf))
+    scene = Scene(SimConfig(n=16, vision=wf), device="cpu")
+    assert scene.observe(scene.spawn(0)).shape == (16, 16)
+    assert all(c == 0 for c in common.launch_counts().values())
 
 
 @pytest.mark.parametrize("backend", ["dense", "pallas"])
@@ -165,7 +169,7 @@ def test_scene_observe_matches_jax(backend):
     pos, vel = _arrays(64, 12, batch=(2,))
     kw = dict(n=64, controller="gravity", backend=backend)
     jscene = JScene(JSimConfig(**kw, vision=JVisionConfig(width=64)))
-    scene = Scene(SimConfig(**kw, vision=VisionConfig(width=64)))
+    scene = Scene(SimConfig(**kw, vision=VisionConfig(width=64)), device="cpu")
     jst = jstate.spawn_batch(jax.random.key(0), jscene.cfg, 2).replace(
         pos=jnp.asarray(pos), vel=jnp.asarray(vel))
     st = SceneState(pos=_t(pos), vel=_t(vel), t=torch.zeros(2, dtype=torch.int32))
@@ -180,7 +184,7 @@ def test_scene_observe_matches_jax(backend):
 
 
 def test_scene_without_vision_refuses_observe():
-    scene = Scene(dataclasses.replace(SimConfig(n=8), vision=None))
+    scene = Scene(dataclasses.replace(SimConfig(n=8), vision=None), device="cpu")
     with pytest.raises(ValueError):
         scene.observe(scene.spawn(0))
     with pytest.raises(ValueError):
