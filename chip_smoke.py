@@ -96,7 +96,7 @@ WF_TRAINING = {"reinforce": ("gravity", "wireframe_eye"),
                "apg diff_vision": ("gravity", "gravity_vjp", "wireframe_eye")}
 # BASELINE config 5 width for the trainers
 TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH, TRAIN_HORIZON = 4096, 256, 64, 8
-# One H100 SXM's published peaks (on-chip-measurement guide): fp32 outside
+# One H100 SXM's published peaks: fp32 outside
 # the tensor cores, and HBM3.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # fp32 operations each kernel's function does, counted from its plain

@@ -44,9 +44,9 @@
 // its (eye, pixel). Two skips leave the outputs bit-identical, since each
 // passes over only fragments that cannot hit: with antialias a target whose
 // union interval misses the pixel (every edge interval lies inside the
-// union), which is the culling #8 exists for; without antialias an edge
-// whose tau = num/den is outside [0, 1] by its operands' signs and sizes
-// before the divide. Any width and any N: pixel, eye and target tails are
+// union), which is the culling the JAX compact kernel exists for; without
+// antialias an edge whose tau = num/den is outside [0, 1] by its operands'
+// signs and sizes before the divide. Any width and any N: pixel, eye and target tails are
 // masked by bounds.
 
 #include <cuda_runtime.h>

@@ -161,8 +161,8 @@ def test_wireframe_winner_index_is_the_plain_argmin():
 @pytest.mark.parametrize("aa", [False, True])
 def test_wireframe_matches_jax_pallas_routes(route, n, w, aa):
     """The JAX package's Pallas wireframe kernels, run in interpret mode as
-    its own suite runs them: rasterq (#7, the default narrow-row route),
-    streaming (#9, force_streaming) and compact (#8, wide rows)."""
+    its own suite runs them: rasterq (the default narrow-row route),
+    streaming (force_streaming) and compact (wide rows)."""
     pos, vel = _arrays(n, 200 + n)
     cfg, jcfg = _cfgs(w, aa)
     want = jwireframe.render_rows_wireframe_tiled(
