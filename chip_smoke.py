@@ -5,14 +5,17 @@
 
 Phases, one line each (any failure raises and the exit code is non-zero):
   1. device   — the card's name and power limit; TF32 off.
-  2. build    — nvcc builds the six kernels from nenbody_tpu_torch/csrc
+  2. build    — nvcc builds the eight kernels from nenbody_tpu_torch/csrc
                 into build/nenbody_tpu_torch/ (one nvcc per source, all at
                 once); ptxas reports registers, shared memory and spills.
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes (the backward kernels and the
                 wireframe eye also at the trainers'), with the tolerance
                 stated; the autograd Functions' gradients on the card
-                against plain autograd.
+                against plain autograd; the ring's kernels (the boids
+                partials at 16,384 x 16,384, the gravity VJP's cross form
+                against float64, the wireframe backward at the eye's shapes
+                and split into 4 ring hops).
   4. slice    — the serving path through the user's entry points (Scene
                 rollouts at BASELINE configs 2, 3, 4, 5 and reference-100,
                 and the port's entry()), launch counts read before and after.
@@ -29,11 +32,25 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 sprite_mode='wireframe' at config 2 and reference-100, then
                 `train --algo reinforce --sprite-mode wireframe` of the CLI
                 and APG with diff_vision (antialias, visibility) at
-                config-5 width.
+                config-5 width (its backward now the wireframe backward
+                kernel).
+     ring     — the agent-axis ring (nenbody_tpu_torch.parallel) at full
+                width on a mesh that names cuda:0 4 times, each part held
+                against the one-device result: ring gravity at config 4,
+                ring boids at N=65,536, ring_render_rows (disc, wireframe)
+                at config 2; Scene(backend="ring") rollouts at configs 2
+                and 3 on default_mesh(); `train --mesh auto` of the CLI;
+                REINFORCE and APG diff_vision (wireframe, disc) at config-5
+                width on a {"data": 2, "agents": 2} mesh of cuda:0, horizon
+                8, and APG's parameter gradients at horizon 1 on that mesh
+                against one device's; the launch counts set to 0 just
+                before each ring call and read just after it, peak device
+                memory.
   5. times    — CUDA-event times of each kernel and its plain version,
                 alternated (plain, kernel, kernel, plain), the eyes with and
                 without their winner index, steps/s of the config-2 rollout
-                (both sprites), reference-100 (wireframe) and entry(), and
+                (both sprites), reference-100 (wireframe) and entry(), the
+                ring's kernels and the ring path against one device, and
                 seconds per training iteration and agent-frames/s of each
                 trainer.
 The line before the last is a JSON object with one entry per kernel
@@ -64,8 +81,9 @@ from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
 from nenbody_tpu_torch.entry import entry
 from nenbody_tpu_torch.ops import boids as boids_ops
 from nenbody_tpu_torch.ops import common, pairwise, raycast, wireframe
+from nenbody_tpu_torch.parallel import default_mesh, make_mesh, ring
 from nenbody_tpu_torch.physics import dense
-from nenbody_tpu_torch.rl import apg
+from nenbody_tpu_torch.rl import apg, train
 from nenbody_tpu_torch.rl.env import VisionEnv
 from nenbody_tpu_torch.vision import camera, render
 
@@ -86,6 +104,11 @@ KERNEL_INFO = {
                           also_replaces=["nenbody_tpu/ops/wireframe.py:877",
                                          "nenbody_tpu/ops/wireframe.py:545",
                                          "nenbody_tpu/ops/wireframe.py:288"]),
+    "boids_partials": dict(source="nenbody_tpu_torch/csrc/boids_partials.cu",
+                           replaces="nenbody_tpu/ops/boids.py:119"),
+    "wireframe_eye_bwd": dict(source="nenbody_tpu_torch/csrc/wireframe_eye_bwd.cu",
+                              replaces="nenbody_tpu/ops/wireframe.py:2424",
+                              also_replaces="nenbody_tpu/ops/wireframe.py:2024"),
 }
 EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64)]
 WF_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 1024, 1024), (64, 256, 64)]
@@ -93,7 +116,28 @@ SERVING = ("gravity", "boids", "disc_eye")
 TRAINING = ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd")
 WF_SERVING = ("gravity", "boids", "wireframe_eye")
 WF_TRAINING = {"reinforce": ("gravity", "wireframe_eye"),
-               "apg diff_vision": ("gravity", "gravity_vjp", "wireframe_eye")}
+               "apg diff_vision": ("gravity", "gravity_vjp", "wireframe_eye",
+                                   "wireframe_eye_bwd")}
+RING = {"physics and rows": ("gravity", "boids_partials", "disc_eye", "wireframe_eye"),
+        "scene": ("gravity", "boids_partials", "disc_eye"),
+        "train --mesh auto": ("gravity", "disc_eye"),
+        "reinforce 2x2": ("gravity", "disc_eye"),
+        "apg diff_vision wireframe 2x2": ("gravity", "gravity_vjp", "wireframe_eye",
+                                          "wireframe_eye_bwd"),
+        "apg diff_vision disc 2x2": ("gravity", "gravity_vjp", "disc_eye", "disc_eye_bwd")}
+# The ring against one device, each bound a small multiple of the reading on
+# the card (PERF.md section 5) and far below what a dropped hop (a quarter
+# of the sum at 4 shards) or a hop rounded to bfloat16 (2^-9 of its partial)
+# would give: ring gravity and boids (err / max|one device|), the Scene
+# rollouts (max|dpos| and the share of obs pixels off by > 1e-3), the
+# trainers' first loss (relative) and APG's gradients at horizon 1
+# (|difference| / |one device|).
+RING_GRAVITY_BOUND, RING_BOIDS_BOUND = 1e-4, 1e-5
+RING_SCENE_DPOS, RING_SCENE_PIXELS = 1e-5, 1e-4
+RING_LOSS_RTOL, RING_GRAD_BOUND = 1e-5, 1e-3
+# the wireframe APG diff_vision iteration with the plain pullback (PERF.md
+# section 5, profile_train: NVIDIA H100 80GB HBM3, 700.00 W)
+WF_DIFF_PLAIN_SEC = 2.6347
 # BASELINE config 5 width for the trainers
 TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH, TRAIN_HORIZON = 4096, 256, 64, 8
 # One H100 SXM's published peaks: fp32 outside
@@ -107,6 +151,9 @@ GRAVITY_OPS, GRAVITY_VJP_OPS, BOIDS_OPS = 11, 25, 22
 DISC_PAIR_OPS, DISC_PIXEL_OPS = 16, 6
 WF_PAIR_OPS, WF_PAIR_AA_OPS, WF_EDGE_OPS = 54, 114, 13
 DISC_BWD_PIXEL_OPS = 60
+# the wireframe pullback per live pixel: the 3-edge re-evaluation (about
+# 150 operations) and its reverse sweep (about twice that)
+WF_BWD_PIXEL_OPS = 450
 
 
 def log(phase: str, msg: str) -> None:
@@ -124,7 +171,9 @@ class Errors:
     def __init__(self):
         self.max_abs = {k: 0.0 for k in KERNEL_INFO}
 
-    def check(self, kernel, label, got, want, rtol, atol):
+    def check(self, kernel, label, got, want, rtol, atol, witness=None):
+        """Every element within rtol/atol, or, with `witness`, every element
+        beyond it vouched for by `witness(label, bad, got, want)`."""
         torch.cuda.synchronize()
         got, want = got.double(), want.double()
         if got.shape != want.shape or not torch.isfinite(got).all():
@@ -134,10 +183,15 @@ class Errors:
         err = diff.max().item()
         self.max_abs[kernel] = max(self.max_abs[kernel], err)
         differing = (diff > 0).double().mean().item()
+        beyond = bad.double().mean().item()
         log("kernels", f"{label}: max_abs_err={err:.3e} differing={differing:.2e} "
-            f"beyond_tol={bad.double().mean().item():.2e} (rtol={rtol}, atol={atol})")
+            f"beyond_tol={beyond:.2e} (rtol={rtol}, atol={atol})")
         if bad.any():
-            raise AssertionError(f"{label}: {int(bad.sum())} elements beyond tolerance")
+            worst = torch.topk((diff - rtol * want.abs()).flatten(), min(3, int(bad.sum()))).indices
+            log("kernels", f"{label}: worst got {got.flatten()[worst].tolist()} want "
+                f"{want.flatten()[worst].tolist()}")
+            if witness is None or not witness(label, bad, got, want):
+                raise AssertionError(f"{label}: {int(bad.sum())} elements beyond tolerance")
 
     def check_scaled(self, kernel, label, got, want, bound):
         """|got - want| / max|want| < bound, for sums that cancel (the error
@@ -462,6 +516,29 @@ def check_metrics(label: str, rows, iters: int, moved: float) -> None:
     log("train", f"{label}: parameters moved by up to {moved:.3e}; last {json.dumps(rows[-1])}")
 
 
+def cli_rows(argv) -> list:
+    """The metric rows `cli.main(argv)` prints; it must exit 0."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    expect(rc == 0, f"{' '.join(argv)} exits 0")
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def step_rows(step, ts, iters: int):
+    """Run a trainer's step `iters` times: (the last state, one metric row
+    per iteration with its host seconds and agent-frames)."""
+    rows = []
+    for i in range(iters):
+        t1 = time.perf_counter()
+        ts, metrics = step(ts)
+        row = {k: float(v) for k, v in metrics.items()}
+        row.update(iter=i, sec=time.perf_counter() - t1,
+                   agent_frames=TRAIN_ENVS * TRAIN_AGENTS * TRAIN_HORIZON)
+        rows.append(row)
+    return ts, rows
+
+
 def phase_train():
     """The training path at config-5 width; returns (each run's metric rows,
     the launch counts of the path)."""
@@ -470,13 +547,11 @@ def phase_train():
     t0 = time.perf_counter()
     runs = {}
     for algo in ("reinforce", "apg"):
-        out = io.StringIO()
-        with ParamWatch() as watch, contextlib.redirect_stdout(out):
-            rc = cli.main(["train", "--algo", algo, "--envs", str(TRAIN_ENVS),
-                           "--agents", str(TRAIN_AGENTS), "--vision-width", str(TRAIN_WIDTH),
-                           "--horizon", str(TRAIN_HORIZON), "--iters", "3", "--seed", "0"])
-        expect(rc == 0, f"train --algo {algo} exits 0")
-        runs[algo] = [json.loads(line) for line in out.getvalue().splitlines()]
+        with ParamWatch() as watch:
+            runs[algo] = cli_rows(["train", "--algo", algo, "--envs", str(TRAIN_ENVS),
+                                   "--agents", str(TRAIN_AGENTS), "--vision-width",
+                                   str(TRAIN_WIDTH), "--horizon", str(TRAIN_HORIZON), "--iters",
+                                   "3", "--seed", "0"])
         check_metrics(f"train --algo {algo}", runs[algo], 3, watch.moved())
 
     env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity",
@@ -484,15 +559,8 @@ def phase_train():
                     reward_mode="visibility")
     ts = apg.init_apg_state(env, seed=0, device="cuda")
     step = apg.make_apg_step(env, horizon=TRAIN_HORIZON, num_envs=TRAIN_ENVS, diff_vision=True)
-    rows = []
     with ParamWatch() as watch:
-        for i in range(2):
-            t1 = time.perf_counter()
-            ts, metrics = step(ts)
-            row = {k: float(v) for k, v in metrics.items()}
-            row.update(iter=i, sec=time.perf_counter() - t1,
-                       agent_frames=TRAIN_ENVS * TRAIN_AGENTS * TRAIN_HORIZON)
-            rows.append(row)
+        ts, rows = step_rows(step, ts, 2)
     runs["apg diff_vision"] = rows
     check_metrics("apg diff_vision (antialias, visibility)", rows, 2, watch.moved())
     torch.cuda.synchronize()
@@ -616,14 +684,12 @@ def phase_wireframe_train():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     common.reset_launch_counts()
-    out = io.StringIO()
-    with ParamWatch() as watch, contextlib.redirect_stdout(out):
-        rc = cli.main(["train", "--algo", "reinforce", "--sprite-mode", "wireframe",
-                       "--envs", str(TRAIN_ENVS), "--agents", str(TRAIN_AGENTS),
-                       "--vision-width", str(TRAIN_WIDTH), "--horizon", str(TRAIN_HORIZON),
-                       "--iters", "3", "--seed", "0"])
-    expect(rc == 0, "train --algo reinforce --sprite-mode wireframe exits 0")
-    runs["reinforce"] = [json.loads(line) for line in out.getvalue().splitlines()]
+    with ParamWatch() as watch:
+        runs["reinforce"] = cli_rows(["train", "--algo", "reinforce", "--sprite-mode",
+                                      "wireframe", "--envs", str(TRAIN_ENVS), "--agents",
+                                      str(TRAIN_AGENTS), "--vision-width", str(TRAIN_WIDTH),
+                                      "--horizon", str(TRAIN_HORIZON), "--iters", "3",
+                                      "--seed", "0"])
     check_metrics("train --algo reinforce --sprite-mode wireframe", runs["reinforce"], 3,
                   watch.moved())
     counts = [common.launch_counts()]
@@ -634,15 +700,8 @@ def phase_wireframe_train():
                     reward_mode="visibility")
     ts = apg.init_apg_state(env, seed=0, device="cuda")
     step = apg.make_apg_step(env, horizon=TRAIN_HORIZON, num_envs=TRAIN_ENVS, diff_vision=True)
-    rows = []
     with ParamWatch() as watch:
-        for i in range(2):
-            t1 = time.perf_counter()
-            ts, metrics = step(ts)
-            row = {k: float(v) for k, v in metrics.items()}
-            row.update(iter=i, sec=time.perf_counter() - t1,
-                       agent_frames=TRAIN_ENVS * TRAIN_AGENTS * TRAIN_HORIZON)
-            rows.append(row)
+        ts, rows = step_rows(step, ts, 2)
     runs["apg diff_vision"] = rows
     check_metrics("wireframe apg diff_vision (antialias, visibility)", rows, 2, watch.moved())
     torch.cuda.synchronize()
@@ -659,6 +718,320 @@ def phase_wireframe_train():
         f"{time.perf_counter() - t0:.2f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return runs, total
+
+
+RING_PAIRS = 16384  # the ring kernels' phase-3 shape: one hop at config 4 on 4 shards
+# how far the wireframe backward's total distance from float64 over its
+# elements beyond tolerance may exceed the plain fp32 version's
+WITNESS_FACTOR = 2.0
+
+
+def pullback_witness(inputs, winner, us, ud, vcfg: VisionConfig, out: int, rtol, atol):
+    """A witness for Errors.check of the wireframe backward's output `out`
+    (0-3: d eye pos, d eye dir, d target pos, d target heading), run on the
+    envs that hold an element beyond tolerance. The exact value is
+    winner_pullback in float64 (the same winner index). Each element
+    beyond tolerance must be within its largest per-pixel-column share
+    (pixel_shares, float64 or plain fp32, whichever is larger) of the
+    exact value, plus the tolerance: the kernel and the exact value differ
+    by no more than one pixel on another side of a branch or a cancelling
+    difference would move it. And over those elements the kernel's total
+    distance from the exact value must be within WITNESS_FACTOR times the
+    plain fp32 version's: it is not the less exact side there."""
+    def witness(label, bad, got, want) -> bool:
+        batched = got.dim() == 3
+        envs = bad.flatten(1).any(1).nonzero().flatten() if batched else None
+        sel = (lambda x: x[envs]) if batched else (lambda x: x)
+        ins32 = [sel(x) for x in (*inputs, us, ud)]
+        ins64 = [x.double() for x in ins32]
+        win = sel(winner)
+        args = lambda xs: (*xs[:4], win, *xs[4:], vcfg)
+        ref = wireframe.winner_pullback(*args(ins64))[out]
+        share = torch.maximum(pixel_shares(*args(ins64), out),
+                              pixel_shares(*args(ins32), out).double())
+        b = sel(bad)
+        k, p, f, m = sel(got)[b], sel(want)[b], ref[b], share[b]
+        k_err, p_err = (k - f).abs(), (p - f).abs()
+        outside = k_err > m + atol + rtol * f.abs()
+        for i in range(min(12, len(k))):
+            log("kernels", f"{label}: float64 witness kernel {k[i].item():.6e} plain "
+                f"{p[i].item():.6e} float64 {f[i].item():.6e} largest pixel share "
+                f"{m[i].item():.3e}: |kernel - float64| {k_err[i].item():.3e}, "
+                f"|plain - float64| {p_err[i].item():.3e}")
+        total_k, total_p = k_err.sum().item(), p_err.sum().item()
+        log("kernels", f"{label}: float64 witness over {len(k)} elements beyond tolerance in "
+            f"{1 if envs is None else len(envs)} envs: outside their largest pixel share "
+            f"{int(outside.sum())} (bound 0); total |kernel - float64| {total_k:.3e}, total "
+            f"|plain - float64| {total_p:.3e} (bound {WITNESS_FACTOR} x the plain's)")
+        return not outside.any() and total_k <= WITNESS_FACTOR * total_p
+
+    return witness
+
+
+def pixel_shares(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, vcfg: VisionConfig,
+                 out: int):
+    """The largest absolute per-pixel-column share of winner_pullback's
+    output `out`, in the inputs' precision: the pullback with the
+    cotangents of one pixel column at a time (one replica of the envs per
+    column)."""
+    w = vcfg.width
+    ins = [eye_pos, eye_dir, tgt, tgt_hdg]
+    batched = eye_pos.dim() == 3
+    if not batched:
+        ins, winner, us, ud = [x[None] for x in ins], winner[None], us[None], ud[None]
+    one = torch.eye(w, dtype=us.dtype, device=us.device)[:, None, None, None, :]
+    reps = [x.repeat(w, 1, 1) for x in ins]
+    col = lambda x: (x[None] * one).flatten(0, 1)
+    terms = wireframe.winner_pullback(*reps, winner.repeat(w, 1, 1), col(us), col(ud), vcfg)[out]
+    largest = terms.unflatten(0, (w, -1)).abs().amax(0)
+    return largest if batched else largest[0]
+
+
+def phase_ring_kernels(errors: Errors, gen) -> None:
+    """The ring's kernels against their plain versions on the card.
+    Boids partials at 16,384 x 16,384 (an aliased block with the diagonal
+    masked, as on hop 0, and two distinct blocks): counts exact; the sums
+    normalised by their largest, bound N * 2^-24 (a worst-case sequential
+    fp32 sum of N terms; the alignment sum runs over every agent and
+    cancels). The gravity VJP's cross form at 16,384 x 16,384, both
+    outputs, against its plain version in float64, normalised, the same
+    bound. The wireframe backward against winner_pullback at the eye's
+    shapes and the trainers', AA off and on, the trainers' also as the 4
+    hops of shard 0 on a 4-shard agent axis (eyes against their own block,
+    then the 3 others): rtol 2e-4, atol 2e-4 of the largest component
+    (per-pixel terms round apart; target sums in atomic, run-to-run
+    order). At config-5 width a few components per million sit at a
+    near-degenerate edge (the ray almost along it, or the pixel centre
+    clamped to a slab-clip endpoint), where both sides differentiate
+    through a cancelling difference, forward mode here and reverse mode
+    there, and round apart by more; each such element must pass the
+    float64 witness (pullback_witness) instead."""
+    n = RING_PAIRS
+    bound = n * 2.0 ** -24
+    bcfg = BoidsConfig()
+    pos, vel = uniform(gen, (n, 2), -100, 100), uniform(gen, (n, 2), -1, 1)
+    pos_j, vel_j = uniform(gen, (n, 2), -100, 100), uniform(gen, (n, 2), -1, 1)
+    for excl, pj, vj in ((True, pos, vel), (False, pos_j, vel_j)):
+        got = boids_ops.boids_partials_tiled(pos, vel, pj, vj, bcfg, excl)
+        want = boids_ops.boids_partials_plain(pos, vel, pj, vj, bcfg, excl)
+        for name, g, w in zip(("sum1", "cnt1", "repel", "sum3", "cnt3"), got, want):
+            label = f"boids_partials {n} x {n} exclude_diagonal={excl} {name}"
+            if name.startswith("cnt"):
+                errors.check("boids_partials", label, g, w, 0.0, 0.0)
+            else:
+                errors.check_scaled("boids_partials", label, g, w, bound)
+
+    gcfg = GravityConfig()
+    u = torch.randn((n, 2), generator=gen, device="cuda")
+    got = pairwise.gravity_vjp_cross_tiled(pos, pos_j, u, gcfg)
+    want64 = pairwise.gravity_vjp_cross_plain(pos.double(), pos_j.double(), u.double(), gcfg)
+    plain32 = pairwise.gravity_vjp_cross_plain(pos, pos_j, u, gcfg)
+    for name, g, w, p32 in zip(("d pos_i", "d pos_j"), got, want64, plain32):
+        p_err = ((p32.double() - w).abs().max() / w.abs().max()).item()
+        log("kernels", f"gravity_vjp cross {n} x {n} {name}: plain fp32 err/max|grad| vs "
+            f"float64 {p_err:.3e}")
+        errors.check_scaled("gravity_vjp", f"gravity_vjp cross {n} x {n} {name} vs float64",
+                            g, w, bound)
+
+    for b, n_e, w in ((1, 1024, 64), (1, 100, 1024), (TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)):
+        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+        epos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
+        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-2
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            hops = [(f"B={b} N={n_e} W={w} aa={aa}", epos, dirs, epos, dirs, us, ud)]
+            if b == TRAIN_ENVS:
+                m = n_e // 4
+                blk = lambda x, j: x[:, j * m:(j + 1) * m].contiguous()
+                hops += [(f"{b} x {n_e} x {w} aa={aa} shard 0 hop {k}", blk(epos, 0),
+                          blk(dirs, 0), blk(epos, (0 - k) % 4), blk(dirs, (0 - k) % 4),
+                          blk(us, 0), blk(ud, 0)) for k in range(4)]
+            for label, ep, ed, tp, th, cs, cd in hops:
+                _, _, winner = wireframe.wireframe_eye_with_winner(ep, ed, tp, th, vcfg)
+                got = wireframe.wireframe_eye_vjp(ep, ed, tp, th, winner, cs, cd, vcfg)
+                want = wireframe.winner_pullback(ep, ed, tp, th, winner, cs, cd, vcfg)
+                for i, (name, g, x) in enumerate(zip(("d_eye", "d_dir", "d_tgt", "d_hdg"),
+                                                     got, want)):
+                    atol = 2e-4 * x.abs().max().item()
+                    errors.check("wireframe_eye_bwd", f"wireframe_eye_bwd {label} {name}", g, x,
+                                 2e-4, atol, witness=pullback_witness(
+                                     (ep, ed, tp, th), winner, cs, cd, vcfg, i, 2e-4, atol))
+
+
+def hold_scaled(label: str, got, want, bound: float) -> float:
+    """|got - want| / max|want| < bound for one path against another."""
+    torch.cuda.synchronize()
+    expect(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{label}: finite")
+    err = ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+    log("ring", f"{label}: err/max|one device| {err:.3e} (bound {bound:.1e})")
+    expect(err < bound, f"{label} within its bound")
+    return err
+
+
+def hold_rows(label: str, got, want, vcfg: VisionConfig) -> None:
+    """Rows at the eye's tolerances (depth rtol 1e-5 / atol 1e-4, shade
+    rtol 1e-5 / atol 1e-5, the wireframe's 2e-4), no pixel flipped."""
+    torch.cuda.synchronize()
+    shade_atol = 2e-4 if vcfg.sprite_mode == "wireframe" else 1e-5
+    flips = int(((got[1] < vcfg.far) != (want[1] < vcfg.far)).sum())
+    log("ring", f"{label}: max|d depth| {(got[1] - want[1]).abs().max().item():.3e}, "
+        f"max|d shade| {(got[0] - want[0]).abs().max().item():.3e}, flipped pixels {flips} "
+        f"(bound 0)")
+    expect(flips == 0, f"{label}: no flipped pixel")
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=shade_atol)
+
+
+def phase_ring(card: str):
+    """The agent-axis ring's path at full width (module docstring), each
+    part against the one-device result, launch counts read before and
+    after each part. Returns (the launch counts of each part, the mesh
+    trainers' metric rows)."""
+    cuda = torch.device("cuda", 0)
+    mesh4 = make_mesh({"agents": 4}, devices=[cuda] * 4)
+    mesh22 = make_mesh({"data": 2, "agents": 2}, devices=[cuda] * 4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    counts = {part: dict.fromkeys(KERNEL_INFO, 0) for part in RING}
+    runs = {}
+    t0 = time.perf_counter()
+
+    def on_ring(part: str, fn):
+        """fn(), the ring's call, with the launch counts set to 0 just
+        before it and read just after, added to `part`'s: the one-device
+        results it is held against run outside."""
+        common.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in common.launch_counts().items():
+            counts[part][k] += v
+        return out
+
+    with torch.no_grad():
+        cfg4 = PRESETS["gravity-65536"]()
+        pos = uniform(gen, (cfg4.n, 2), -100, 100)
+        vel = uniform(gen, (cfg4.n, 2), 0, 0.1)
+        one = pairwise.gravity_forces_tiled(pos, cfg4.gravity)
+        hold_scaled("ring gravity config 4 (N=65,536, 4 shards)",
+                    on_ring("physics and rows",
+                            lambda: ring.ring_gravity_forces(pos, cfg4, mesh=mesh4)),
+                    one, RING_GRAVITY_BOUND)
+        bcfg = SimConfig(n=cfg4.n, controller="boids")
+        one = boids_ops.boids_velocity_tiled(pos, vel, bcfg.boids)
+        hold_scaled("ring boids N=65,536 (4 shards)",
+                    on_ring("physics and rows",
+                            lambda: ring.ring_boids_velocity(pos, vel, bcfg, mesh=mesh4)),
+                    one, RING_BOIDS_BOUND)
+        cfg2 = PRESETS["gravity-vision-1024"]()
+        s2 = Scene(cfg2, device="cuda").spawn(0)
+        for sprite in ("disc", "wireframe"):
+            vcfg = dataclasses.replace(cfg2.vision, sprite_mode=sprite)
+            one = (wireframe.render_rows_wireframe_tiled(s2.pos, s2.vel, vcfg) if sprite ==
+                   "wireframe" else raycast.render_rows_tiled(s2.pos, s2.vel, vcfg))
+            hold_rows(f"ring_render_rows {sprite} config 2 (4 shards)",
+                      on_ring("physics and rows",
+                              lambda: ring.ring_render_rows(s2.pos, s2.vel, vcfg, mesh=mesh4)),
+                      one, vcfg)
+
+        log("ring", f"default_mesh(): {default_mesh()}")
+        for preset, steps in (("gravity-vision-1024", 20), ("boids-4096", 5)):
+            base = PRESETS[preset]()
+            scene = Scene(dataclasses.replace(base, backend="pallas"), device="cuda")
+            one_traj = scene.rollout(scene.spawn(0), steps, record=("pos", "obs"))[1]
+            scene = Scene(dataclasses.replace(base, backend="ring"), device="cuda")
+            s0 = scene.spawn(0)
+            ring_traj = on_ring("scene", lambda: scene.rollout(s0, steps,
+                                                               record=("pos", "obs"))[1])
+            finite_cuda(f"{preset} ring rollout", ring_traj["pos"], ring_traj["obs"])
+            dpos = (ring_traj["pos"] - one_traj["pos"]).abs().max().item()
+            flips = ((ring_traj["obs"] - one_traj["obs"]).abs() > 1e-3).double().mean().item()
+            log("ring", f"Scene(backend='ring') {preset}, {steps} steps against backend "
+                f"'pallas': max|dpos| {dpos:.3e} (bound {RING_SCENE_DPOS:.0e}), obs pixels off "
+                f"by >1e-3 {flips:.2e} (bound {RING_SCENE_PIXELS:.0e})")
+            expect(dpos < RING_SCENE_DPOS and flips < RING_SCENE_PIXELS,
+                   f"{preset}: the ring rollout agrees")
+
+    argv = ["train", "--envs", str(TRAIN_ENVS), "--agents", str(TRAIN_AGENTS),
+            "--vision-width", str(TRAIN_WIDTH), "--horizon", str(TRAIN_HORIZON), "--iters", "2",
+            "--seed", "0"]
+    one = cli_rows(argv)
+    runs["train --mesh auto"] = on_ring("train --mesh auto",
+                                        lambda: cli_rows(argv + ["--mesh", "auto"]))
+    for a, b in zip(runs["train --mesh auto"], one):
+        expect(math.isclose(a["loss"], b["loss"], rel_tol=RING_LOSS_RTOL),
+               f"train --mesh auto loss {a} equals one device's {b}")
+    log("ring", f"train --mesh auto: losses {[r['loss'] for r in runs['train --mesh auto']]} "
+        f"(one device {[r['loss'] for r in one]}, rtol {RING_LOSS_RTOL:.0e})")
+
+    torch.cuda.reset_peak_memory_stats()
+    for label, sprite, algo in (("reinforce 2x2", "disc", "reinforce"),
+                                ("apg diff_vision wireframe 2x2", "wireframe", "apg"),
+                                ("apg diff_vision disc 2x2", "disc", "apg")):
+        vcfg = VisionConfig(width=TRAIN_WIDTH, sprite_mode=sprite, antialias=algo == "apg")
+        env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity", vision=vcfg),
+                        reward_mode="visibility" if algo == "apg" else "cohesion")
+        rows = {}
+        for mesh in (mesh22, None):
+            if algo == "apg":
+                ts = apg.init_apg_state(env, seed=0, device="cuda")
+                step = apg.make_apg_step(env, horizon=TRAIN_HORIZON, num_envs=TRAIN_ENVS,
+                                         mesh=mesh, diff_vision=True)
+            else:
+                ts = train.init_train_state(env, TRAIN_ENVS, seed=0, device="cuda", mesh=mesh)
+                step = train.make_train_step(env, horizon=TRAIN_HORIZON, mesh=mesh)
+            with ParamWatch() as watch:
+                if mesh is None:
+                    ts, out = step_rows(step, ts, 2)
+                else:
+                    ts, out = on_ring(label, lambda: step_rows(step, ts, 2))
+                    check_metrics(label, out, 2, watch.moved())
+            rows["mesh" if mesh is not None else "one"] = out
+        runs[label] = rows["mesh"]
+        ring_loss, one_loss = rows["mesh"][0]["loss"], rows["one"][0]["loss"]
+        rel = abs(ring_loss - one_loss) / abs(one_loss)
+        log("ring", f"{label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon "
+            f"{TRAIN_HORIZON}: first loss {ring_loss:.8e} against one device's {one_loss:.8e}, "
+            f"|difference| / |one device| {rel:.3e} (bound {RING_LOSS_RTOL:.0e}: sums in "
+            f"another order through 8 steps); s/iteration mesh {rows['mesh'][1]['sec']:.4f}, "
+            f"one device {rows['one'][1]['sec']:.4f} [{card}]"
+            + (f"; grad_norm mesh {rows['mesh'][0]['grad_norm']:.6e}, one device "
+               f"{rows['one'][0]['grad_norm']:.6e} (no bound at horizon 8: ill-conditioned)"
+               if algo == "apg" else ""))
+        expect(rel < RING_LOSS_RTOL, f"{label}: the mesh loss agrees with one device's")
+        if algo == "apg":
+            hold_mesh_grads(label, env, mesh22)
+    log("ring", f"peak device memory of the 2x2 trainers {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    log("ring", f"the ring path ran in {time.perf_counter() - t0:.2f} s")
+    for part, needed in RING.items():
+        log("ring", f"{part} launches {counts[part]}")
+        missing = [k for k in needed if counts[part][k] == 0]
+        if missing:
+            raise AssertionError(f"the ring's {part} never launched {missing}")
+    total = {k: sum(c[k] for c in counts.values()) for k in KERNEL_INFO}
+    return total, runs
+
+
+def hold_mesh_grads(label: str, env: VisionEnv, mesh) -> None:
+    """APG diff_vision's parameter gradients at horizon 1 (where they are
+    well conditioned) on `mesh` against one device's, same seed, at the
+    trainers' width: the ring's composed backward (each hop's eye Function,
+    merge_rows' routing, the gravity VJP's cross form, the copies'
+    transposes) held at RING_GRAD_BOUND of their norm."""
+    grads = {}
+    for name, m in (("mesh", mesh), ("one", None)):
+        ts = apg.init_apg_state(env, seed=0, device="cuda")
+        apg.make_apg_step(env, horizon=1, num_envs=TRAIN_ENVS, mesh=m, diff_vision=True)(ts)
+        grads[name] = torch.cat([p.grad.flatten() for p in ts.policy.parameters()])
+    got, want = grads["mesh"], grads["one"]
+    expect(bool(torch.isfinite(got).all()) and want.norm().item() > 0,
+           f"{label}: finite nonzero gradients at horizon 1")
+    rel = ((got - want).norm() / want.norm()).item()
+    log("ring", f"{label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon 1: grad_norm "
+        f"mesh {got.norm().item():.6e}, one device {want.norm().item():.6e}, |difference| / "
+        f"|one device| {rel:.3e} (bound {RING_GRAD_BOUND:.0e})")
+    expect(rel < RING_GRAD_BOUND, f"{label}: the mesh's gradients agree with one device's")
 
 
 def nbytes(*tensors) -> int:
@@ -880,6 +1253,72 @@ def phase_times(gen, card: str) -> dict:
     return times
 
 
+def phase_ring_times(gen, card: str) -> dict:
+    """CUDA-event times of the ring's kernels against their plain versions
+    (the boids partials and the gravity VJP's cross form at one hop's shape,
+    the wireframe backward at the eye's and the trainers' shapes), and of
+    the ring on 4 shards of one card against one device."""
+    times = {}
+    gcfg, bcfg = GravityConfig(), BoidsConfig()
+    n_r = RING_PAIRS
+    pi, vi = uniform(gen, (n_r, 2), -100, 100), uniform(gen, (n_r, 2), -1, 1)
+    p_ms, k_ms = alternate(lambda: boids_ops.boids_partials_plain(pi, vi, pi, vi, bcfg),
+                           lambda: boids_ops.boids_partials_tiled(pi, vi, pi, vi, bcfg), 2, 10)
+    times["boids_partials"] = (k_ms, p_ms, *bound(n_r * n_r * BOIDS_OPS,
+                                                  nbytes(pi, vi) + 4 * n_r * (2 + 1 + 2 + 2 + 1)))
+    log("times", f"boids_partials {n_r} x {n_r} (one ring hop at N=65,536 on 4 shards): kernel "
+        f"{k_ms:.3f} ms = {n_r * n_r / k_ms * 1e3:.4e} pair evals/s; plain {p_ms:.3f} ms "
+        f"[{card}]")
+    pj = uniform(gen, (n_r, 2), -100, 100)
+    ui = torch.randn((n_r, 2), generator=gen, device="cuda")
+    p_ms, k_ms = alternate(lambda: pairwise.gravity_vjp_cross_plain(pi, pj, ui, gcfg),
+                           lambda: pairwise.gravity_vjp_cross_tiled(pi, pj, ui, gcfg), 1, 10)
+    log("times", f"gravity_vjp cross {n_r} x {n_r}: kernel {k_ms:.3f} ms (two launches of the "
+        f"pair loop) = {n_r * n_r / k_ms * 1e3:.4e} pair evals/s; plain (autograd through the "
+        f"dense cross form) {p_ms:.3f} ms [{card}]")
+    for b, n_e, w in ((1, 1024, 64), (TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)):
+        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+        epos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
+        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-2
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            _, _, winner = wireframe.wireframe_eye_with_winner(epos, dirs, epos, dirs, vcfg)
+            p_ms, k_ms = alternate(
+                lambda: wireframe.winner_pullback(epos, dirs, epos, dirs, winner, us, ud, vcfg),
+                lambda: wireframe.wireframe_eye_vjp(epos, dirs, epos, dirs, winner, us, ud, vcfg),
+                1 if b == TRAIN_ENVS else 3, 10)
+            live = int((winner >= 0).sum())
+            b_ms, b_by = bound(live * WF_BWD_PIXEL_OPS,
+                               nbytes(epos, dirs, winner, us, ud) + 4 * nbytes(epos))
+            if (b, aa) == (TRAIN_ENVS, True):  # APG diff_vision's shape and setting
+                times["wireframe_eye_bwd"] = (k_ms, p_ms, b_ms, b_by)
+            log("times", f"wireframe_eye_bwd B={b} N={n_e} W={w} aa={aa} ({live} live pixels): "
+                f"kernel {k_ms:.3f} ms; plain (winner_pullback) {p_ms:.3f} ms; bound "
+                f"{b_ms:.4g} ms ({b_by}) [{card}]")
+
+    # the ring on 4 shards of one card against one device: the same work
+    # split into hops, so the gap is the ring's own cost
+    cuda = torch.device("cuda", 0)
+    mesh4 = make_mesh({"agents": 4}, devices=[cuda] * 4)
+    cfg4 = PRESETS["gravity-65536"]()
+    pos = uniform(gen, (cfg4.n, 2), -100, 100)
+    o_ms, r_ms = alternate(lambda: pairwise.gravity_forces_tiled(pos, gcfg),
+                           lambda: ring.ring_gravity_forces(pos, cfg4, mesh=mesh4), 5, 5)
+    log("times", f"ring gravity N=65536 on 4 shards of one card: {r_ms:.3f} ms; one device "
+        f"{o_ms:.3f} ms [{card}]")
+    cfg2 = PRESETS["gravity-vision-1024"]()
+    s2 = Scene(cfg2, device="cuda").spawn(0)
+    o_ms, r_ms = alternate(lambda: raycast.render_rows_tiled(s2.pos, s2.vel, cfg2.vision),
+                           lambda: ring.ring_render_rows(s2.pos, s2.vel, cfg2.vision, mesh=mesh4),
+                           20, 20)
+    log("times", f"ring_render_rows disc config 2 on 4 shards of one card: {r_ms:.3f} ms; one "
+        f"device {o_ms:.3f} ms [{card}]")
+
+    return times
+
+
 def log_train_times(runs: dict, card: str, prefix: str = "") -> None:
     """Seconds per training iteration (host clock; each iteration ends when
     its metrics reach the host) and agent-frames/s, first iteration (build
@@ -888,10 +1327,12 @@ def log_train_times(runs: dict, card: str, prefix: str = "") -> None:
         label = prefix + label
         secs = [row["sec"] for row in rows[1:]]
         sec = sum(secs) / len(secs)
+        was = (f"; with the plain pullback {WF_DIFF_PLAIN_SEC} s/iteration (PERF.md)"
+               if label == "wireframe apg diff_vision" else "")
         log("times", f"train {label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon "
             f"{TRAIN_HORIZON}: {sec:.4f} s/iteration ({', '.join(f'{x:.4f}' for x in secs)}) = "
             f"{rows[0]['agent_frames'] / sec:.4e} agent-frames/s; first iteration "
-            f"{rows[0]['sec']:.4f} s [{card}]")
+            f"{rows[0]['sec']:.4f} s{was} [{card}]")
 
 
 def main() -> None:
@@ -920,6 +1361,7 @@ def main() -> None:
         phase_kernels(errors, gen)
         phase_backward_kernels(errors, gen)
         phase_wireframe_kernel(errors, gen)
+        phase_ring_kernels(errors, gen)
         phase_small_reference()
     phase_grad_reference()
     phase_wireframe_grads()
@@ -928,11 +1370,14 @@ def main() -> None:
     phase_apg_routes()
     runs, training = phase_train()
     wf_runs, wf_training = phase_wireframe_train()
-    paths += [training, wf_training]
+    ring_counts, ring_runs = phase_ring(smi)
+    paths += [training, wf_training, ring_counts]
     with torch.no_grad():
         times = phase_times(gen, smi)
+        times.update(phase_ring_times(gen, smi))
     log_train_times(runs, smi)
     log_train_times(wf_runs, smi, prefix="wireframe ")
+    log_train_times(ring_runs, smi, prefix="ring ")
 
     log("done", f"all phases ran in {time.perf_counter() - t_start:.1f} s")
     kernels = []

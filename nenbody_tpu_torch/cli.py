@@ -4,12 +4,15 @@ item 18 for the rest):
 
     python -m nenbody_tpu_torch train --algo apg --envs 64 --agents 64 --iters 10
     python -m nenbody_tpu_torch train --device cpu --envs 4 --agents 16 --iters 2
+    python -m nenbody_tpu_torch train --mesh auto          # the agent-axis ring
 
 Flags and defaults are the JAX `train` command's for these trainers, plus
 `--device` (default cuda, with no fallback: on a machine without a GPU it
-fails). Each iteration prints one JSON line: the trainer's metrics, `iter`,
-`sec` (host seconds of the step, ending when its metrics reach the host)
-and `agent_frames` (envs x agents x horizon).
+fails). `--mesh` (DATAxAGENTS, -1 for the rest, or auto: every card on the
+agent axis) runs the sim on a mesh of the visible CUDA devices
+(rl/train.py). Each iteration prints one JSON line: the trainer's metrics,
+`iter`, `sec` (host seconds of the step, ending when its metrics reach the
+host) and `agent_frames` (envs x agents x horizon).
 """
 
 from __future__ import annotations
@@ -54,6 +57,39 @@ def _train_env(args, reward_mode: str = "cohesion"):
         return None
 
 
+def _parse_mesh(spec: str):
+    """'auto' (every visible CUDA device on the agent axis) or 'DATAxAGENTS'
+    (e.g. 2x4; -1 = all remaining devices) -> parallel.mesh.Mesh."""
+    from .parallel.mesh import make_mesh
+
+    if spec == "auto":
+        return make_mesh()
+    try:
+        d, a = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(
+            f"--mesh expects DATAxAGENTS (e.g. 2x4, -1 for remaining) or "
+            f"'auto', got {spec!r}"
+        ) from None
+    return make_mesh({"data": d, "agents": a})
+
+
+def _mesh_from_args(args):
+    """The Mesh of --mesh (None when unset), or an int rc on a reported
+    error: a malformed spec, too few cards, or --envs not dividing the data
+    axis."""
+    if not args.mesh:
+        return None
+    from .rl.train import check_mesh_envs
+
+    try:
+        mesh = _parse_mesh(args.mesh)
+        check_mesh_envs(mesh, args.envs)
+        return mesh
+    except (ValueError, RuntimeError) as e:
+        return _error(str(e))
+
+
 def cmd_train(args) -> int:
     if args.algo in UNPORTED_TRAINERS:
         return _error(f"--algo {args.algo} is not ported yet (ROADMAP queue 1 item 13); "
@@ -67,16 +103,20 @@ def cmd_train(args) -> int:
     env = _train_env(args, reward_mode=args.reward_mode)
     if env is None:
         return 2
+    mesh = _mesh_from_args(args)
+    if isinstance(mesh, int):
+        return mesh
     if args.algo == "apg":
         from .rl import apg
 
         ts = apg.init_apg_state(env, seed=args.seed, lr=args.lr, device=device)
-        step = apg.make_apg_step(env, horizon=args.horizon, num_envs=args.envs)
+        step = apg.make_apg_step(env, horizon=args.horizon, num_envs=args.envs, mesh=mesh)
     else:
         from .rl import train
 
-        ts = train.init_train_state(env, args.envs, seed=args.seed, lr=args.lr, device=device)
-        step = train.make_train_step(env, horizon=args.horizon)
+        ts = train.init_train_state(env, args.envs, seed=args.seed, lr=args.lr, device=device,
+                                    mesh=mesh)
+        step = train.make_train_step(env, horizon=args.horizon, mesh=mesh)
     for i in range(args.iters):
         t0 = time.perf_counter()
         ts, metrics = step(ts)
@@ -116,6 +156,9 @@ def main(argv=None) -> int:
                    help="per-agent shaping, shared team objective, counterfactual "
                    "difference rewards, or observation-defined visibility")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; no fallback)")
+    p.add_argument("--mesh", default="",
+                   help="run the sim on a mesh of the visible CUDA devices: DATAxAGENTS "
+                   "(e.g. 2x4, -1 for the rest) or auto (every card on the agent axis)")
     p.set_defaults(fn=cmd_train)
 
     args = ap.parse_args(argv)

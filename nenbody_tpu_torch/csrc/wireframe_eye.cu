@@ -47,55 +47,23 @@
 // union), which is the culling the JAX compact kernel exists for; without
 // antialias an edge whose tau = num/den is outside [0, 1] by its operands'
 // signs and sizes before the divide. Any width and any N: pixel, eye and target tails are
-// masked by bounds.
+// masked by bounds. The sprite projection and the slab clip are templates in
+// wireframe_common.cuh, which the pullback (wireframe_eye_bwd.cu) evaluates
+// on dual numbers.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "wireframe_common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr float OFF_SCREEN = 4.0f;  // sentinel u outside [-1, 1]
 
-// sprite verts (src/main.rs:130-139) and per-edge (uv_a, uv_b - uv_a)
-__constant__ float c_vx[3] = {-1.0f, 1.0f, -1.0f};
-__constant__ float c_vy[3] = {-1.0f, 0.0f, 1.0f};
-__constant__ float c_uv[3][4] = {
-    {0.0f, 0.0f, 0.0f, 1.0f},    // edge (0, 1)
-    {0.0f, 1.0f, 1.0f, 0.0f},    // edge (1, 2)
-    {1.0f, 1.0f, -1.0f, -1.0f},  // edge (2, 0)
-};
-
-struct WireframeParams {
-  float tan_half_fov;
-  float near_plane;
-  float far_plane;
-  float radius;
-  float hp;      // 1/W, the NDC half-width of a pixel
-  float two_hp;  // 2/W
-  float background;
-  float albedo;
-  int antialias;
-};
-
-// One edge's slab clip (render.edge_fragment's antialias prologue):
-// (tau_lo, tau_hi, lo, hi), lo/hi the sentinels when the edge is invalid.
-__device__ __forceinline__ float4 slab_interval(float fa, float la, float df, float dl, bool live,
-                                                const WireframeParams& q) {
-  const bool big = fabsf(df) > 1e-30f;
-  const float safe_df = big ? df : 1e-30f;
-  const float t_near = (q.near_plane - fa) / safe_df;
-  const float t_far = (q.far_plane - fa) / safe_df;
-  const float tau_lo = big ? fmaxf(fminf(t_near, t_far), 0.0f) : 0.0f;
-  const float tau_hi = big ? fminf(fmaxf(t_near, t_far), 1.0f) : 1.0f;
-  const bool in_slab = (fa > q.near_plane) && (fa < q.far_plane);
-  const bool valid = live && (big ? (tau_lo < tau_hi) : in_slab);
-  const float f_lo = valid ? fa + tau_lo * df : 1.0f;
-  const float f_hi = valid ? fa + tau_hi * df : 1.0f;
-  const float u_a = (la + tau_lo * dl) / (q.tan_half_fov * fmaxf(f_lo, 1e-30f));
-  const float u_b = (la + tau_hi * dl) / (q.tan_half_fov * fmaxf(f_hi, 1e-30f));
-  return make_float4(tau_lo, tau_hi, valid ? fminf(u_a, u_b) : OFF_SCREEN,
-                     valid ? fmaxf(u_a, u_b) : -OFF_SCREEN);
+// One edge's slab clip packed for shared memory: (tau_lo, tau_hi, lo, hi),
+// lo/hi the off-screen sentinels when the edge is invalid.
+__device__ __forceinline__ float4 slab_tile(float fa, float la, float df, float dl, bool live,
+                                            const WireframeParams& q) {
+  const Slab<float> s = slab_interval(fa, la, df, dl, live, q);
+  return make_float4(s.tau_lo, s.tau_hi, s.valid ? s.e_lo : OFF_SCREEN,
+                     s.valid ? s.e_hi : -OFF_SCREEN);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -136,15 +104,7 @@ wireframe_eye_kernel(const float2* __restrict__ eye_pos, const float2* __restric
       const float2 xj = tb[j];
       const float2 hj = hb[j];
       float f[3], l[3];
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        const float vxr = c_vx[v] * q.radius;
-        const float vyr = c_vy[v] * q.radius;
-        const float relx = (xj.x + (vxr * hj.x - vyr * hj.y)) - pe.x;
-        const float rely = (xj.y + (vxr * hj.y + vyr * hj.x)) - pe.y;
-        f[v] = relx * de.x + rely * de.y;
-        l[v] = relx * de.y - rely * de.x;
-      }
+      sprite_view(pe.x, pe.y, de.x, de.y, xj.x, xj.y, hj.x, hj.y, q, f, l);
       live = (xj.x != pe.x) || (xj.y != pe.y);
       float sp_lo = 0.f, sp_hi = 0.f;
 #pragma unroll
@@ -154,7 +114,7 @@ wireframe_eye_kernel(const float2* __restrict__ eye_pos, const float2* __restric
         const float dl = l[c] - l[a];
         s_geo[k][slot] = make_float4(f[a], l[a], df, dl);
         if (aa) {
-          const float4 sl = slab_interval(f[a], l[a], df, dl, live != 0, q);
+          const float4 sl = slab_tile(f[a], l[a], df, dl, live != 0, q);
           s_slab[k][slot] = sl;
           sp_lo = k == 0 ? sl.z : fminf(sp_lo, sl.z);
           sp_hi = k == 0 ? sl.w : fmaxf(sp_hi, sl.w);

@@ -1,6 +1,8 @@
-"""Fused flocking rules on the hand-written CUDA kernel (counterpart of
-nenbody_tpu/ops/boids.py, whose Pallas `_boids_kernel` the kernel in
-nenbody_tpu_torch/csrc/boids.cu replaces).
+"""Flocking rules on hand-written CUDA kernels (counterpart of
+nenbody_tpu/ops/boids.py): the fused rules (csrc/boids.cu replaces its
+Pallas `_boids_kernel`) and the raw cross-block rule sums of a ring hop
+(`boids_partials_tiled`; csrc/boids_partials.cu replaces
+`_boids_partials_kernel`).
 
 Reference semantics preserved exactly (see config.BoidsConfig): squared
 cohesion threshold, unsquared separation threshold, alignment measured in
@@ -82,3 +84,68 @@ def boids_velocity_tiled(
         total = vel.sum(dim=-2, keepdim=True)
         nv = nv + cfg.alignment_scale * ((total - vel) / (n - 1))
     return nv
+
+
+def boids_partials_plain(pos_i, vel_i, pos_j, vel_j, cfg: BoidsConfig,
+                         exclude_diagonal: bool = True):
+    """The partials kernel's plain PyTorch version:
+    physics.dense.boids_partials_cross, chunked over i for large blocks."""
+    n, m = pos_i.shape[-2], pos_j.shape[-2]
+    batch = pos_i[..., 0, 0].numel()
+    chunk = max(1, PLAIN_PAIR_BUDGET // max(1, batch * m))
+    parts = [
+        dense.boids_partials_cross(pos_i[..., i:i + chunk, :], vel_i[..., i:i + chunk, :],
+                                   pos_j, vel_j, cfg, exclude_diagonal=exclude_diagonal,
+                                   i_offset=i)
+        for i in range(0, n, chunk)
+    ]
+    if len(parts) == 1:
+        return parts[0]
+    # the sums are [..., N, 2], the counts [..., N]
+    return tuple(torch.cat([p[k] for p in parts], dim=-1 if k in (1, 4) else -2)
+                 for k in range(5))
+
+
+def _boids_partials_cuda(pos_i, vel_i, pos_j, vel_j, cfg: BoidsConfig, exclude_diagonal):
+    check_kernel_args("boids_partials", pos_i, vel_i, pos_j, vel_j)
+    if (pos_i.shape != vel_i.shape or pos_j.shape != vel_j.shape
+            or pos_i.shape[:-2] != pos_j.shape[:-2]):
+        raise ValueError(
+            f"boids_partials: i-block {tuple(pos_i.shape)}/{tuple(vel_i.shape)} and j-block "
+            f"{tuple(pos_j.shape)}/{tuple(vel_j.shape)} must share batch dims"
+        )
+    pi, vi = flat_batch(pos_i), flat_batch(vel_i)
+    pj, vj = flat_batch(pos_j), flat_batch(vel_j)
+    batch, n, m = pi.shape[0], pi.shape[1], pj.shape[1]
+    check_batch("boids_partials", batch)
+    sum1, repel, sum3 = (torch.empty_like(pos_i) for _ in range(3))
+    cnt1, cnt3 = (torch.empty(pos_i.shape[:-1], dtype=torch.float32, device=pos_i.device)
+                  for _ in range(2))
+    KERNELS["boids_partials"].launch(
+        pi.data_ptr(), vi.data_ptr(), pj.data_ptr(), vj.data_ptr(), sum1.data_ptr(),
+        cnt1.data_ptr(), repel.data_ptr(), sum3.data_ptr(), cnt3.data_ptr(), batch, n, m,
+        cfg.cohesion_dist_sq,
+        cfg.separation_dist * cfg.separation_dist,
+        cfg.alignment_dist * cfg.alignment_dist,
+        int(exclude_diagonal), stream_handle(),
+    )
+    return sum1, cnt1, repel, sum3, cnt3
+
+
+def boids_partials_tiled(
+    pos_i: torch.Tensor,
+    vel_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    vel_j: torch.Tensor,
+    cfg: BoidsConfig,
+    exclude_diagonal: bool = True,
+):
+    """Raw rule sums of the j-block [..., M, 2] against the i-block
+    [..., N, 2]: (sum1 [..., N, 2], cnt1 [..., N], repel [..., N, 2],
+    sum3 [..., N, 2], cnt3 [..., N]), additive across j-blocks; finish with
+    physics.dense.boids_finalize. `exclude_diagonal` masks the pairs i == j
+    by index (the ring's hop 0, where the blocks alias). The CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if use_kernel(pos_i, vel_i, pos_j, vel_j):
+        return _boids_partials_cuda(pos_i, vel_i, pos_j, vel_j, cfg, exclude_diagonal)
+    return boids_partials_plain(pos_i, vel_i, pos_j, vel_j, cfg, exclude_diagonal)

@@ -61,6 +61,11 @@ SIGNATURES = {
                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "nbt_wireframe_eye": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    "nbt_boids_partials": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _F, _F, _F, _I, _P],
+    "nbt_gravity_vjp_cross": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "nbt_wireframe_eye_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 # Largest grid y/z extent a launch may use (the batch of envs rides it).
@@ -145,7 +150,7 @@ def kernel_library() -> KernelLibrary:
         if _LIB is None:
             sources = sorted(CSRC.glob("*.cu"))
             digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-            for src in sources:
+            for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
                 digest.update(src.name.encode() + src.read_bytes())
             out = BUILD_DIR / f"libnenbody_kernels_{digest.hexdigest()[:16]}.so"
             t0 = time.perf_counter()
@@ -160,15 +165,17 @@ def kernel_library() -> KernelLibrary:
 
 
 class Kernel:
-    """One hand-written kernel: its C entry point and its launch count."""
+    """One hand-written kernel: its C entry point and its launch count. A
+    source may have a second entry point (gravity_vjp.cu's cross form), which
+    counts as a launch of the same kernel."""
 
     def __init__(self, name: str, symbol: str):
         self.name = name
         self.symbol = symbol
         self.launches = 0
 
-    def launch(self, *args) -> None:
-        kernel_library().call(self.symbol, *args)
+    def launch(self, *args, entry: Optional[str] = None) -> None:
+        kernel_library().call(entry or self.symbol, *args)
         self.launches += 1
 
 
@@ -179,6 +186,8 @@ KERNELS: Dict[str, Kernel] = {
     "gravity_vjp": Kernel("gravity_vjp", "nbt_gravity_vjp"),
     "disc_eye_bwd": Kernel("disc_eye_bwd", "nbt_disc_eye_bwd"),
     "wireframe_eye": Kernel("wireframe_eye", "nbt_wireframe_eye"),
+    "boids_partials": Kernel("boids_partials", "nbt_boids_partials"),
+    "wireframe_eye_bwd": Kernel("wireframe_eye_bwd", "nbt_wireframe_eye_bwd"),
 }
 
 
@@ -214,6 +223,21 @@ def check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: needs contiguous tensors")
         if t.shape[-1] != 2:
             raise ValueError(f"{name}: needs [..., N, 2] tensors, got {tuple(t.shape)}")
+
+
+def check_pullback_args(name: str, shape, device, winner, us, ud) -> None:
+    """The checks of the eyes' backward kernels: the forward's int32 winner
+    index and float32 cotangents, contiguous, of the rows' shape, on the
+    eyes' device."""
+    if winner is None or winner.dtype != torch.int32 or winner.shape != shape:
+        raise ValueError(f"{name}: needs the forward's int32 winner index {tuple(shape)}")
+    for t in (winner, us, ud):
+        if t.device != device or not t.is_contiguous() or t.shape != shape:
+            raise ValueError(
+                f"{name}: cotangents and winner must be contiguous {tuple(shape)} on {device}"
+            )
+    if us.dtype != torch.float32 or ud.dtype != torch.float32:
+        raise TypeError(f"{name}: needs float32 cotangents")
 
 
 def needs_grad(*tensors: torch.Tensor | None) -> bool:

@@ -10,9 +10,9 @@ dims go to the kernel as one grid dimension.
 
 `gravity_forces_diff` is the differentiable form (the JAX custom VJP
 `gravity_forces_diff`): a torch.autograd.Function whose backward is the VJP
-kernel. `gravity_forces_tiled` routes through it when autograd needs the
-op; the cross form (`pos_j`) is forward-only until the ring is ported
-(ROADMAP queue 1 item 17).
+kernel. Its cross form, `GravityForcesCrossDiff`, has the VJP source's cross
+entry point as its backward (d pos_i and d pos_j). `gravity_forces_tiled`
+routes through one of them when autograd needs the op.
 """
 
 from __future__ import annotations
@@ -81,10 +81,7 @@ def gravity_forces_tiled(
     through `gravity_forces_diff` when autograd needs the op."""
     if needs_grad(pos, pos_j):
         if pos_j is not None:
-            raise NotImplementedError(
-                "gravity: the cross form (pos_j) is forward-only until the "
-                "ring is ported (ROADMAP queue 1 item 17)"
-            )
+            return GravityForcesCrossDiff.apply(pos, pos_j, cfg)
         return gravity_forces_diff(pos, cfg)
     return _gravity_forward(pos, cfg, pos_j)
 
@@ -161,3 +158,74 @@ class GravityForcesDiff(torch.autograd.Function):
 def gravity_forces_diff(pos: torch.Tensor, cfg: GravityConfig) -> torch.Tensor:
     """gravity_forces_tiled(pos, cfg), differentiable through the VJP kernel."""
     return GravityForcesDiff.apply(pos, cfg)
+
+
+def gravity_vjp_cross_plain(
+    pos_i: torch.Tensor, pos_j: torch.Tensor, u: torch.Tensor, cfg: GravityConfig
+):
+    """The cross VJP's plain PyTorch version: autograd through
+    physics.dense.gravity_forces_cross, chunk by chunk over i so that each
+    chunk's [..., chunk, M] pair tensors stay within PLAIN_PAIR_BUDGET
+    elements. Any float dtype. Returns (d pos_i, d pos_j)."""
+    n, m = pos_i.shape[-2], pos_j.shape[-2]
+    batch = pos_i[..., 0, 0].numel()
+    chunk = max(1, PLAIN_PAIR_BUDGET // max(1, batch * m))
+    d_i = []
+    d_j = torch.zeros_like(pos_j)
+    with torch.enable_grad():
+        pj = pos_j.detach().requires_grad_()
+        for i in range(0, n, chunk):
+            pi = pos_i[..., i:i + chunk, :].detach().requires_grad_()
+            g = dense.gravity_forces_cross(pi, pj, cfg)
+            gi, gj = torch.autograd.grad(g, (pi, pj), u[..., i:i + chunk, :])
+            d_i.append(gi)
+            d_j += gj
+    return torch.cat(d_i, dim=-2), d_j
+
+
+def _gravity_vjp_cross_cuda(pos_i, pos_j, u, cfg: GravityConfig):
+    check_kernel_args("gravity_vjp", pos_i, pos_j, u)
+    if u.shape != pos_i.shape or pos_j.shape[:-2] != pos_i.shape[:-2]:
+        raise ValueError(
+            f"gravity_vjp: u {tuple(u.shape)}, pos_i {tuple(pos_i.shape)} and pos_j "
+            f"{tuple(pos_j.shape)} must share batch dims"
+        )
+    pi, pj, ub = flat_batch(pos_i), flat_batch(pos_j), flat_batch(u)
+    batch, n, m = pi.shape[0], pi.shape[1], pj.shape[1]
+    check_batch("gravity_vjp", batch)
+    g_i, g_j = torch.empty_like(pos_i), torch.empty_like(pos_j)
+    KERNELS["gravity_vjp"].launch(
+        pi.data_ptr(), pj.data_ptr(), ub.data_ptr(), g_i.data_ptr(), g_j.data_ptr(),
+        batch, n, m, cfg.g, cfg.bias, stream_handle(), entry="nbt_gravity_vjp_cross",
+    )
+    return g_i, g_j
+
+
+def gravity_vjp_cross_tiled(
+    pos_i: torch.Tensor, pos_j: torch.Tensor, u: torch.Tensor, cfg: GravityConfig
+):
+    """Pullback of the forces by pos_j [..., M, 2] on pos_i [..., N, 2]:
+    cotangent u [..., N, 2] -> (d pos_i [..., N, 2], d pos_j [..., M, 2]).
+    The VJP source's cross entry point for CUDA tensors, the plain version
+    for CPU tensors. Always the exact divide."""
+    if use_kernel(pos_i, pos_j, u):
+        return _gravity_vjp_cross_cuda(pos_i, pos_j, u, cfg)
+    return gravity_vjp_cross_plain(pos_i, pos_j, u, cfg)
+
+
+class GravityForcesCrossDiff(torch.autograd.Function):
+    """The forces by pos_j on pos_i with the cross VJP as their backward: a
+    ring hop past the first (parallel/ring.py). When the two are one tensor,
+    autograd adds the two shares."""
+
+    @staticmethod
+    def forward(ctx, pos_i: torch.Tensor, pos_j: torch.Tensor, cfg: GravityConfig):
+        ctx.cfg = cfg
+        ctx.save_for_backward(pos_i, pos_j)
+        return _gravity_forward(pos_i, cfg, pos_j)
+
+    @staticmethod
+    def backward(ctx, u: torch.Tensor):
+        pos_i, pos_j = ctx.saved_tensors
+        g_i, g_j = gravity_vjp_cross_tiled(pos_i, pos_j, u.contiguous(), ctx.cfg)
+        return g_i, g_j, None

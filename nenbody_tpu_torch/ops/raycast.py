@@ -32,8 +32,8 @@ import torch
 from ..config import VisionConfig
 from ..vision import camera, render
 from .common import (
-    KERNELS, check_batch, check_kernel_args, flat_batch, needs_grad, stream_handle,
-    use_kernel,
+    KERNELS, check_batch, check_kernel_args, check_pullback_args, flat_batch, needs_grad,
+    stream_handle, use_kernel,
 )
 
 # The plain version: the dense renderer, chunked over eyes.
@@ -161,19 +161,7 @@ def render_rows_vjp_cross_plain(
 
 def _render_rows_vjp_cuda(pos, dirs, tgt, winner, us, ud, cfg: VisionConfig):
     _check_eye_shapes("disc_eye_bwd", pos, dirs, tgt)
-    shape = pos.shape[:-1] + (cfg.width,)
-    if winner is None or winner.dtype != torch.int32 or winner.shape != shape:
-        raise ValueError(
-            f"disc_eye_bwd: needs the forward's int32 winner index {tuple(shape)}"
-        )
-    for t in (winner, us, ud):
-        if t.device != pos.device or not t.is_contiguous() or t.shape != shape:
-            raise ValueError(
-                f"disc_eye_bwd: cotangents and winner must be contiguous "
-                f"{tuple(shape)} on {pos.device}"
-            )
-    if us.dtype != torch.float32 or ud.dtype != torch.float32:
-        raise TypeError("disc_eye_bwd: needs float32 cotangents")
+    check_pullback_args("disc_eye_bwd", pos.shape[:-1] + (cfg.width,), pos.device, winner, us, ud)
     ep, ed, tp = flat_batch(pos), flat_batch(dirs), flat_batch(tgt)
     batch, ne, nt = ep.shape[0], ep.shape[1], tp.shape[1]
     check_batch("disc_eye_bwd", batch)

@@ -19,11 +19,12 @@ Gradients (`RenderRowsWireframeDiff`) take the JAX package's default winner
 route (WF_WINNER_BWD, wireframe.py:2734): the forward also returns each
 pixel's winning target, and the backward re-evaluates only that sprite's
 3 edges per pixel with the renderer's own expressions (so hit and coverage
-decisions agree), pulls the cotangents back with autograd, and routes the
-target and heading shares by `index_add_`. The JAX package runs this
-pullback in XLA, outside any Pallas kernel, so it is plain PyTorch here too;
-a hand-written wireframe backward (the port of `_wf_bwd_kernel`) comes with
-the ring (ROADMAP queue 2).
+decisions agree). On CUDA tensors that pullback is the hand-written kernel
+nenbody_tpu_torch/csrc/wireframe_eye_bwd.cu, which replaces the Pallas
+`_wf_bwd_kernel` (the ring's per-hop backward) and `_compact_bwd_kernel`
+(its wide-row edition) and runs on one device as on every ring hop. Its
+plain version, `winner_pullback`, pulls the cotangents back with autograd
+and routes the target and heading shares by `index_add_`.
 
 Per-agent albedo, textures and the raw winner mode are not ported yet
 (ROADMAP queue 1 item 4).
@@ -38,8 +39,8 @@ import torch
 from ..config import VisionConfig
 from ..vision import camera, render
 from .common import (
-    KERNELS, check_batch, check_kernel_args, flat_batch, needs_grad, stream_handle,
-    use_kernel,
+    KERNELS, check_batch, check_kernel_args, check_pullback_args, flat_batch, needs_grad,
+    stream_handle, use_kernel,
 )
 
 # Pixels one chunk of the pullback re-evaluates: its autograd graph keeps
@@ -66,18 +67,22 @@ def _eye_args(cfg: VisionConfig):
             1.0 / w, 2.0 / w, cfg.background, cfg.sprite_albedo, int(cfg.antialias))
 
 
+def _check_eye_shapes(name, eye_pos, eye_dir, tgt, tgt_hdg):
+    check_kernel_args(name, eye_pos, eye_dir, tgt, tgt_hdg)
+    if (eye_pos.shape != eye_dir.shape or tgt.shape != tgt_hdg.shape
+            or tgt.shape[:-2] != eye_pos.shape[:-2]):
+        raise ValueError(
+            f"{name}: eyes {tuple(eye_pos.shape)}/{tuple(eye_dir.shape)} and targets "
+            f"{tuple(tgt.shape)}/{tuple(tgt_hdg.shape)} must share batch dims"
+        )
+
+
 def _wireframe_eye_cuda(eye_pos, eye_dir, tgt, tgt_hdg, cfg: VisionConfig,
                         with_winner: bool = False):
     """(shade, depth, winner) from the kernel; winner [..., N_e, W] int32 is
     None unless asked for."""
     _check_wireframe(cfg)
-    check_kernel_args("wireframe_eye", eye_pos, eye_dir, tgt, tgt_hdg)
-    if (eye_pos.shape != eye_dir.shape or tgt.shape != tgt_hdg.shape
-            or tgt.shape[:-2] != eye_pos.shape[:-2]):
-        raise ValueError(
-            f"wireframe_eye: eyes {tuple(eye_pos.shape)}/{tuple(eye_dir.shape)} and targets "
-            f"{tuple(tgt.shape)}/{tuple(tgt_hdg.shape)} must share batch dims"
-        )
+    _check_eye_shapes("wireframe_eye", eye_pos, eye_dir, tgt, tgt_hdg)
     ep, ed = flat_batch(eye_pos), flat_batch(eye_dir)
     tp, th = flat_batch(tgt), flat_batch(tgt_hdg)
     batch, ne, nt, w = ep.shape[0], ep.shape[1], tp.shape[1], cfg.width
@@ -237,12 +242,40 @@ def winner_pullback(
             outs[2].reshape(tgt.shape), outs[3].reshape(tgt_hdg.shape))
 
 
+def _winner_pullback_cuda(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, cfg: VisionConfig):
+    _check_eye_shapes("wireframe_eye_bwd", eye_pos, eye_dir, tgt, tgt_hdg)
+    check_pullback_args("wireframe_eye_bwd", eye_pos.shape[:-1] + (cfg.width,), eye_pos.device,
+                        winner, us, ud)
+    ep, ed = flat_batch(eye_pos), flat_batch(eye_dir)
+    tp, th = flat_batch(tgt), flat_batch(tgt_hdg)
+    batch, ne, nt = ep.shape[0], ep.shape[1], tp.shape[1]
+    check_batch("wireframe_eye_bwd", batch)
+    grads = [torch.zeros_like(x) for x in (eye_pos, eye_dir, tgt, tgt_hdg)]
+    KERNELS["wireframe_eye_bwd"].launch(
+        ep.data_ptr(), ed.data_ptr(), tp.data_ptr(), th.data_ptr(), winner.data_ptr(),
+        us.data_ptr(), ud.data_ptr(), *(g.data_ptr() for g in grads),
+        batch, ne, nt, cfg.width, *_eye_args(cfg), stream_handle(),
+    )
+    return tuple(grads)
+
+
+def wireframe_eye_vjp(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, cfg: VisionConfig):
+    """Pullback of the wireframe eye through the forward's winner index:
+    cotangents (us, ud) [..., E, W] -> (d eye_pos, d eye_dir [..., E, 2],
+    d tgt, d tgt_hdg [..., M, 2]). The backward kernel for CUDA tensors,
+    its plain version `winner_pullback` for CPU tensors."""
+    if use_kernel(eye_pos, eye_dir, tgt, tgt_hdg, us, ud):
+        return _winner_pullback_cuda(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, cfg)
+    return winner_pullback(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, cfg)
+
+
 class RenderRowsWireframeDiff(torch.autograd.Function):
     """(eye_pos, eye_dir, targets, target headings) -> (shade, depth) with
     the winner pullback as its backward (the winner route of
-    render_rows_wireframe_diff and its batched form). The forward is the
-    kernel with the winner index on CUDA tensors, the plain renderer (which
-    returns its winner) on CPU tensors. The headings are inputs, so autograd
+    render_rows_wireframe_diff and its batched form). On CUDA tensors the
+    forward is the kernel with the winner index and the backward the
+    backward kernel; on CPU tensors the plain renderer (which returns its
+    winner) and `winner_pullback`. The headings are inputs, so autograd
     pulls them back through camera.unit_heading to the velocity; for a
     self-render the same tensors come in as eyes and targets, and autograd
     adds the two shares (the eyes look along, and the sprites turn to, the
@@ -262,5 +295,6 @@ class RenderRowsWireframeDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, us, ud):
         eye_pos, eye_dir, tgt, tgt_hdg, winner = ctx.saved_tensors
-        grads = winner_pullback(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, ctx.cfg)
+        grads = wireframe_eye_vjp(eye_pos, eye_dir, tgt, tgt_hdg, winner, us.contiguous(),
+                                  ud.contiguous(), ctx.cfg)
         return (*grads, None)

@@ -39,11 +39,13 @@ from .rl.env import VisionEnv
 
 # (category, substrings of a device event's name), first match wins
 CATEGORIES = (
-    ("gravity_vjp_kernel", ("gravity_vjp_kernel",)),
+    ("gravity_vjp_kernel", ("gravity_vjp_kernel", "gravity_vjp_cross_kernel")),
     ("gravity_kernel", ("gravity_kernel",)),
     ("disc_eye_bwd_kernel", ("disc_eye_bwd_kernel",)),
     ("disc_eye_kernel", ("disc_eye_kernel",)),
+    ("wireframe_eye_bwd_kernel", ("wireframe_eye_bwd_kernel",)),
     ("wireframe_eye_kernel", ("wireframe_eye_kernel",)),
+    ("boids_partials_kernel", ("boids_partials_kernel",)),
     ("boids_kernel", ("boids_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
     ("adam", ("adam", "Adam")),

@@ -1,6 +1,5 @@
 """Analytic policy gradients (APG) through the differentiable dynamics
-(counterpart of nenbody_tpu/rl/apg.py; `mesh=` waits for the ring, ROADMAP
-queue 1 item 17).
+(counterpart of nenbody_tpu/rl/apg.py).
 
 APG backpropagates the reward through the physics: on the kernel backend
 the gravity force is an autograd Function whose backward is the VJP kernel
@@ -19,6 +18,13 @@ in positions.
 Deterministic (mean-action) policy; short horizons recommended. remat=True
 recomputes each dynamics step in the backward pass
 (torch.utils.checkpoint) instead of keeping its intermediates.
+
+With a mesh that has an agent axis, the dynamics and the observation run
+on the agent-axis ring (parallel/ring.py) and the gradient flows back
+through it by autograd: each hop's gravity Function, and with diff_vision
+ring_render_rows_diff, whose hops each pull back their own winners; envs
+split over the data axis when the mesh has one. A data-only mesh runs the
+env on each data shard (rl.train's data-only path).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..state import SceneState, spawn_batch
 from .env import VisionEnv
 from .policy import init_mlp_policy
-from .train import check_no_mesh
+from .train import check_mesh_envs, mesh_env_fns
 
 
 @dataclasses.dataclass
@@ -54,22 +60,25 @@ def make_apg_step(
 ):
     """Build the APG step `ts -> (ts, metrics)`: rollout -> -mean reward ->
     grad through the dynamics (and perception with diff_vision) -> optimizer
-    step. Fresh envs each iteration (episodic)."""
-    check_no_mesh(mesh)
+    step. Fresh envs each iteration (episodic). With `mesh` the sim runs on
+    it (module docstring)."""
     from_obs = env.reward_mode == "visibility"
+    if mesh is not None:
+        check_mesh_envs(mesh, num_envs)
+    observe, dynamics = mesh_env_fns(env, mesh, diff=diff_vision)
 
     def see(states: SceneState) -> torch.Tensor:
         if diff_vision:
-            return env.observe(states)
+            return observe(states)
         with torch.no_grad():
-            return env.observe(states)
+            return observe(states)
 
     def dyn(states: SceneState, action: torch.Tensor) -> SceneState:
         if not remat:
-            return env.dynamics(states, action)
+            return dynamics(states, action)
 
         def pos_vel(pos, vel, act):
-            nxt = env.dynamics(states.replace(pos=pos, vel=vel), act)
+            nxt = dynamics(states.replace(pos=pos, vel=vel), act)
             return nxt.pos, nxt.vel
 
         pos, vel = checkpoint(pos_vel, states.pos, states.vel, action, use_reentrant=False)

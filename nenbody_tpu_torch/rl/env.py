@@ -24,6 +24,7 @@ batch whole.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -69,7 +70,11 @@ class VisionEnv:
         # actuator model: hard clip (default) or max_accel*tanh(a/max_accel)
         self.smooth_clip = smooth_clip
         self.backend = _resolve_backend(cfg)
-        self._render = _render_fn(cfg)
+        if self.backend in ("ring", "gspmd"):
+            # mesh-level wrappers: per-env dynamics reduce to the kernels,
+            # and the trainers' mesh= puts the ring around them
+            self.backend = "pallas"
+        self._render = _render_fn(dataclasses.replace(cfg, backend=self.backend))
 
     @property
     def obs_width(self) -> int:
@@ -99,8 +104,13 @@ class VisionEnv:
     def dynamics(self, state: SceneState, action: torch.Tensor) -> SceneState:
         """Physics-only transition (no observation), differentiable on every
         backend."""
+        return self.integrate(state, action, self._forces(state.pos))
+
+    def integrate(self, state: SceneState, action: torch.Tensor, g: torch.Tensor) -> SceneState:
+        """The transition given the gravity forces g: v += (g + actuated
+        action) * dt, then the position by the config's integrator mode (the
+        trainers' mesh path computes g on the ring)."""
         accel = self.actuate(action)
-        g = self._forces(state.pos)
         gcfg = self.cfg.gravity
         vel = state.vel + (g + accel) * gcfg.dt
         pos = state.pos + vel * (gcfg.dt if gcfg.dt_on_position else 1.0)

@@ -1,7 +1,7 @@
 """REINFORCE over batched vision envs (counterpart of nenbody_tpu/rl/train.py:
 `Trajectory`, `TrainState`, `discounted_returns`, `make_train_step`,
-`init_train_state`; the recurrent form waits, ROADMAP queue 1 item 13, and
-`mesh=` waits for the ring, item 17).
+`init_train_state`, and `mesh=`; the recurrent form waits, ROADMAP queue 1
+item 13).
 
 The rollout steps the batch of env states directly (the env takes leading
 batch dims; no vmap) under torch.no_grad(): as in the JAX trainer the
@@ -9,6 +9,14 @@ actions are detached and gradients flow only through the policy log-probs
 of the recorded trajectory, so the sim runs the forward-only kernel
 launches. The policy and its optimizer live in the train state; a step
 updates them in place and returns the state with the new env states.
+
+With a mesh (parallel.mesh.Mesh) the sim runs on it. A mesh with an agent
+axis runs physics and vision on the agent-axis ring (parallel/ring.py),
+with the env batch split over its data axis when it has one; a data-only
+mesh splits the env batch over its devices and runs each block through the
+env on its device. The controller keeps the env states and the policy on
+their device (single-controller, as the JAX trainers): the ring moves the
+blocks to the mesh's devices and gathers the results back.
 """
 
 from __future__ import annotations
@@ -38,13 +46,108 @@ class TrainState:
     generator: torch.Generator  # spawns and action noise, on the envs' device
 
 
-def check_no_mesh(mesh) -> None:
-    """The trainers run on one device until the ring is ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: the multi-device trainers wait for the "
-            "agent-axis ring (ROADMAP queue 1 item 17)"
+def check_mesh_envs(mesh, num_envs: int) -> None:
+    """The ring pads the agent axis to any N, but the env batch must divide
+    the mesh's data axis: raise that before any rollout."""
+    from ..parallel.mesh import data_axis_of
+
+    da = data_axis_of(mesh)
+    if da is not None and num_envs % mesh.shape[da]:
+        raise ValueError(
+            f"env batch {num_envs} must divide evenly over mesh axis {da!r} "
+            f"(size {mesh.shape[da]})"
         )
+
+
+def _on_data_shards(mesh, fn, states: SceneState, *tensors):
+    """fn(state block, *tensor blocks) on each device of a data-only mesh,
+    the env batch split over it; its outputs (a state, then tensors)
+    gathered back to the states' device."""
+    from ..parallel.mesh import DATA_AXIS, gather_blocks, gather_state, on_device
+    from ..parallel.mesh import place_state_on_mesh, split_blocks
+
+    if DATA_AXIS not in mesh.axis_names:
+        raise ValueError(
+            "a mesh without an agent axis needs a data axis to split envs "
+            f"over; got axes {mesh.axis_names}"
+        )
+    check_mesh_envs(mesh, states.pos.shape[0])
+    grid = mesh.grid(DATA_AXIS, None)
+    blocks = place_state_on_mesh(states, mesh)
+    extra = [split_blocks(t, grid, 0, agent_dim=None) for t in tensors]
+    outs = []
+    for r, (dev,) in enumerate(grid):
+        with on_device(dev):
+            outs.append(fn(blocks[r][0], *(x[r][0] for x in extra)))
+    home = states.pos.device
+    state = gather_state([[o[0]] for o in outs], mesh, home)
+    rest = [gather_blocks([[o[i]] for o in outs], home, 0, agent_dim=None)
+            for i in range(1, len(outs[0]))]
+    return (state, *rest)
+
+
+def ring_dynamics(env: VisionEnv, mesh):
+    """`(states, action) -> states`: env.dynamics with the forces on the
+    agent-axis ring (differentiable: each hop's gravity Function)."""
+    from ..parallel import ring
+    from ..parallel.mesh import data_axis_of
+
+    data_axis = data_axis_of(mesh)
+
+    def dynamics(states: SceneState, action: torch.Tensor) -> SceneState:
+        g = ring.ring_gravity_forces(states.pos, env.cfg, mesh=mesh, data_axis=data_axis)
+        return env.integrate(states, action, g)
+
+    return dynamics
+
+
+def ring_observe(env: VisionEnv, mesh, diff: bool = False):
+    """`states -> obs [B, N, W+2]`: env.observe with the eye on the
+    agent-axis ring (ring_render_rows_diff with `diff`)."""
+    from ..parallel import ring
+    from ..parallel.mesh import data_axis_of
+
+    render_ring = ring.ring_render_rows_diff if diff else ring.ring_render_rows
+    vcfg, data_axis = env.cfg.vision, data_axis_of(mesh)
+
+    def observe(states: SceneState) -> torch.Tensor:
+        lines = render_ring(states.pos, states.vel, vcfg, mesh=mesh, data_axis=data_axis)[0]
+        return torch.cat([lines, states.vel], dim=-1)
+
+    return observe
+
+
+def mesh_env_fns(env: VisionEnv, mesh, diff: bool = False):
+    """(observe, dynamics) over batched states [B, N, 2]: the env's own
+    without a mesh; with an agent axis the ring's (the JAX
+    `_batched_env_fns`; the eye through ring_render_rows_diff with `diff`);
+    on a data-only mesh the env's on each data shard (`_dp_mesh_env_fns`)."""
+    from ..parallel.mesh import agent_axis_of
+
+    if mesh is None:
+        return env.observe, env.dynamics
+    if agent_axis_of(mesh) is None:
+        return (lambda s: _on_data_shards(mesh, lambda b: (b, env.observe(b)), s)[1],
+                lambda s, a: _on_data_shards(mesh, lambda b, x: (env.dynamics(b, x),),
+                                             s, a)[0])
+    return ring_observe(env, mesh, diff), ring_dynamics(env, mesh)
+
+
+def batched_env_fns(env: VisionEnv, mesh):
+    """(observe, step) over batched states [B, N, 2] on `mesh`
+    (mesh_env_fns). Visibility rewards read the observation the step
+    rendered."""
+    if mesh is None:
+        return env.observe, env.step
+    observe, dynamics = mesh_env_fns(env, mesh)
+
+    def step(states, action):
+        nxt = dynamics(states, action)
+        obs = observe(nxt)
+        reward = env.reward_obs(obs) if env.reward_mode == "visibility" else env.reward(nxt)
+        return nxt, obs, reward
+
+    return observe, step
 
 
 def discounted_returns(rewards: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -70,15 +173,16 @@ def make_train_step(
 
     episodic=True respawns the env batch each iteration (as the JAX trainer
     does: persistent states drift away from the spawn distribution); set
-    False for deliberate continuing-task training."""
-    check_no_mesh(mesh)
+    False for deliberate continuing-task training. With `mesh` the sim runs
+    on it (module docstring)."""
+    observe_b, step_b = batched_env_fns(env, mesh)
 
     def rollout(policy, env_states: SceneState, generator) -> Tuple[SceneState, Trajectory]:
-        obs = env.observe(env_states)
+        obs = observe_b(env_states)
         obs_t, act_t, rew_t = [], [], []
         for _ in range(horizon):
             action, _ = sample_action(policy, obs, generator)
-            env_states, next_obs, reward = env.step(env_states, action)
+            env_states, next_obs, reward = step_b(env_states, action)
             obs_t.append(obs)
             act_t.append(action)
             rew_t.append(reward)
@@ -122,8 +226,11 @@ def init_train_state(
 ) -> TrainState:
     """Spawn `num_envs` envs and a policy (the MLP by default, weights from
     `seed`) with an Adam optimizer (default eps: optax.adam's update) on
-    `device`; the random stream is a generator seeded with `seed`."""
-    check_no_mesh(mesh)
+    `device`; the random stream is a generator seeded with `seed`. With a
+    mesh the env batch must divide its data axis; states and policy stay on
+    `device`, the controller's (module docstring)."""
+    if mesh is not None:
+        check_mesh_envs(mesh, num_envs)
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     env_states = spawn_batch(env.cfg, generator, num_envs, device)

@@ -11,12 +11,17 @@ Typical use:
     state, traj = scene.rollout(state, 100, record=("obs",))
 
 Routing: backend="dense" always runs the plain PyTorch functions;
-"auto" and "pallas" run the hand-written CUDA kernels on CUDA tensors (and
-their plain versions on CPU tensors), the disc eye or the exact wireframe
-eye by `cfg.vision.sprite_mode`. Batched states ([B, N, 2] leaves from
-`spawn_envs`) go to the kernels whole, with the env axis as a grid
-dimension. Rollouts are a Python loop; PyTorch runs eagerly, so there is no
-compiled scan to cache.
+"pallas" runs the hand-written CUDA kernels on CUDA tensors (and their plain
+versions on CPU tensors), the disc eye or the exact wireframe eye by
+`cfg.vision.sprite_mode`; "ring" runs the agent-axis ring over a device mesh
+(parallel/ring.py: physics and both eyes, on the same kernels), "gspmd" its
+dense cross-check (parallel/auto.py; its eye renders dense, as in the JAX
+package). "auto" is the ring when more than one CUDA device is visible, else
+"pallas". The ring and gspmd take the `mesh` given to Scene, else
+parallel.mesh.default_mesh() (every visible CUDA device). Batched states
+([B, N, 2] leaves from `spawn_envs`) go to the kernels and the ring whole,
+the env axis a grid dimension. Rollouts are a Python loop; PyTorch runs
+eagerly, so there is no compiled scan to cache.
 """
 
 from __future__ import annotations
@@ -31,48 +36,68 @@ from .physics import dense
 from .state import SceneState, spawn, spawn_batch
 
 _UNPORTED_BACKENDS = {
-    "ring": "ROADMAP queue 1 item 17 (the multi-device agent-axis ring)",
-    "gspmd": "ROADMAP queue 1 item 17 (the compiler-partitioned backend)",
     "cells": "ROADMAP queue 1 item 16 (the cell-list boids backend)",
 }
 
 
 def _resolve_backend(cfg: SimConfig) -> str:
-    """'dense' (plain torch) or 'pallas' (the kernels); raise for the
-    backends the port does not have yet."""
+    """'dense' (plain torch), 'pallas' (the kernels), 'ring' or 'gspmd';
+    raise for the backends the port does not have yet."""
     if cfg.backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"backend={cfg.backend!r} is not ported yet: "
             f"{_UNPORTED_BACKENDS[cfg.backend]}"
         )
-    return "dense" if cfg.backend == "dense" else "pallas"
+    if cfg.backend == "auto":
+        # with several cards, shard the agent axis over the ring (the JAX
+        # package does so with several TPU chips)
+        return "ring" if torch.cuda.is_available() and torch.cuda.device_count() > 1 else "pallas"
+    return cfg.backend
 
 
-def make_step_fn(cfg: SimConfig) -> Callable[..., SceneState]:
+def make_step_fn(cfg: SimConfig, mesh=None) -> Callable[..., SceneState]:
     """Build the `(state, generator=None) -> state` physics step for this
-    config; it takes unbatched and batched states alike."""
-    if _resolve_backend(cfg) == "dense":
-        stepper = dense.STEPPERS[cfg.controller]
-    else:
+    config; it takes unbatched and batched states alike. `mesh` serves the
+    ring and gspmd backends (default: parallel.mesh.default_mesh())."""
+    backend = _resolve_backend(cfg)
+    if backend == "dense" or cfg.controller == "random":
+        return functools.partial(dense.STEPPERS[cfg.controller], cfg=cfg)
+    if backend == "pallas":
         from .ops import tiled
 
-        stepper = tiled.STEPPERS[cfg.controller]
-    return functools.partial(stepper, cfg=cfg)
+        return functools.partial(tiled.STEPPERS[cfg.controller], cfg=cfg)
+    if backend == "ring":
+        from .parallel import ring as steppers
+    else:
+        from .parallel import auto as steppers
+    return functools.partial(steppers.STEPPERS[cfg.controller], cfg=cfg, mesh=mesh)
 
 
-def _render_fn(cfg: SimConfig) -> Callable:
+def _render_fn(cfg: SimConfig, mesh=None) -> Callable:
     """`(pos, vel) -> (shade, depth)` on the route the backend and the
     sprite mode pick (the JAX `_vision_route`/`_vision_render_core`). The
-    dense route is plain autograd through vision.render, either sprite. The
-    kernel route is the disc eye (raycast.render_rows_tiled) or the exact
-    wireframe eye (wireframe.render_rows_wireframe_tiled), at any width;
-    each goes through its autograd Function when grad is enabled and an
-    input requires grad, and through the forward-only launch otherwise."""
+    dense and gspmd routes are plain autograd through vision.render, either
+    sprite. The kernel route is the disc eye (raycast.render_rows_tiled) or
+    the exact wireframe eye (wireframe.render_rows_wireframe_tiled), at any
+    width; each goes through its autograd Function when grad is enabled and
+    an input requires grad, and through the forward-only launch otherwise.
+    The ring route is parallel.ring.ring_render_rows over `mesh`, either
+    sprite, on the same kernels."""
     vcfg = cfg.vision
-    if _resolve_backend(cfg) == "dense":
+    backend = _resolve_backend(cfg)
+    if backend in ("dense", "gspmd"):
         from .vision import render
 
         return lambda pos, vel: render.render_rows(pos, vel, vcfg)
+    if backend == "ring":
+        from .parallel import mesh as mesh_lib
+        from .parallel import ring
+
+        def ring_rows(pos, vel):
+            m = mesh or mesh_lib.default_mesh()
+            return ring.ring_render_rows(pos, vel, vcfg, mesh=m, data_axis=mesh_lib.data_axis_of(m))
+
+        return ring_rows
     if vcfg.sprite_mode == "wireframe":
         from .ops import wireframe
 
@@ -82,12 +107,12 @@ def _render_fn(cfg: SimConfig) -> Callable:
     return lambda pos, vel: raycast.render_rows_tiled(pos, vel, vcfg)
 
 
-def make_observe_fn(cfg: SimConfig) -> Optional[Callable[[SceneState], torch.Tensor]]:
+def make_observe_fn(cfg: SimConfig, mesh=None) -> Optional[Callable[[SceneState], torch.Tensor]]:
     """Build the `state -> obs[..., N, W]` vision function, or None if
     vision is disabled."""
     if cfg.vision is None:
         return None
-    core = _render_fn(cfg)
+    core = _render_fn(cfg, mesh)
     return lambda s: core(s.pos, s.vel)[0]
 
 
@@ -95,13 +120,16 @@ class Scene:
     """Owns a config, a device and the random stream, and exposes
     spawn/step/observe/rollout for unbatched ([N, 2] leaves) and batched
     ([B, N, 2] leaves) states. The device is the card unless the caller
-    asks for another (`device="cpu"`); without a GPU the default raises."""
+    asks for another (`device="cpu"`); without a GPU the default raises.
+    `mesh` (a parallel.mesh.Mesh) serves the ring and gspmd backends; the
+    state stays on `device` and the backends move its blocks to the mesh's
+    devices and back."""
 
-    def __init__(self, cfg: SimConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: SimConfig, device: str | torch.device = "cuda", mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
-        self._step = make_step_fn(cfg)
-        self._render = _render_fn(cfg) if cfg.vision is not None else None
+        self._step = make_step_fn(cfg, mesh)
+        self._render = _render_fn(cfg, mesh) if cfg.vision is not None else None
         self.generator = torch.Generator(device=self.device).manual_seed(0)
 
     # -- construction -------------------------------------------------------

@@ -132,8 +132,13 @@ def test_launch_counts_and_grad_guard(cuda):
     counts = common.launch_counts()
     assert counts["gravity_vjp"] == 1 and counts["disc_eye_bwd"] == 1
     assert torch.isfinite(pos.grad).all() and torch.isfinite(vel.grad).all()
-    with pytest.raises(NotImplementedError):
-        pairwise.gravity_forces_tiled(pos, GravityConfig(), pos.detach())
+    # the cross form goes through its Function, whose backward is the VJP
+    # source's cross entry point: one more gravity_vjp launch
+    other = _uniform((40, 2), -100, 100, 2, cuda).requires_grad_()
+    g = pairwise.gravity_forces_tiled(pos, GravityConfig(), other)
+    assert type(g.grad_fn).__name__ == "GravityForcesCrossDiffBackward"
+    g.sum().backward()
+    assert common.launch_counts()["gravity_vjp"] == 2 and other.grad.abs().max() > 0
     with pytest.raises(ValueError, match="winner"):
         raycast.render_rows_vjp_cross(pos.detach(), vel.detach(), None, shade.detach(),
                                       shade.detach(), VisionConfig(width=32))
@@ -287,8 +292,8 @@ def test_wireframe_eye_kernel_tie_goes_to_the_lower_edge(cuda):
 @pytest.mark.parametrize("aa", [False, True])
 def test_wireframe_diff_on_cuda_matches_plain_autograd(cuda, aa):
     """RenderRowsWireframeDiff on the card (the kernel's forward with its
-    winner index, the winner pullback) against autograd through the plain
-    renderer on the card; its launches: one forward, no backward kernel."""
+    winner index, the backward kernel) against autograd through the plain
+    renderer on the card; its launches: one forward, one backward."""
     pos0 = _uniform((4, 64, 2), -30, 30, 5, cuda)
     vel0 = _uniform((4, 64, 2), -1, 1, 6, cuda)
     us = _uniform((4, 64, 64), -1, 1, 7, cuda)
@@ -303,7 +308,8 @@ def test_wireframe_diff_on_cuda_matches_plain_autograd(cuda, aa):
         ((shade * us).sum() + (depth * ud).sum()).backward()
         grads.append((p.grad, v.grad))
         launches.append(common.launch_counts())
-    assert launches[0] == {**{k: 0 for k in common.KERNELS}, "wireframe_eye": 1}
+    assert launches[0] == {**{k: 0 for k in common.KERNELS}, "wireframe_eye": 1,
+                           "wireframe_eye_bwd": 1}
     assert all(c == 0 for c in launches[1].values())  # the plain route
     torch.cuda.synchronize()
     for g, x in zip(*grads):
@@ -314,3 +320,120 @@ def test_wireframe_diff_on_cuda_matches_plain_autograd(cuda, aa):
     scene = Scene(cfg_sim, device=cuda)
     scene.observe(scene.step(scene.spawn(0)))
     assert common.launch_counts()["wireframe_eye"] == 1 and common.launch_counts()["disc_eye"] == 0
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 16, 16), (1, 300, 77), (3, 256, 513), (1, 4096, 4096)])
+@pytest.mark.parametrize("exclude_diagonal", [True, False])
+def test_boids_partials_kernel_matches_plain(cuda, b, n, m, exclude_diagonal):
+    # the counts are exact; the sums run in another order (test_kernels.py:60's
+    # tolerances, atol scaled by the largest sum: the repel sum cancels)
+    shape_i, shape_j = ((b,) if b > 1 else ()) + (n, 2), ((b,) if b > 1 else ()) + (m, 2)
+    pos_i = _uniform(shape_i, -30, 30, n, cuda)
+    vel_i = _uniform(shape_i, -1, 1, n + 1, cuda)
+    pos_j = pos_i if exclude_diagonal and n == m else _uniform(shape_j, -30, 30, m, cuda)
+    vel_j = vel_i if exclude_diagonal and n == m else _uniform(shape_j, -1, 1, m + 1, cuda)
+    cfg = BoidsConfig()
+    got = boids_ops.boids_partials_tiled(pos_i, vel_i, pos_j, vel_j, cfg, exclude_diagonal)
+    want = boids_ops.boids_partials_plain(pos_i, vel_i, pos_j, vel_j, cfg, exclude_diagonal)
+    torch.cuda.synchronize()
+    for k, (g, x) in enumerate(zip(got, want)):
+        if k in (1, 4):
+            assert torch.equal(g, x)
+        else:
+            _close(g, x, 3e-5, 1e-6 * max(1.0, x.abs().max().item()))
+
+
+def test_boids_partials_kernel_sentinels_stay_inert(cuda):
+    """The ring's far sentinels (1e17): their squared distance 1e34 fits in
+    fp32 and fails every threshold, so a padded j-block adds nothing and a
+    padded i-row sees no real agent."""
+    pos = _uniform((100, 2), -30, 30, 1, cuda)
+    vel = _uniform((100, 2), -1, 1, 2, cuda)
+    pad = torch.full((28, 2), 1e17, device=cuda)
+    cfg = BoidsConfig()
+    got = boids_ops.boids_partials_tiled(pos, vel, torch.cat([pos, pad]), torch.cat([vel, pad]),
+                                         cfg, exclude_diagonal=False)
+    want = boids_ops.boids_partials_tiled(pos, vel, pos, vel, cfg, exclude_diagonal=False)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    far = boids_ops.boids_partials_tiled(pad, pad, pos, vel, cfg, exclude_diagonal=False)
+    assert all(not t.any() for t in far)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (1, 64, 300), (3, 257, 77), (4096, 64, 64)])
+def test_gravity_vjp_cross_kernel_matches_float64(cuda, b, n, m):
+    # both outputs against the plain version in float64, normalized by
+    # their largest component (ROADMAP queue 3's allowance for gravity
+    # gradients: test_kernels.py:141-155's bound)
+    lead = (b,) if b > 1 else ()
+    pos_i = _uniform(lead + (n, 2), -100, 100, n, cuda)
+    pos_j = _uniform(lead + (m, 2), -100, 100, m, cuda)
+    u = torch.randn(lead + (n, 2), generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    cfg = GravityConfig()
+    got = pairwise.gravity_vjp_cross_tiled(pos_i, pos_j, u, cfg)
+    want = pairwise.gravity_vjp_cross_plain(pos_i.double(), pos_j.double(), u.double(), cfg)
+    for g, x in zip(got, want):
+        _scaled_close(g.double(), x, 3e-5)
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 1024, 64), (1, 100, 1024), (1, 60, 32), (64, 256, 64),
+                                   (5, 33, 17), (1, 16, 512)])
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_bwd_kernel_matches_winner_pullback(cuda, b, n, w, aa):
+    # the dual-number re-evaluation against autograd through the same
+    # expressions: per-pixel terms round apart, and the target sums run in
+    # atomic (run-to-run) order (the disc backward's tolerances)
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -40, 40, n, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe", far=200.0)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    us = torch.randn(shape[:-1] + (w,), generator=gen, device=cuda)
+    ud = torch.randn(shape[:-1] + (w,), generator=gen, device=cuda) * 1e-2
+    _, _, winner = wireframe.wireframe_eye_with_winner(pos, dirs, pos, dirs, cfg)
+    common.reset_launch_counts()
+    got = wireframe.wireframe_eye_vjp(pos, dirs, pos, dirs, winner, us, ud, cfg)
+    assert common.launch_counts()["wireframe_eye_bwd"] == 1
+    want = wireframe.winner_pullback(pos, dirs, pos, dirs, winner, us, ud, cfg)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert x.abs().max() > 0
+        torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
+
+
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+def test_ring_on_cuda_matches_one_device(cuda, sprite):
+    """The ring on a mesh that repeats the card 4 times, against the one-
+    device kernels: forces, boids, rows and their gradients (the per-hop
+    backward kernels through autograd); the launch counts show the hops."""
+    from nenbody_tpu_torch.parallel import make_mesh, ring
+
+    mesh = make_mesh({"data": 2, "agents": 2}, devices=[cuda] * 4)
+    pos0 = _uniform((4, 64, 2), -30, 30, 8, cuda)
+    vel0 = _uniform((4, 64, 2), -1, 1, 9, cuda)
+    cfg = SimConfig(n=64, controller="gravity")
+    vcfg = VisionConfig(width=64, antialias=True, sprite_mode=sprite, far=200.0)
+    us = _uniform((4, 64, 64), -1, 1, 10, cuda)
+    common.reset_launch_counts()
+    b = ring.ring_boids_velocity(pos0, vel0, cfg, mesh=mesh, data_axis="data")
+    assert common.launch_counts()["boids_partials"] == 2 * 2 * 2  # data x agents x hops
+    _close(b, boids_ops.boids_velocity_tiled(pos0, vel0, cfg.boids), 3e-5, 1e-6)
+    grads = []
+    for one_device in (False, True):
+        p, v = pos0.clone().requires_grad_(), vel0.clone().requires_grad_()
+        if one_device:
+            g = pairwise.gravity_forces_tiled(p, cfg.gravity)
+            shade, _ = (wireframe.render_rows_wireframe_tiled(p, v, vcfg) if sprite == "wireframe"
+                        else raycast.render_rows_tiled(p, v, vcfg))
+        else:
+            g = ring.ring_gravity_forces(p, cfg, mesh=mesh, data_axis="data")
+            shade, _ = ring.ring_render_rows_diff(p, v, vcfg, mesh=mesh, data_axis="data")
+        ((g * g).sum() * 1e3 + (shade * us).sum()).backward()
+        grads.append((g.detach(), shade.detach(), p.grad, v.grad))
+    torch.cuda.synchronize()
+    (g_r, s_r, *gr), (g_1, s_1, *g1) = grads
+    _scaled_close(g_r, g_1, 3e-5)
+    _close(s_r, s_1, 1e-5, 2e-4)
+    for a, x in zip(gr, g1):
+        torch.testing.assert_close(a, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())

@@ -112,8 +112,9 @@ def test_gravity_routing_by_grad_mode():
     assert type(grad_fn).__name__ == "GravityForcesDiffBackward"
     with torch.no_grad():
         assert pairwise.gravity_forces_tiled(p, cfg).grad_fn is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pairwise.gravity_forces_tiled(p, cfg, _t(pos))
+    # the cross form (a ring hop) routes through its own Function
+    grad_fn = pairwise.gravity_forces_tiled(p, cfg, _t(pos)).grad_fn
+    assert type(grad_fn).__name__ == "GravityForcesCrossDiffBackward"
     assert all(c == 0 for c in common.launch_counts().values())
 
 

@@ -189,7 +189,8 @@ def test_cpu_tensors_take_the_plain_version():
     g = pairwise.gravity_forces_tiled(p, GravityConfig())
     tboids.boids_velocity_tiled(_t(pos), _t(vel), BoidsConfig())
     assert common.launch_counts() == {"gravity": 0, "boids": 0, "disc_eye": 0,
-                                      "gravity_vjp": 0, "disc_eye_bwd": 0, "wireframe_eye": 0}
+                                      "gravity_vjp": 0, "disc_eye_bwd": 0, "wireframe_eye": 0,
+                                      "boids_partials": 0, "wireframe_eye_bwd": 0}
     (g * g).sum().backward()
     assert common.launch_counts()["gravity_vjp"] == 0
     assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0

@@ -27,6 +27,7 @@ from nenbody_tpu.rl.policy import MLPPolicy as JMLPPolicy
 
 from nenbody_tpu_torch import PRESETS, Scene, SceneState, SimConfig, VisionConfig
 from nenbody_tpu_torch.entry import CONFIG_2, entry, make_entry_fn
+from nenbody_tpu_torch.parallel import make_mesh
 from nenbody_tpu_torch.rl.env import VisionEnv
 from nenbody_tpu_torch.rl.policy import MLPPolicy, mlp_state_dict_from_flax
 
@@ -129,6 +130,12 @@ def test_random_controller_and_unported_backends():
     b, _ = scene.rollout(scene.spawn(3), 2)
     torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=0)  # seeded stream
     assert int(a.t) == 2
-    for backend in ("ring", "gspmd", "cells"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Scene(dataclasses.replace(cfg, backend=backend), device="cpu")
+    # the mesh backends step the random controller on plain torch, as the
+    # JAX package does; the cell-list backend is not ported yet
+    mesh = make_mesh({"agents": 2}, devices=["cpu"] * 2)
+    for backend in ("ring", "gspmd"):
+        sc = Scene(dataclasses.replace(cfg, backend=backend), device="cpu", mesh=mesh)
+        c, _ = sc.rollout(sc.spawn(3), 2)
+        torch.testing.assert_close(c.pos, a.pos, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Scene(dataclasses.replace(cfg, backend="cells"), device="cpu")

@@ -38,6 +38,7 @@ from nenbody_tpu.rl.policy import gaussian_log_prob as jgaussian_log_prob
 
 from nenbody_tpu_torch import SceneState, SimConfig, VisionConfig
 from nenbody_tpu_torch import cli, profile_train
+from nenbody_tpu_torch.parallel import make_mesh
 from nenbody_tpu_torch.rl import apg, train
 from nenbody_tpu_torch.rl.env import VisionEnv
 from nenbody_tpu_torch.rl.policy import MLPPolicy, gaussian_log_prob, mlp_state_dict_from_flax
@@ -267,10 +268,13 @@ def test_train_states_are_seeded_and_mesh_waits_for_the_ring():
         assert torch.equal(x, y)
     assert apg.init_apg_state(env, seed=9, device="cpu").policy.state_dict()["head.weight"].equal(
         a.policy.state_dict()["head.weight"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        train.make_train_step(env, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        apg.make_apg_step(env, mesh=object())
+    # the ring is ported: mesh= runs (tests/test_torch_ring_train.py), and
+    # an env batch that does not divide the data axis is refused up front
+    mesh = make_mesh({"data": 2, "agents": 2}, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="divide evenly"):
+        train.init_train_state(env, 3, seed=9, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="divide evenly"):
+        apg.make_apg_step(env, num_envs=3, mesh=mesh)
 
 
 @pytest.mark.parametrize("algo", ["reinforce", "apg"])
