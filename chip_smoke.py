@@ -5,7 +5,7 @@
 
 Phases, one line each (any failure raises and the exit code is non-zero):
   1. device   — the card's name and power limit; TF32 off.
-  2. build    — nvcc builds the eight kernels from nenbody_tpu_torch/csrc
+  2. build    — nvcc builds the eleven kernels from nenbody_tpu_torch/csrc
                 into build/nenbody_tpu_torch/ (one nvcc per source, all at
                 once); ptxas reports registers, shared memory and spills.
   3. kernels  — each kernel against its plain PyTorch version on the card,
@@ -46,19 +46,29 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 against one device's; the launch counts set to 0 just
                 before each ring call and read just after it, peak device
                 memory.
+     rdma     — the RDMA ring (nenbody_tpu_torch.parallel.rdma, one launch
+                per card walking every hop) on the same 4-shard mesh:
+                gravity at config 4 and at config-5 width, boids at
+                N=65,536, disc rows at config 2 and at config-5 width, each
+                against its plain version, the per-hop ring and one device,
+                then 20 more launches bit-identical; the launch counts set
+                to 0 just before each call and read just after (one launch
+                of the call's kernel, nothing else).
   5. times    — CUDA-event times of each kernel and its plain version,
                 alternated (plain, kernel, kernel, plain), the eyes with and
                 without their winner index, steps/s of the config-2 rollout
                 (both sprites), reference-100 (wireframe) and entry(), the
-                ring's kernels and the ring path against one device, and
-                seconds per training iteration and agent-frames/s of each
-                trainer.
+                ring's kernels and the ring path against one device, the
+                RDMA kernels' device time (torch.profiler) beside the RDMA
+                call, the per-hop ring and one device, and seconds per training
+                iteration and agent-frames/s of each trainer.
 The line before the last is a JSON object with one entry per kernel
 (`launches` sums the paths' counts; `bound_ms` is the larger of the
 operations over the card's fp32 peak and the bytes over its memory rate,
 for the inputs timed; `library_ms` is null: no single PyTorch call computes
 any of these functions); the last line is {"ok": true, "device": {...}}.
-Imports no jax.
+`python3 chip_smoke.py --rdma-cards N` runs the RDMA phases alone with one
+shard on each of N cards. Imports no jax.
 """
 
 from __future__ import annotations
@@ -74,14 +84,16 @@ import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.optim.optimizer import register_optimizer_step_pre_hook
+from torch.profiler import ProfilerActivity, profile
 
 from nenbody_tpu_torch import PRESETS, Scene, SimConfig, VisionConfig, cli
 from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
 from nenbody_tpu_torch.entry import entry
 from nenbody_tpu_torch.ops import boids as boids_ops
 from nenbody_tpu_torch.ops import common, pairwise, raycast, wireframe
-from nenbody_tpu_torch.parallel import default_mesh, make_mesh, ring
+from nenbody_tpu_torch.parallel import default_mesh, make_mesh, rdma, ring
 from nenbody_tpu_torch.physics import dense
 from nenbody_tpu_torch.rl import apg, train
 from nenbody_tpu_torch.rl.env import VisionEnv
@@ -109,6 +121,12 @@ KERNEL_INFO = {
     "wireframe_eye_bwd": dict(source="nenbody_tpu_torch/csrc/wireframe_eye_bwd.cu",
                               replaces="nenbody_tpu/ops/wireframe.py:2424",
                               also_replaces="nenbody_tpu/ops/wireframe.py:2024"),
+    "rdma_gravity": dict(source="nenbody_tpu_torch/csrc/rdma_ring.cu",
+                         replaces="nenbody_tpu/parallel/rdma.py:94"),
+    "rdma_boids": dict(source="nenbody_tpu_torch/csrc/rdma_ring.cu",
+                       replaces="nenbody_tpu/parallel/rdma.py:271"),
+    "rdma_vision": dict(source="nenbody_tpu_torch/csrc/rdma_ring.cu",
+                        replaces="nenbody_tpu/parallel/rdma.py:475"),
 }
 EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64)]
 WF_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 1024, 1024), (64, 256, 64)]
@@ -135,6 +153,9 @@ RING = {"physics and rows": ("gravity", "boids_partials", "disc_eye", "wireframe
 RING_GRAVITY_BOUND, RING_BOIDS_BOUND = 1e-4, 1e-5
 RING_SCENE_DPOS, RING_SCENE_PIXELS = 1e-5, 1e-4
 RING_LOSS_RTOL, RING_GRAD_BOUND = 1e-5, 1e-3
+# The RDMA ring: each call one launch per card, of its own kernel alone
+RDMA_KERNEL = {"gravity": "rdma_gravity", "boids": "rdma_boids", "rows": "rdma_vision"}
+RDMA_REPEATS = 20  # launches that must give the same bits as the first
 # the wireframe APG diff_vision iteration with the plain pullback (PERF.md
 # section 5, profile_train: NVIDIA H100 80GB HBM3, 700.00 W)
 WF_DIFF_PLAIN_SEC = 2.6347
@@ -1034,6 +1055,194 @@ def hold_mesh_grads(label: str, env: VisionEnv, mesh) -> None:
     expect(rel < RING_GRAD_BOUND, f"{label}: the mesh's gradients agree with one device's")
 
 
+def rdma_mesh(cards: int):
+    """The RDMA phases' agent axis: 4 shards of cuda:0 (cards=1), or one
+    shard on each of the first `cards` cards."""
+    devs = ([torch.device("cuda", 0)] * 4 if cards == 1
+            else [torch.device("cuda", i) for i in range(cards)])
+    return make_mesh({"agents": len(devs)}, devices=devs)
+
+
+def phase_rdma(errors: Errors, card: str, mesh4):
+    """The RDMA ring (nenbody_tpu_torch.parallel.rdma) at full width on
+    `mesh4` (rdma_mesh): gravity at config 4 (N=65,536), boids at N=65,536,
+    disc rows at config 2 (N=1,024, W=64), and gravity and rows at config-5
+    width (4,096 envs x 256 agents x 64 px), the inputs on cuda:0. The
+    launch counts are set to 0 just before each call and read just after:
+    one launch of the call's own kernel per card and nothing else. Each
+    result is held against the kernel's plain version on the card (Errors,
+    the kernels' max_abs_err), the per-hop ring and one device: the physics
+    under the RING_* bounds, the rows at the eye's tolerances with no pixel
+    flipped (hold_rows); then RDMA_REPEATS more launches must give the
+    same bits.
+    Returns the launch counts of the counted calls."""
+    cards = len(set(mesh4.devices))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    t0 = time.perf_counter()
+
+    def counted(kind: str, fn):
+        common.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = common.launch_counts()
+        expect(got[RDMA_KERNEL[kind]] == cards and sum(got.values()) == cards,
+               f"one launch of {RDMA_KERNEL[kind]} per card and nothing else, got {got}")
+        for k, v in got.items():
+            counts[k] += v
+        return out
+
+    def repeats(label: str, fn, first) -> None:
+        first = first if isinstance(first, tuple) else (first,)
+        for _ in range(RDMA_REPEATS):
+            again = fn()
+            again = again if isinstance(again, tuple) else (again,)
+            expect(all(torch.equal(a, b) for a, b in zip(again, first)),
+                   f"{label}: the same bits on every launch")
+        torch.cuda.synchronize()
+        log("rdma", f"{label}: {RDMA_REPEATS} more launches bit-identical to the first")
+
+    with torch.no_grad():
+        cfg4 = PRESETS["gravity-65536"]()
+        pos = uniform(gen, (cfg4.n, 2), -100, 100)
+        vel = uniform(gen, (cfg4.n, 2), 0, 0.1)
+        cfg5 = PRESETS["envs-4096x256"]()
+        s5 = Scene(cfg5, device="cuda").spawn_envs(TRAIN_ENVS, seed=0)
+        for label, p, cfg in (("config 4 (N=65,536)", pos, cfg4),
+                              (f"config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS})", s5.pos, cfg5)):
+            run = lambda: rdma.rdma_ring_gravity_forces(p, cfg, mesh=mesh4)
+            got = counted("gravity", run)
+            errors.check_scaled("rdma_gravity", f"rdma gravity {label} vs its plain version", got,
+                                rdma.rdma_ring_gravity_forces_plain(p, cfg, mesh=mesh4),
+                                RING_GRAVITY_BOUND)
+            hold_scaled(f"rdma gravity {label} vs the per-hop ring", got,
+                        ring.ring_gravity_forces(p, cfg, mesh=mesh4), RING_GRAVITY_BOUND)
+            hold_scaled(f"rdma gravity {label} vs one device", got,
+                        pairwise.gravity_forces_tiled(p, cfg.gravity), RING_GRAVITY_BOUND)
+            repeats(f"rdma gravity {label}", run, got)
+
+        bcfg = SimConfig(n=cfg4.n, controller="boids")
+        run = lambda: rdma.rdma_ring_boids_velocity(pos, vel, bcfg, mesh=mesh4)
+        got = counted("boids", run)
+        errors.check_scaled("rdma_boids", "rdma boids N=65,536 vs its plain version", got,
+                            rdma.rdma_ring_boids_velocity_plain(pos, vel, bcfg, mesh=mesh4),
+                            RING_BOIDS_BOUND)
+        hold_scaled("rdma boids N=65,536 vs the per-hop ring", got,
+                    ring.ring_boids_velocity(pos, vel, bcfg, mesh=mesh4), RING_BOIDS_BOUND)
+        hold_scaled("rdma boids N=65,536 vs one device", got,
+                    boids_ops.boids_velocity_tiled(pos, vel, bcfg.boids), RING_BOIDS_BOUND)
+        repeats("rdma boids N=65,536", run, got)
+
+        cfg2 = PRESETS["gravity-vision-1024"]()
+        s2 = Scene(cfg2, device="cuda").spawn(0)
+        for label, st, vcfg in (("config 2", s2, cfg2.vision),
+                                (f"config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS} x "
+                                 f"{TRAIN_WIDTH})", s5, cfg5.vision)):
+            run = lambda: rdma.rdma_ring_render_rows(st.pos, st.vel, vcfg, mesh=mesh4)
+            got = counted("rows", run)
+            want = rdma.rdma_ring_render_rows_plain(st.pos, st.vel, vcfg, mesh=mesh4)
+            errors.check("rdma_vision", f"rdma rows {label} depth vs its plain version", got[1],
+                         want[1], 1e-5, 1e-4)
+            errors.check("rdma_vision", f"rdma rows {label} shade vs its plain version", got[0],
+                         want[0], 1e-5, 1e-5)
+            expect(bool((got[1] < vcfg.far).any()), f"rdma rows {label}: sprites in view")
+            hold_rows(f"rdma rows {label} vs the per-hop ring", got,
+                      ring.ring_render_rows(st.pos, st.vel, vcfg, mesh=mesh4), vcfg)
+            hold_rows(f"rdma rows {label} vs one device", got,
+                      raycast.render_rows_tiled(st.pos, st.vel, vcfg), vcfg)
+            repeats(f"rdma rows {label}", run, got)
+    log("rdma", f"the RDMA ring ran in {time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    return counts
+
+
+def kernel_device_ms(fn, name: str, iters: int, per_call: int = 1) -> float:
+    """Mean device time per launch of the kernel whose name holds `name`
+    over `iters` calls of fn, `per_call` launches each, after one warm-up
+    call (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    expect(len(times) == iters * per_call,
+           f"{iters * per_call} traced launches of {name}, got {len(times)}")
+    return sum(times) / len(times) / 1e3
+
+
+def phase_rdma_times(gen, card: str, mesh4) -> dict:
+    """The RDMA kernels on `mesh4` (rdma_mesh): each kernel's device time
+    (torch.profiler, per launch) and its bound (one device's work), the
+    plain version's time, and the RDMA call (its launches plus the split,
+    gather and epilogue), the per-hop ring and one device alternated (CUDA
+    events on cuda:0, whose stream the call joins), at the phase's shapes."""
+    times = {}
+    cards = len(set(mesh4.devices))
+    where = "4 shards of one card" if cards == 1 else f"{cards} cards"
+    cfg4 = PRESETS["gravity-65536"]()
+    n = cfg4.n
+    pos = uniform(gen, (n, 2), -100, 100)
+    vel = uniform(gen, (n, 2), 0, 0.1)
+    bcfg = SimConfig(n=n, controller="boids")
+    cfg2 = PRESETS["gravity-vision-1024"]()
+    s2 = Scene(cfg2, device="cuda").spawn(0)
+    cfg5 = PRESETS["envs-4096x256"]()
+    s5 = Scene(cfg5, device="cuda").spawn_envs(TRAIN_ENVS, seed=0)
+    cases = [
+        ("rdma_gravity", "gravity config 4 (N=65,536)",
+         lambda: rdma.rdma_ring_gravity_forces(pos, cfg4, mesh=mesh4),
+         lambda: rdma.rdma_ring_gravity_forces_plain(pos, cfg4, mesh=mesh4),
+         lambda: ring.ring_gravity_forces(pos, cfg4, mesh=mesh4),
+         lambda: pairwise.gravity_forces_tiled(pos, cfg4.gravity),
+         bound(n * n * GRAVITY_OPS, 2 * nbytes(pos)), 5),
+        ("rdma_gravity", f"gravity config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS})",
+         lambda: rdma.rdma_ring_gravity_forces(s5.pos, cfg5, mesh=mesh4),
+         lambda: rdma.rdma_ring_gravity_forces_plain(s5.pos, cfg5, mesh=mesh4),
+         lambda: ring.ring_gravity_forces(s5.pos, cfg5, mesh=mesh4),
+         lambda: pairwise.gravity_forces_tiled(s5.pos, cfg5.gravity),
+         bound(TRAIN_ENVS * TRAIN_AGENTS ** 2 * GRAVITY_OPS, 2 * nbytes(s5.pos)), 20),
+        ("rdma_boids", "boids N=65,536",
+         lambda: rdma.rdma_ring_boids_velocity(pos, vel, bcfg, mesh=mesh4),
+         lambda: rdma.rdma_ring_boids_velocity_plain(pos, vel, bcfg, mesh=mesh4),
+         lambda: ring.ring_boids_velocity(pos, vel, bcfg, mesh=mesh4),
+         lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg.boids),
+         bound(n * n * BOIDS_OPS, nbytes(pos, vel, vel)), 5),
+        ("rdma_vision", "disc rows config 2 (N=1,024, W=64)",
+         lambda: rdma.rdma_ring_render_rows(s2.pos, s2.vel, cfg2.vision, mesh=mesh4),
+         lambda: rdma.rdma_ring_render_rows_plain(s2.pos, s2.vel, cfg2.vision, mesh=mesh4),
+         lambda: ring.ring_render_rows(s2.pos, s2.vel, cfg2.vision, mesh=mesh4),
+         lambda: raycast.render_rows_tiled(s2.pos, s2.vel, cfg2.vision),
+         None, 20),
+        ("rdma_vision", f"disc rows config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS} x "
+                        f"{TRAIN_WIDTH})",
+         lambda: rdma.rdma_ring_render_rows(s5.pos, s5.vel, cfg5.vision, mesh=mesh4),
+         lambda: rdma.rdma_ring_render_rows_plain(s5.pos, s5.vel, cfg5.vision, mesh=mesh4),
+         lambda: ring.ring_render_rows(s5.pos, s5.vel, cfg5.vision, mesh=mesh4),
+         lambda: raycast.render_rows_tiled(s5.pos, s5.vel, cfg5.vision),
+         None, 3),
+    ]
+    for name, label, fn, plain, ring_fn, one_fn, b, iters in cases:
+        if b is None:  # the disc eye's pixel work where a footprint covers the pixel
+            st, vcfg = (s2, cfg2.vision) if "config 2" in label else (s5, cfg5.vision)
+            dirs = camera.unit_heading(st.vel)
+            n_e = st.pos.shape[-2]
+            b = bound(st.pos[..., 0, 0].numel() * n_e * n_e * DISC_PAIR_OPS
+                      + disc_covered(st.pos, dirs, vcfg) * DISC_PIXEL_OPS,
+                      nbytes(st.pos, dirs) + 2 * st.pos[..., 0].numel() * vcfg.width * 4)
+        k_ms = kernel_device_ms(fn, name + "_kernel", iters, cards)
+        p_ms, call_ms = alternate(plain, fn, 1, iters)
+        one_ms, ring_ms = alternate(one_fn, ring_fn, iters, iters)
+        log("times", f"{name} {label} on {where}: kernel {k_ms:.3f} ms (device time per "
+            f"launch, {cards} per call), bound {b[0]:.4g} ms ({b[1]}); the RDMA call "
+            f"{call_ms:.3f} ms; plain {p_ms:.3f} ms; the per-hop ring {ring_ms:.3f} ms; one "
+            f"device {one_ms:.3f} ms [{card}]")
+        times.setdefault(name, (k_ms, p_ms, *b))
+    return times
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1335,6 +1544,34 @@ def log_train_times(runs: dict, card: str, prefix: str = "") -> None:
             f"{rows[0]['sec']:.4f} s{was} [{card}]")
 
 
+def print_result(kernels: list, smi: str, kind: str) -> None:
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+def main_rdma_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) -> None:
+    """`chip_smoke.py --rdma-cards N`: the RDMA phases alone with one shard
+    on each of N cards (peer stores and flags across cards), nothing else."""
+    if len(sys.argv) != 3 or sys.argv[1] != "--rdma-cards":
+        raise SystemExit("usage: chip_smoke.py [--rdma-cards N]")
+    cards = int(sys.argv[2])
+    expect(2 <= cards <= torch.cuda.device_count(), f"{cards} visible cards")
+    mesh = rdma_mesh(cards)
+    log("rdma", f"{mesh}; peer access "
+        f"{[torch.cuda.can_device_access_peer(i, (i + 1) % cards) for i in range(cards)]}")
+    counts = phase_rdma(errors, smi, mesh)
+    with torch.no_grad():
+        times = phase_rdma_times(gen, smi, mesh)
+    log("done", f"the RDMA phases on {cards} cards ran in {time.perf_counter() - t_start:.1f} s")
+    print_result([{"name": name, "route": "cuda", **KERNEL_INFO[name], "launches": counts[name],
+                   "max_abs_err": errors.max_abs[name], "ms": times[name][0],
+                   "plain_ms": times[name][1], "bound_ms": times[name][2],
+                   "bound_by": times[name][3], "library_ms": None}
+                  for name in RDMA_KERNEL.values()], smi, kind)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1357,6 +1594,8 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = Errors()
+    if len(sys.argv) > 1:
+        return main_rdma_cards(errors, gen, smi, kind, t_start)
     with torch.no_grad():
         phase_kernels(errors, gen)
         phase_backward_kernels(errors, gen)
@@ -1371,10 +1610,12 @@ def main() -> None:
     runs, training = phase_train()
     wf_runs, wf_training = phase_wireframe_train()
     ring_counts, ring_runs = phase_ring(smi)
-    paths += [training, wf_training, ring_counts]
+    rdma_counts = phase_rdma(errors, smi, rdma_mesh(1))
+    paths += [training, wf_training, ring_counts, rdma_counts]
     with torch.no_grad():
         times = phase_times(gen, smi)
         times.update(phase_ring_times(gen, smi))
+        times.update(phase_rdma_times(gen, smi, rdma_mesh(1)))
     log_train_times(runs, smi)
     log_train_times(wf_runs, smi, prefix="wireframe ")
     log_train_times(ring_runs, smi, prefix="ring ")
@@ -1387,10 +1628,7 @@ def main() -> None:
                         "launches": sum(counts[name] for counts in paths),
                         "max_abs_err": errors.max_abs[name], "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+    print_result(kernels, smi, kind)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,8 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_math.cuh"
+
 namespace {
 
 constexpr int TILE = 256;
@@ -40,8 +42,7 @@ __global__ void boids_kernel(const float2* __restrict__ pos, const float2* __res
     xi = pb[i];
     vi = vb[i];
   }
-  float s1x = 0.f, s1y = 0.f, rx = 0.f, ry = 0.f, s3x = 0.f, s3y = 0.f;
-  int c1 = 0, c3 = 0;
+  BoidsSums s;
   for (int j0 = 0; j0 < n; j0 += TILE) {
     const int jl = j0 + threadIdx.x;
     if (jl < n) {
@@ -52,40 +53,19 @@ __global__ void boids_kernel(const float2* __restrict__ pos, const float2* __res
     const int cnt = min(TILE, n - j0);
     for (int k = 0; k < cnt; ++k) {
       if (j0 + k == i) continue;
-      const float2 xj = tp[k];
-      const float dx = xj.x - xi.x;
-      const float dy = xj.y - xi.y;
-      const float d2 = dx * dx + dy * dy;
-      if (d2 < coh_sq) {
-        s1x += xj.x;
-        s1y += xj.y;
-        ++c1;
-      }
-      if (d2 < sep_sq) {
-        rx -= dx;
-        ry -= dy;
-      }
-      if (!skip_alignment) {
-        const float2 vj = tv[k];
-        const float dvx = vj.x - vi.x;
-        const float dvy = vj.y - vi.y;
-        if (dvx * dvx + dvy * dvy < ali_sq) {
-          s3x += vj.x;
-          s3y += vj.y;
-          ++c3;
-        }
-      }
+      boids_pair(xi, vi, tp[k], tv[k], coh_sq, sep_sq, ali_sq, !skip_alignment, s);
     }
     __syncthreads();
   }
   if (i < n) {
     // guarded means (the reference divides only when the count is > 0)
-    const float cx = c1 > 0 ? s1x / (float)c1 : s1x;
-    const float cy = c1 > 0 ? s1y / (float)c1 : s1y;
-    const float ax = c3 > 0 ? s3x / (float)c3 : s3x;
-    const float ay = c3 > 0 ? s3y / (float)c3 : s3y;
-    out[(long long)b * n + i] = make_float2(cx * coh_scale + rx * sep_scale + ax * ali_scale,
-                                            cy * coh_scale + ry * sep_scale + ay * ali_scale);
+    const float cx = s.c1 > 0 ? s.s1x / (float)s.c1 : s.s1x;
+    const float cy = s.c1 > 0 ? s.s1y / (float)s.c1 : s.s1y;
+    const float ax = s.c3 > 0 ? s.s3x / (float)s.c3 : s.s3x;
+    const float ay = s.c3 > 0 ? s.s3y / (float)s.c3 : s.s3y;
+    out[(long long)b * n + i] =
+        make_float2(cx * coh_scale + s.rx * sep_scale + ax * ali_scale,
+                    cy * coh_scale + s.ry * sep_scale + ay * ali_scale);
   }
 }
 

@@ -25,6 +25,8 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_math.cuh"
+
 namespace {
 
 constexpr int TILE = 256;
@@ -49,8 +51,7 @@ __global__ void boids_partials_kernel(const float2* __restrict__ pos_i,
     vi = vel_i[(long long)b * n + i];
   }
   const int skip = exclude_diagonal ? i : -1;
-  float s1x = 0.f, s1y = 0.f, rx = 0.f, ry = 0.f, s3x = 0.f, s3y = 0.f;
-  int c1 = 0, c3 = 0;
+  BoidsSums s;
   for (int j0 = 0; j0 < m; j0 += TILE) {
     const int jl = j0 + threadIdx.x;
     if (jl < m) {
@@ -61,37 +62,17 @@ __global__ void boids_partials_kernel(const float2* __restrict__ pos_i,
     const int cnt = min(TILE, m - j0);
     for (int k = 0; k < cnt; ++k) {
       if (j0 + k == skip) continue;
-      const float2 xj = tp[k];
-      const float dx = xj.x - xi.x;
-      const float dy = xj.y - xi.y;
-      const float d2 = dx * dx + dy * dy;
-      if (d2 < coh_sq) {
-        s1x += xj.x;
-        s1y += xj.y;
-        ++c1;
-      }
-      if (d2 < sep_sq) {
-        rx -= dx;
-        ry -= dy;
-      }
-      const float2 v = tv[k];
-      const float dvx = v.x - vi.x;
-      const float dvy = v.y - vi.y;
-      if (dvx * dvx + dvy * dvy < ali_sq) {
-        s3x += v.x;
-        s3y += v.y;
-        ++c3;
-      }
+      boids_pair(xi, vi, tp[k], tv[k], coh_sq, sep_sq, ali_sq, true, s);
     }
     __syncthreads();
   }
   if (i < n) {
     const long long o = (long long)b * n + i;
-    sum1[o] = make_float2(s1x, s1y);
-    cnt1[o] = (float)c1;
-    repel[o] = make_float2(rx, ry);
-    sum3[o] = make_float2(s3x, s3y);
-    cnt3[o] = (float)c3;
+    sum1[o] = make_float2(s.s1x, s.s1y);
+    cnt1[o] = (float)s.c1;
+    repel[o] = make_float2(s.rx, s.ry);
+    sum3[o] = make_float2(s.s3x, s.s3y);
+    cnt3[o] = (float)s.c3;
   }
 }
 

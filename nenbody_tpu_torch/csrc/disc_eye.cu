@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "pair_math.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -79,14 +81,9 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
     const int j = j0 + threadIdx.x;
     float fv = INFINITY, uc = 0.f, du = 1.f, thr = 0.f;
     if (e < ne && j < nt) {
-      const float2 xj = tb[j];
-      const float rx = xj.x - pe.x;
-      const float ry = xj.y - pe.y;
-      const float f = rx * de.x + ry * de.y;
-      const float l = rx * de.y - ry * de.x;
-      const bool in_depth = (f > q.near_plane) && (f < q.far_plane);
-      const float ft = (in_depth ? f : 1.0f) * q.tan_half_fov;
-      const float u = l / ft;
+      float f, u, ft;
+      const bool in_depth =
+          disc_project(pe, de, tb[j], q.near_plane, q.far_plane, q.tan_half_fov, f, u, ft);
       const float d = q.radius / ft;
       if (in_depth && fabsf(u) <= 1.0f + d) {
         fv = f;

@@ -20,6 +20,8 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_math.cuh"
+
 namespace {
 
 constexpr int TILE = 256;
@@ -39,15 +41,7 @@ __global__ void gravity_kernel(const float2* __restrict__ pos_i,
     if (j < m) tile[threadIdx.x] = pj[j];
     __syncthreads();
     const int cnt = min(TILE, m - j0);
-    for (int k = 0; k < cnt; ++k) {
-      const float2 xj = tile[k];
-      const float dx = xj.x - xi.x;
-      const float dy = xj.y - xi.y;
-      const float d2 = dx * dx + dy * dy + bias;
-      const float w = approx ? __fdividef(1.0f, d2) : 1.0f / d2;
-      gx += dx * w;
-      gy += dy * w;
-    }
+    for (int k = 0; k < cnt; ++k) gravity_pair(xi, tile[k], bias, approx, gx, gy);
     __syncthreads();
   }
   if (i < n) out[(long long)b * n + i] = make_float2(g * gx, g * gy);

@@ -28,6 +28,7 @@ Without grad, the forward-only launch runs and saves nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -66,6 +67,13 @@ SIGNATURES = {
     "nbt_gravity_vjp_cross": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "nbt_wireframe_eye_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    # the RDMA ring (csrc/rdma_ring.cu): shard table, local shards, their
+    # count, shards, blocks per shard, envs, rows per env, then each kernel's own
+    "nbt_rdma_gravity": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "nbt_rdma_boids": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "nbt_rdma_vision": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "nbt_rdma_capacity": [_I, _I, _I, _P],
+    "nbt_enable_peer": [_I],
 }
 
 # Largest grid y/z extent a launch may use (the batch of envs rides it).
@@ -188,7 +196,34 @@ KERNELS: Dict[str, Kernel] = {
     "wireframe_eye": Kernel("wireframe_eye", "nbt_wireframe_eye"),
     "boids_partials": Kernel("boids_partials", "nbt_boids_partials"),
     "wireframe_eye_bwd": Kernel("wireframe_eye_bwd", "nbt_wireframe_eye_bwd"),
+    "rdma_gravity": Kernel("rdma_gravity", "nbt_rdma_gravity"),
+    "rdma_boids": Kernel("rdma_boids", "nbt_rdma_boids"),
+    "rdma_vision": Kernel("rdma_vision", "nbt_rdma_vision"),
 }
+# nbt_rdma_capacity's kernel numbers
+RDMA_KINDS = {"rdma_gravity": 0, "rdma_boids": 1, "rdma_vision": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(kernel: str, threads: int, device: torch.device) -> int:
+    """Blocks of `threads` threads of the RDMA ring kernel `kernel` that the
+    CUDA `device` holds at once on all its SMs (the occupancy calculator's
+    count; 0 where the device has no cooperative launch): the most a
+    persistent grid whose blocks wait on each other may launch."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        kernel_library().call("nbt_rdma_capacity", RDMA_KINDS[kernel], threads, device.index,
+                              ctypes.addressof(out))
+    return out.value
+
+
+def enable_peer_access(device: torch.device, peer: torch.device) -> None:
+    """Let kernels on `device` read and write `peer`'s memory; raise where
+    the two cards cannot."""
+    if not torch.cuda.can_device_access_peer(device.index, peer.index):
+        raise RuntimeError(f"{device} cannot access {peer}'s memory (no peer access)")
+    with torch.cuda.device(device):
+        kernel_library().call("nbt_enable_peer", peer.index)
 
 
 def reset_launch_counts() -> None:

@@ -437,3 +437,63 @@ def test_ring_on_cuda_matches_one_device(cuda, sprite):
     _close(s_r, s_1, 1e-5, 2e-4)
     for a, x in zip(gr, g1):
         torch.testing.assert_close(a, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
+
+
+def _rdma_case(kind, d, shape, cuda):
+    """(the RDMA function's output, its plain version's) on a mesh that names
+    the card d times; the plain version runs on the card too."""
+    from nenbody_tpu_torch.parallel import make_mesh, rdma
+
+    mesh = make_mesh({"agents": d}, devices=[cuda] * d)
+    n = shape[-1]
+    lead = shape[:-1]
+    spread = 100.0 if kind == "rows" else 20.0  # clustered: every boids rule fires
+    pos = _uniform(lead + (n, 2), -spread, spread, n, cuda)
+    vel = _uniform(lead + (n, 2), -1, 1, n + 1, cuda)
+    if kind == "gravity":
+        cfg = SimConfig(n=n, controller="gravity")
+        call = lambda f: f(pos, cfg, mesh=mesh)
+        fns = rdma.rdma_ring_gravity_forces, rdma.rdma_ring_gravity_forces_plain
+    elif kind == "boids":
+        cfg = SimConfig(n=n, controller="boids")
+        call = lambda f: f(pos, vel, cfg, mesh=mesh)
+        fns = rdma.rdma_ring_boids_velocity, rdma.rdma_ring_boids_velocity_plain
+    else:
+        vcfg = VisionConfig(width=48)
+        call = lambda f: f(pos, vel, vcfg, mesh=mesh)
+        fns = rdma.rdma_ring_render_rows, rdma.rdma_ring_render_rows_plain
+    return (lambda: call(fns[0])), call(fns[1])
+
+
+@pytest.mark.parametrize("shape", [(203,), (3, 70)])
+@pytest.mark.parametrize("d", [2, 3, 4, 8])
+@pytest.mark.parametrize("kind", ["gravity", "boids", "rows"])
+def test_rdma_ring_kernel_matches_plain_and_repeats(cuda, kind, d, shape):
+    """Each RDMA kernel (one launch walking every hop) against its plain
+    version on the card: gravity normalised by its largest force (sums in
+    another order, test_kernels.py:141-155's bound), boids at the fused
+    kernel's tolerances, the rows at the eye's with no pixel flipped; then
+    20 more launches give the same bits (a shard's hop order is fixed)."""
+    run, want = _rdma_case(kind, d, shape, cuda)
+    common.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    name = {"gravity": "rdma_gravity", "boids": "rdma_boids", "rows": "rdma_vision"}[kind]
+    counts = common.launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1
+    if kind == "gravity":
+        _scaled_close(got, want, 3e-5)
+    elif kind == "boids":
+        _close(got, want, 3e-5, 1e-6)
+    else:
+        far = VisionConfig().far
+        assert int(((got[1] < far) != (want[1] < far)).sum()) == 0
+        assert (want[1] < far).double().mean() > 0.01
+        _close(got[1], want[1], 1e-5, 1e-4)
+        _close(got[0], want[0], 1e-5, 1e-5)
+    first = got if kind == "rows" else (got,)
+    for _ in range(20):
+        again = run()
+        again = again if kind == "rows" else (again,)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(again, first))

@@ -190,7 +190,8 @@ def test_cpu_tensors_take_the_plain_version():
     tboids.boids_velocity_tiled(_t(pos), _t(vel), BoidsConfig())
     assert common.launch_counts() == {"gravity": 0, "boids": 0, "disc_eye": 0,
                                       "gravity_vjp": 0, "disc_eye_bwd": 0, "wireframe_eye": 0,
-                                      "boids_partials": 0, "wireframe_eye_bwd": 0}
+                                      "boids_partials": 0, "wireframe_eye_bwd": 0,
+                                      "rdma_gravity": 0, "rdma_boids": 0, "rdma_vision": 0}
     (g * g).sum().backward()
     assert common.launch_counts()["gravity_vjp"] == 0
     assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
