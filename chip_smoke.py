@@ -54,19 +54,39 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 then 20 more launches bit-identical; the launch counts set
                 to 0 just before each call and read just after (one launch
                 of the call's kernel, nothing else).
+     appearance — per-target albedo and skin textures: each eye kernel's
+                albedo, texture and albedo+texture forms against their plain
+                versions at the eyes' shapes, AA off and on, and the
+                wireframe backward's albedo and texture cotangents against
+                winner_pullback (at config-5 width the texture's sum also
+                as near float64 as the plain version's); then the paths,
+                each with the launch counts set to 0 just before it and read
+                just after: Scene.observe_textured at config-5 width (4,096
+                x 256 x 64), both sprites; Scene.observe_rgb with
+                default_agent_colors at config 2, both sprites;
+                ring_render_rows(texture=) at config 2 on 4 shards of cuda:0
+                against one device; one gradient through
+                render_rows_wireframe_diff(albedo=, texture=) at config-5
+                width (antialias) with finite, nonzero d pos, d vel,
+                d albedo and d texture.
   5. times    — CUDA-event times of each kernel and its plain version,
                 alternated (plain, kernel, kernel, plain), the eyes with and
                 without their winner index, steps/s of the config-2 rollout
                 (both sprites), reference-100 (wireframe) and entry(), the
                 ring's kernels and the ring path against one device, the
                 RDMA kernels' device time (torch.profiler) beside the RDMA
-                call, the per-hop ring and one device, and seconds per training
-                iteration and agent-frames/s of each trainer.
+                call, the per-hop ring and one device, each eye kernel's
+                appearance forms against their plain versions,
+                Scene.observe_textured against observe at config-5 width,
+                and seconds per training iteration and agent-frames/s of
+                each trainer.
 The line before the last is a JSON object with one entry per kernel
 (`launches` sums the paths' counts; `bound_ms` is the larger of the
 operations over the card's fp32 peak and the bytes over its memory rate,
 for the inputs timed; `library_ms` is null: no single PyTorch call computes
-any of these functions); the last line is {"ok": true, "device": {...}}.
+any of these functions; the three eye kernels carry their appearance
+forms' times and bounds under `forms`); the last line is
+{"ok": true, "device": {...}}.
 `python3 chip_smoke.py --rdma-cards N` runs the RDMA phases alone with one
 shard on each of N cards. Imports no jax.
 """
@@ -175,6 +195,18 @@ DISC_BWD_PIXEL_OPS = 60
 # the wireframe pullback per live pixel: the 3-edge re-evaluation (about
 # 150 operations) and its reverse sweep (about twice that)
 WF_BWD_PIXEL_OPS = 450
+# the appearance per shaded pixel: the bilinear sample (about 20
+# operations; 3 times that in the pullback, as above) and the albedo's product
+TEX_SAMPLE_OPS, ALBEDO_OPS = 20, 1
+# the appearance forms, and the eyes' tolerance with a texture
+# (tests/test_texture_kernel.py: the sample's texel picks are threshold
+# tests on the winner's uv)
+FORMS = ("albedo", "texture", "albedo+texture")
+TEX_RTOL, TEX_ATOL = 1e-5, 3e-4
+# the wireframe backward's texture gradient (a sum over every pixel of
+# every env) against its plain version, normalised by its largest texel:
+# the sums run in another (atomic) order
+TEX_GRAD_BOUND = 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -747,9 +779,11 @@ RING_PAIRS = 16384  # the ring kernels' phase-3 shape: one hop at config 4 on 4 
 WITNESS_FACTOR = 2.0
 
 
-def pullback_witness(inputs, winner, us, ud, vcfg: VisionConfig, out: int, rtol, atol):
+def pullback_witness(inputs, winner, us, ud, vcfg: VisionConfig, out: int, rtol, atol,
+                     albedo=None, texture=None):
     """A witness for Errors.check of the wireframe backward's output `out`
-    (0-3: d eye pos, d eye dir, d target pos, d target heading), run on the
+    (0-4: d eye pos, d eye dir, d target pos, d target heading, d albedo;
+    the forward's appearance `albedo` and `texture`), run on the
     envs that hold an element beyond tolerance. The exact value is
     winner_pullback in float64 (the same winner index). Each element
     beyond tolerance must be within its largest per-pixel-column share
@@ -760,13 +794,14 @@ def pullback_witness(inputs, winner, us, ud, vcfg: VisionConfig, out: int, rtol,
     distance from the exact value must be within WITNESS_FACTOR times the
     plain fp32 version's: it is not the less exact side there."""
     def witness(label, bad, got, want) -> bool:
-        batched = got.dim() == 3
+        batched = inputs[0].dim() == 3
         envs = bad.flatten(1).any(1).nonzero().flatten() if batched else None
         sel = (lambda x: x[envs]) if batched else (lambda x: x)
-        ins32 = [sel(x) for x in (*inputs, us, ud)]
-        ins64 = [x.double() for x in ins32]
+        ins32 = [sel(x) for x in (*inputs, us, ud)] + [
+            None if albedo is None else sel(albedo), texture]
+        ins64 = [None if x is None else x.double() for x in ins32]
         win = sel(winner)
-        args = lambda xs: (*xs[:4], win, *xs[4:], vcfg)
+        args = lambda xs: (*xs[:4], win, *xs[4:6], vcfg, *xs[6:])
         ref = wireframe.winner_pullback(*args(ins64))[out]
         share = torch.maximum(pixel_shares(*args(ins64), out),
                               pixel_shares(*args(ins32), out).double())
@@ -790,7 +825,7 @@ def pullback_witness(inputs, winner, us, ud, vcfg: VisionConfig, out: int, rtol,
 
 
 def pixel_shares(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, vcfg: VisionConfig,
-                 out: int):
+                 albedo, texture, out: int):
     """The largest absolute per-pixel-column share of winner_pullback's
     output `out`, in the inputs' precision: the pullback with the
     cotangents of one pixel column at a time (one replica of the envs per
@@ -800,10 +835,13 @@ def pixel_shares(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, vcfg: VisionCon
     batched = eye_pos.dim() == 3
     if not batched:
         ins, winner, us, ud = [x[None] for x in ins], winner[None], us[None], ud[None]
+        albedo = None if albedo is None else albedo[None]
     one = torch.eye(w, dtype=us.dtype, device=us.device)[:, None, None, None, :]
     reps = [x.repeat(w, 1, 1) for x in ins]
+    alb = None if albedo is None else albedo.repeat(w, 1)
     col = lambda x: (x[None] * one).flatten(0, 1)
-    terms = wireframe.winner_pullback(*reps, winner.repeat(w, 1, 1), col(us), col(ud), vcfg)[out]
+    terms = wireframe.winner_pullback(*reps, winner.repeat(w, 1, 1), col(us), col(ud), vcfg, alb,
+                                      texture)[out]
     largest = terms.unflatten(0, (w, -1)).abs().amax(0)
     return largest if batched else largest[0]
 
@@ -1243,6 +1281,265 @@ def phase_rdma_times(gen, card: str, mesh4) -> dict:
     return times
 
 
+APPEARANCE = {"observe_textured": ("disc_eye", "wireframe_eye"),
+              "observe_rgb": ("disc_eye", "wireframe_eye"),
+              "ring texture": ("disc_eye", "wireframe_eye"),
+              "textured gradient": ("wireframe_eye", "wireframe_eye_bwd")}
+
+
+def appearance_of(form: str, albedo, texture):
+    """(albedo or None, texture or None) of an appearance form."""
+    return (albedo if "albedo" in form else None), (texture if "texture" in form else None)
+
+
+def phase_appearance_kernels(errors: Errors, gen) -> None:
+    """The eye kernels' appearance forms against their plain versions on the
+    card: the disc and the wireframe eye at their phase-3 shapes, AA off and
+    on, with a distinct albedo per target, with a 32 x 32 checker texture,
+    and with both (TEX_RTOL, TEX_ATOL; the depth equal to the bare kernel's:
+    appearance moves no winner). Then the wireframe backward's gradients
+    with albedo and texture against winner_pullback at config 2's shape and
+    at config-5 width, AA off and on: the positions', headings' and
+    albedo's at rtol 2e-4, atol 2e-4 of the largest (pullback_witness for
+    the few near-degenerate edges); the texture's, a sum over every pixel,
+    at config-5 width within TEX_GRAD_BOUND of its largest texel, and no
+    farther from float64 than WITNESS_FACTOR times the plain version; at
+    config 2's as the others."""
+    tex = render.checker_texture(32, 4, device="cuda")
+    for sprite, shapes in (("disc", EYE_SHAPES), ("wireframe", WF_SHAPES)):
+        name = f"{sprite}_eye"
+        for b, n, w in shapes:
+            shape = (b, n, 2) if b > 1 else (n, 2)
+            pos = uniform(gen, shape, -100, 100)
+            dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+            albedo = uniform(gen, shape[:-1], 0.3, 1.0)
+            for aa in (False, True):
+                vcfg = VisionConfig(width=w, antialias=aa, sprite_mode=sprite)
+                if sprite == "disc":
+                    kernel = lambda *a: raycast.disc_eye(pos, dirs, pos, vcfg, *a)
+                    plain = lambda *a: raycast.disc_eye_plain(pos, dirs, pos, vcfg, *a)
+                else:
+                    kernel = lambda *a: wireframe.wireframe_eye(pos, dirs, pos, dirs, vcfg, *a)
+                    plain = lambda *a: wireframe.wireframe_eye_plain(pos, dirs, pos, dirs, vcfg,
+                                                                     *a)[:2]
+                bare = kernel()[1]
+                for form in FORMS:
+                    ap = appearance_of(form, albedo, tex)
+                    (gs, gd), (ws, wd) = kernel(*ap), plain(*ap)
+                    label = f"{name} {form} B={b} N={n} W={w} aa={aa}"
+                    expect(torch.equal(gd, bare), f"{label}: the depth of the bare kernel")
+                    errors.check(name, label + " depth", gd, wd, TEX_RTOL, TEX_ATOL)
+                    errors.check(name, label + " shade", gs, ws, TEX_RTOL, TEX_ATOL)
+
+    for b, n, w in ((1, 1024, 64), (TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)):
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        pos = uniform(gen, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        albedo = uniform(gen, shape[:-1], 0.3, 1.0)
+        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
+        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-2
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            ins = (pos, dirs, pos, dirs)
+            _, _, winner = wireframe.wireframe_eye_with_winner(*ins, vcfg, albedo, tex)
+            got = wireframe.wireframe_eye_vjp(*ins, winner, us, ud, vcfg, albedo, tex)
+            want = wireframe.winner_pullback(*ins, winner, us, ud, vcfg, albedo, tex)
+            label = f"wireframe_eye_bwd albedo+texture B={b} N={n} W={w} aa={aa}"
+            for i, out in enumerate(("d_eye", "d_dir", "d_tgt", "d_hdg", "d_albedo")):
+                atol = 2e-4 * want[i].abs().max().item()
+                errors.check("wireframe_eye_bwd", f"{label} {out}", got[i], want[i], 2e-4, atol,
+                             witness=pullback_witness(ins, winner, us, ud, vcfg, i, 2e-4, atol,
+                                                      albedo, tex))
+            if b == 1:
+                errors.check("wireframe_eye_bwd", f"{label} d_texture", got[5], want[5], 2e-4,
+                             2e-4 * want[5].abs().max().item())
+                continue
+            errors.check_scaled("wireframe_eye_bwd", f"{label} d_texture", got[5], want[5],
+                                TEX_GRAD_BOUND)
+            # float64 takes another branch at a few pixels (a hit, a winning
+            # edge), each worth a whole pixel's share: the kernel must be no
+            # farther from it than WITNESS_FACTOR times the plain version
+            want64 = wireframe.winner_pullback(*(x.double() for x in ins), winner, us.double(),
+                                               ud.double(), vcfg, albedo.double(),
+                                               tex.double())[5]
+            k_err, p_err = ((x.double() - want64).abs().max().item() for x in (got[5], want[5]))
+            log("appearance", f"{label} d_texture vs float64: kernel max_abs_err {k_err:.3e}, "
+                f"plain fp32 {p_err:.3e} (bound {WITNESS_FACTOR} x the plain's), "
+                f"max|grad| {want64.abs().max().item():.3e}")
+            expect(k_err <= WITNESS_FACTOR * p_err, f"{label} d_texture: as near float64 as "
+                   f"the plain version")
+
+
+def phase_appearance(errors: Errors, card: str) -> dict:
+    """The appearance paths at full width through the user's entry points
+    (module docstring), each with the launch counts set to 0 just before it
+    and read just after; each output held against its plain version or one
+    device. Returns the summed launch counts."""
+    cuda = torch.device("cuda", 0)
+    counts = {part: dict.fromkeys(KERNEL_INFO, 0) for part in APPEARANCE}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tex = render.checker_texture(32, 4, device="cuda")
+    t0 = time.perf_counter()
+
+    def counted(part: str, fn):
+        common.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in common.launch_counts().items():
+            counts[part][k] += v
+        return out
+
+    cfg5, cfg2 = PRESETS["envs-4096x256"](), PRESETS["gravity-vision-1024"]()
+    with torch.no_grad():
+        for sprite in ("disc", "wireframe"):
+            scene = Scene(cfg5 if sprite == "disc" else wf_cfg(cfg5), device="cuda")
+            st = scene.spawn_envs(TRAIN_ENVS, seed=0)
+            obs = counted("observe_textured", lambda: scene.observe_textured(st, tex))
+            finite_cuda(f"observe_textured {sprite}", obs)
+            expect(obs.shape == (TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH),
+                   f"observe_textured {sprite} [4096, 256, 64]")
+            bare = scene.observe(st)
+            changed = (obs != bare).double().mean().item()
+            log("appearance", f"observe_textured {sprite} at config-5 width: {changed:.3f} of the "
+                f"pixels differ from observe's")
+            expect(changed > 0.01, f"observe_textured {sprite}: the skin shows")
+            part = slice(0, 64)
+            dirs = camera.unit_heading(st.vel[part])
+            plain = (wireframe.wireframe_eye_plain(st.pos[part], dirs, st.pos[part], dirs,
+                                                   scene.cfg.vision, None, tex)
+                     if sprite == "wireframe" else
+                     raycast.disc_eye_plain(st.pos[part], dirs, st.pos[part], scene.cfg.vision,
+                                            None, tex))
+            errors.check(f"{sprite}_eye", f"observe_textured {sprite} envs[0:64] vs the plain "
+                         f"version", obs[part], plain[0], TEX_RTOL, TEX_ATOL)
+
+        colors = render.default_agent_colors(cfg2.n, device="cuda")
+        for sprite in ("disc", "wireframe"):
+            scene = Scene(cfg2 if sprite == "disc" else wf_cfg(cfg2), device="cuda")
+            st = scene.spawn(0)
+            rgb = counted("observe_rgb", lambda: scene.observe_rgb(st, colors))
+            finite_cuda(f"observe_rgb {sprite}", rgb)
+            expect(rgb.shape == (cfg2.n, cfg2.vision.width, 3), f"observe_rgb {sprite} [1024, 64, 3]")
+            want = render.render_rows_rgb(st.pos, st.vel, scene.cfg.vision, colors, backend="dense")
+            errors.check(f"{sprite}_eye", f"observe_rgb {sprite} config 2 vs the plain version",
+                         rgb, want, 1e-5, 2e-4)
+
+        mesh4 = make_mesh({"agents": 4}, devices=[cuda] * 4)
+        st = Scene(cfg2, device="cuda").spawn(0)
+        for sprite in ("disc", "wireframe"):
+            vcfg = dataclasses.replace(cfg2.vision, sprite_mode=sprite)
+            one = (wireframe.render_rows_wireframe_tiled(st.pos, st.vel, vcfg, texture=tex)
+                   if sprite == "wireframe" else
+                   raycast.render_rows_tiled(st.pos, st.vel, vcfg, texture=tex))
+            got = counted("ring texture", lambda: ring.ring_render_rows(st.pos, st.vel, vcfg,
+                                                                        mesh=mesh4, texture=tex))
+            hold_rows(f"ring_render_rows(texture=) {sprite} config 2 (4 shards)", got, one, vcfg)
+
+    vcfg = VisionConfig(width=TRAIN_WIDTH, antialias=True, sprite_mode="wireframe")
+    st = Scene(wf_cfg(cfg5, antialias=True), device="cuda").spawn_envs(TRAIN_ENVS, seed=1)
+    leaves = [st.pos.clone().requires_grad_(), st.vel.clone().requires_grad_(),
+              uniform(gen, (TRAIN_ENVS, TRAIN_AGENTS), 0.3, 1.0).requires_grad_(),
+              tex.clone().requires_grad_()]
+
+    def textured_gradient():
+        shade, depth = wireframe.render_rows_wireframe_diff(*leaves[:2], vcfg, *leaves[2:])
+        ((shade - vcfg.background).mean() + 1e-4 * depth.mean()).backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    counted("textured gradient", textured_gradient)
+    for x, name in zip(leaves, ("pos", "vel", "albedo", "texture")):
+        g = x.grad
+        finite_cuda(f"textured gradient d {name}", g)
+        expect(g.abs().max().item() > 0, f"textured gradient: nonzero d {name}")
+        log("appearance", f"textured gradient at config-5 width (AA): max|d {name}| "
+            f"{g.abs().max().item():.6e}, |d {name}| {g.norm().item():.6e}")
+    log("appearance", f"the appearance paths ran in {time.perf_counter() - t0:.2f} s; peak "
+        f"device memory of the gradient {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        f"[{card}]")
+    for part, needed in APPEARANCE.items():
+        log("appearance", f"{part} launches { {k: v for k, v in counts[part].items() if v} }")
+        missing = [k for k in needed if counts[part][k] == 0]
+        if missing:
+            raise AssertionError(f"the appearance path {part} never launched {missing}")
+    return {k: sum(c[k] for c in counts.values()) for k in KERNEL_INFO}
+
+
+def phase_appearance_times(gen, card: str) -> dict:
+    """CUDA-event times of each eye kernel's appearance forms against their
+    plain versions, with their bounds (the bare eye's work, plus per shaded
+    pixel the albedo's product and the sample's operations, plus the albedo
+    and texture bytes): the eyes at config 2 (N=1,024, W=64, AA off, the
+    kernels line's shape), the wireframe backward at config-5 width with
+    antialias; then Scene.observe_textured at config-5 width against
+    observe. Returns forms[kernel][form] = {ms, plain_ms, bound_ms,
+    bound_by}."""
+    forms = {name: {} for name in ("disc_eye", "wireframe_eye", "wireframe_eye_bwd")}
+    tex = render.checker_texture(32, 4, device="cuda")
+    n_e, w = 1024, 64
+    epos = uniform(gen, (n_e, 2), -100, 100)
+    dirs = camera.unit_heading(uniform(gen, (n_e, 2), -1, 1))
+    albedo = uniform(gen, (n_e,), 0.3, 1.0)
+    for sprite in ("disc", "wireframe"):
+        vcfg = VisionConfig(width=w, sprite_mode=sprite)
+        name = f"{sprite}_eye"
+        if sprite == "disc":
+            kernel = lambda *a: raycast.disc_eye(epos, dirs, epos, vcfg, *a)
+            plain = lambda *a: raycast.disc_eye_plain(epos, dirs, epos, vcfg, *a)
+            ops = n_e * n_e * DISC_PAIR_OPS + disc_covered(epos, dirs, vcfg) * DISC_PIXEL_OPS
+        else:
+            kernel = lambda *a: wireframe.wireframe_eye(epos, dirs, epos, dirs, vcfg, *a)
+            plain = lambda *a: wireframe.wireframe_eye_plain(epos, dirs, epos, dirs, vcfg, *a)
+            ops = (n_e * n_e * WF_PAIR_OPS
+                   + wireframe_covered(epos, dirs, vcfg) * 3 * WF_EDGE_OPS)
+        hits = int((kernel()[1] < vcfg.far).sum())
+        for form in FORMS:
+            alb, t = appearance_of(form, albedo, tex)
+            p_ms, k_ms = alternate(lambda: plain(alb, t), lambda: kernel(alb, t), 2, 10)
+            b = bound(ops + hits * ((ALBEDO_OPS if alb is not None else 0)
+                                    + (TEX_SAMPLE_OPS if t is not None else 0)),
+                      nbytes(epos, dirs, *[x for x in (alb, t) if x is not None])
+                      + 2 * n_e * w * 4)
+            forms[name][form] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1])
+            log("times", f"{name} {form} N={n_e} W={w}: kernel {k_ms:.3f} ms; plain {p_ms:.3f} ms; "
+                f"bound {b[0]:.4g} ms ({b[1]}) [{card}]")
+
+    shape = (TRAIN_ENVS, TRAIN_AGENTS, 2)
+    epos = uniform(gen, shape, -100, 100)
+    dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+    albedo = uniform(gen, shape[:-1], 0.3, 1.0)
+    us = torch.randn(shape[:-1] + (TRAIN_WIDTH,), generator=gen, device="cuda")
+    ud = torch.randn(shape[:-1] + (TRAIN_WIDTH,), generator=gen, device="cuda") * 1e-2
+    vcfg = VisionConfig(width=TRAIN_WIDTH, antialias=True, sprite_mode="wireframe")
+    ins = (epos, dirs, epos, dirs)
+    _, _, winner = wireframe.wireframe_eye_with_winner(*ins, vcfg)
+    live = int((winner >= 0).sum())
+    for form in FORMS:
+        alb, t = appearance_of(form, albedo, tex)
+        p_ms, k_ms = alternate(
+            lambda: wireframe.winner_pullback(*ins, winner, us, ud, vcfg, alb, t),
+            lambda: wireframe.wireframe_eye_vjp(*ins, winner, us, ud, vcfg, alb, t), 1, 10)
+        b = bound(live * (WF_BWD_PIXEL_OPS + (3 * ALBEDO_OPS if alb is not None else 0)
+                          + (3 * TEX_SAMPLE_OPS if t is not None else 0)),
+                  nbytes(epos, dirs, winner, us, ud) + 4 * nbytes(epos)
+                  + 2 * nbytes(*[x for x in (alb, t) if x is not None]))
+        forms["wireframe_eye_bwd"][form] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
+                                                bound_by=b[1])
+        log("times", f"wireframe_eye_bwd {form} {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH} "
+            f"aa=True ({live} live pixels): kernel {k_ms:.3f} ms; plain (winner_pullback) "
+            f"{p_ms:.3f} ms; bound {b[0]:.4g} ms ({b[1]}) [{card}]")
+
+    cfg5 = PRESETS["envs-4096x256"]()
+    for sprite in ("disc", "wireframe"):
+        scene = Scene(cfg5 if sprite == "disc" else wf_cfg(cfg5), device="cuda")
+        st = scene.spawn_envs(TRAIN_ENVS, seed=0)
+        bare, textured = alternate(lambda: scene.observe(st),
+                                   lambda: scene.observe_textured(st, tex), 3, 3)
+        log("times", f"Scene.observe_textured {sprite} at config-5 width ({TRAIN_ENVS} x "
+            f"{TRAIN_AGENTS} x {TRAIN_WIDTH}, 32 x 32 texture): {textured:.3f} ms; observe "
+            f"{bare:.3f} ms ({textured / bare - 1:+.2%}) [{card}]")
+    return forms
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1611,11 +1908,15 @@ def main() -> None:
     wf_runs, wf_training = phase_wireframe_train()
     ring_counts, ring_runs = phase_ring(smi)
     rdma_counts = phase_rdma(errors, smi, rdma_mesh(1))
-    paths += [training, wf_training, ring_counts, rdma_counts]
+    with torch.no_grad():
+        phase_appearance_kernels(errors, gen)
+    appearance_counts = phase_appearance(errors, smi)
+    paths += [training, wf_training, ring_counts, rdma_counts, appearance_counts]
     with torch.no_grad():
         times = phase_times(gen, smi)
         times.update(phase_ring_times(gen, smi))
         times.update(phase_rdma_times(gen, smi, rdma_mesh(1)))
+        forms = phase_appearance_times(gen, smi)
     log_train_times(runs, smi)
     log_train_times(wf_runs, smi, prefix="wireframe ")
     log_train_times(ring_runs, smi, prefix="ring ")
@@ -1628,6 +1929,8 @@ def main() -> None:
                         "launches": sum(counts[name] for counts in paths),
                         "max_abs_err": errors.max_abs[name], "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        if name in forms:
+            kernels[-1]["forms"] = forms[name]
     print_result(kernels, smi, kind)
 
 

@@ -17,6 +17,15 @@
 // the rule of the plain version's argmin. The epilogue shades the winner with
 // the squared-radial vignette and, with antialias, box-filters its edge
 // coverage against the background (raycast.py::_decode_winner's outputs).
+// Appearance (the Pallas kernels' has_alb and raw forms): with a per-target
+// albedo [B, Nt] the epilogue reads the winner's own albedo in place of the
+// scalar; with a texture it samples the skin at the winner's splat uv
+// (0.5 + 0.5 oc, 0.5), before the vignette and the antialias blend. The TPU
+// kernels write the winner's raw streams (signed offset, 1/du, albedo) to
+// device memory for an XLA epilogue to decode (raycast.py::_decode_textured),
+// because Mosaic does not gather; here the one sample per pixel runs in the
+// kernel's own epilogue, from a texture staged in shared memory
+// (texture.cuh), so no raw stream is written.
 // When the wrapper passes a winner buffer (autograd needs the pixel), the
 // kernel also writes each pixel's winning target index (-1 for background):
 // the residual of the backward kernel, disc_eye_bwd.cu.
@@ -35,6 +44,7 @@
 #include <math.h>
 
 #include "pair_math.cuh"
+#include "texture.cuh"
 
 namespace {
 
@@ -54,9 +64,12 @@ struct EyeParams {
 
 __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
                                 const float2* __restrict__ eye_dir,
-                                const float2* __restrict__ tgt, float* __restrict__ shade,
+                                const float2* __restrict__ tgt,
+                                const float* __restrict__ albedo,
+                                const float* __restrict__ texture, float* __restrict__ shade,
                                 float* __restrict__ depth, int* __restrict__ winner, int ne,
-                                int nt, int w, EyeParams q) {
+                                int nt, int w, int ht, int wt, EyeParams q) {
+  extern __shared__ float s_tex[];  // the staged texture (texture.cuh)
   __shared__ float s_f[THREADS];
   __shared__ float s_uc[THREADS];
   __shared__ float s_du[THREADS];
@@ -74,6 +87,8 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
   }
   const float2* tb = tgt + (long long)b * nt;
   const float u_p = 2.0f * ((float)p + 0.5f) / (float)w - 1.0f;
+  bool staged;
+  const float* tex = stage_texture(texture, ht * wt, s_tex, staged);
 
   float best_d = INFINITY, best_off = 0.f, best_du = 1.f;
   int best_j = -1;
@@ -119,7 +134,12 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
     if (winner) winner[o] = best_j;
     if (best_d < INFINITY) {
       const float oc = fminf(fmaxf(best_off, -1.0f), 1.0f);
-      float val = q.albedo * (1.0f - 0.25f * oc * oc);
+      float alb = albedo ? albedo[(long long)b * nt + best_j] : q.albedo;
+      if (tex) {
+        Tap tap;
+        alb = alb * sample_texture(tex, staged, ht, wt, 0.5f + 0.5f * oc, 0.5f, tap);
+      }
+      float val = alb * (1.0f - 0.25f * oc * oc);
       if (q.antialias) {
         const float s_win = q.half_width * best_du;
         const float covf = fminf(fmaxf((1.0f - fabsf(best_off)) * s_win + 0.5f, 0.0f), 1.0f);
@@ -136,26 +156,29 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
 
 }  // namespace
 
-// eye_pos, eye_dir [B, Ne, 2]; tgt [B, Nt, 2]; shade, depth [B, Ne, W]; all
-// fp32, contiguous; winner [B, Ne, W] int32, or null to skip it. Returns
+// eye_pos, eye_dir [B, Ne, 2]; tgt [B, Nt, 2]; albedo [B, Nt], or null for
+// the scalar; texture [ht, wt], or null for none; shade, depth [B, Ne, W];
+// all fp32, contiguous; winner [B, Ne, W] int32, or null to skip it. Returns
 // cudaGetLastError() after the launch.
 extern "C" int nbt_disc_eye(const void* eye_pos, const void* eye_dir, const void* tgt,
-                            void* shade, void* depth, void* winner, int batch, int ne, int nt,
-                            int w,
+                            const void* albedo, const void* texture, void* shade, void* depth,
+                            void* winner, int batch, int ne, int nt, int w, int ht, int wt,
                             float tan_half_fov, float near_plane, float far_plane, float radius,
-                            float inv_width, float half_width, float background, float albedo,
-                            int antialias, void* stream) {
+                            float inv_width, float half_width, float background,
+                            float albedo_scalar, int antialias, void* stream) {
   if (batch > 0 && ne > 0 && w > 0) {
     const int pb = w <= 32 ? 32 : (w <= 64 ? 64 : 128);
     const int eg = THREADS / pb;
     dim3 block(pb, eg);
     dim3 grid((ne + eg - 1) / eg, (w + pb - 1) / pb, batch);
     EyeParams q{tan_half_fov, near_plane, far_plane, radius, inv_width,
-                half_width,   background, albedo,    antialias};
-    disc_eye_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+                half_width,   background, albedo_scalar, antialias};
+    disc_eye_kernel<<<grid, block, staged_bytes(texture, ht * wt),
+                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(eye_pos), static_cast<const float2*>(eye_dir),
-        static_cast<const float2*>(tgt), static_cast<float*>(shade), static_cast<float*>(depth),
-        static_cast<int*>(winner), ne, nt, w, q);
+        static_cast<const float2*>(tgt), static_cast<const float*>(albedo),
+        static_cast<const float*>(texture), static_cast<float*>(shade),
+        static_cast<float*>(depth), static_cast<int*>(winner), ne, nt, w, ht, wt, q);
   }
   return static_cast<int>(cudaGetLastError());
 }

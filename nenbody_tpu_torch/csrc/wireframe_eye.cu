@@ -33,6 +33,15 @@
 // each pixel's winning target (-1 for background), the residual of the
 // pullback (ops/wireframe.py, winner_pullback).
 //
+// Appearance (the Pallas kernels' has_alb and raw forms): a per-target albedo
+// [B, Nt] replaces the scalar with the winner's own; a texture is sampled at
+// the winning edge's interpolated uv, before the vignette 1 - |uv - 0.5|^2
+// and before the coverage blend (wireframe.py::_decode_textured_wf's
+// semantics). The TPU kernels write the winner's uv (and albedo and coverage)
+// as raw streams for an XLA epilogue; this kernel samples in its own
+// epilogue, once per pixel, from a texture staged in shared memory
+// (texture.cuh).
+//
 // What bounds it: the (pixel, target, edge) tests, N_e * N_t * W * 3 of
 // them, with an fp32 divide each on the TPU routes. Design: a block owns EG
 // eyes x PB pixels of one env (blockIdx.z). For each tile of PB targets,
@@ -51,6 +60,7 @@
 // wireframe_common.cuh, which the pullback (wireframe_eye_bwd.cu) evaluates
 // on dual numbers.
 
+#include "texture.cuh"
 #include "wireframe_common.cuh"
 
 namespace {
@@ -69,8 +79,11 @@ __device__ __forceinline__ float4 slab_tile(float fa, float la, float df, float 
 __global__ void __launch_bounds__(THREADS)
 wireframe_eye_kernel(const float2* __restrict__ eye_pos, const float2* __restrict__ eye_dir,
                      const float2* __restrict__ tgt, const float2* __restrict__ hdg,
+                     const float* __restrict__ albedo, const float* __restrict__ texture,
                      float* __restrict__ shade, float* __restrict__ depth,
-                     int* __restrict__ winner, int ne, int nt, int w, WireframeParams q) {
+                     int* __restrict__ winner, int ne, int nt, int w, int ht, int wt,
+                     WireframeParams q) {
+  extern __shared__ float s_tex[];       // the staged texture (texture.cuh)
   __shared__ float4 s_geo[3][THREADS];   // per edge (f_a, l_a, df, dl)
   __shared__ float4 s_slab[3][THREADS];  // per edge (tau_lo, tau_hi, lo, hi), antialias
   __shared__ float2 s_span[THREADS];     // the sprite's union u-interval, antialias
@@ -93,6 +106,8 @@ wireframe_eye_kernel(const float2* __restrict__ eye_pos, const float2* __restric
   const float ut = u_p * q.tan_half_fov;
   const float u_lo = u_p - q.hp;
   const float u_hi = u_p + q.hp;
+  bool staged;
+  const float* tex = stage_texture(texture, ht * wt, s_tex, staged);
 
   float best_d = INFINITY, best_tau = 0.f, best_lo = 0.f, best_hi = 0.f;
   int best_e = 0, best_j = -1;
@@ -178,9 +193,16 @@ wireframe_eye_kernel(const float2* __restrict__ eye_pos, const float2* __restric
     const long long o = ((long long)b * ne + e) * w + p;
     if (winner) winner[o] = best_j;
     if (best_j >= 0) {
-      const float ux = (c_uv[best_e][0] + best_tau * c_uv[best_e][2]) - 0.5f;
-      const float uy = (c_uv[best_e][1] + best_tau * c_uv[best_e][3]) - 0.5f;
-      float val = q.albedo * (1.0f - (ux * ux + uy * uy));
+      const float uvx = c_uv[best_e][0] + best_tau * c_uv[best_e][2];
+      const float uvy = c_uv[best_e][1] + best_tau * c_uv[best_e][3];
+      float alb = albedo ? albedo[(long long)b * nt + best_j] : q.albedo;
+      if (tex) {
+        Tap tap;
+        alb = alb * sample_texture(tex, staged, ht, wt, uvx, uvy, tap);
+      }
+      const float ux = uvx - 0.5f;
+      const float uy = uvy - 0.5f;
+      float val = alb * (1.0f - (ux * ux + uy * uy));
       if (aa) {
         const float cov =
             fminf(fmaxf((fminf(best_hi, u_hi) - fmaxf(best_lo, u_lo)) / q.two_hp, 0.0f), 1.0f);
@@ -197,27 +219,31 @@ wireframe_eye_kernel(const float2* __restrict__ eye_pos, const float2* __restric
 
 }  // namespace
 
-// eye_pos, eye_dir [B, Ne, 2]; tgt, hdg [B, Nt, 2] (unit headings); shade,
+// eye_pos, eye_dir [B, Ne, 2]; tgt, hdg [B, Nt, 2] (unit headings); albedo
+// [B, Nt], or null for the scalar; texture [ht, wt], or null for none; shade,
 // depth [B, Ne, W]; all fp32, contiguous; winner [B, Ne, W] int32, or null
 // to skip it. Returns cudaGetLastError() after the launch.
 extern "C" int nbt_wireframe_eye(const void* eye_pos, const void* eye_dir, const void* tgt,
-                                 const void* hdg, void* shade, void* depth, void* winner,
-                                 int batch, int ne, int nt, int w, float tan_half_fov,
+                                 const void* hdg, const void* albedo, const void* texture,
+                                 void* shade, void* depth, void* winner, int batch, int ne,
+                                 int nt, int w, int ht, int wt, float tan_half_fov,
                                  float near_plane, float far_plane, float radius, float hp,
-                                 float two_hp, float background, float albedo, int antialias,
-                                 void* stream) {
+                                 float two_hp, float background, float albedo_scalar,
+                                 int antialias, void* stream) {
   if (batch > 0 && ne > 0 && w > 0) {
     const int pb = w <= 32 ? 32 : (w <= 64 ? 64 : 128);
     const int eg = THREADS / pb;
     dim3 block(pb, eg);
     dim3 grid((ne + eg - 1) / eg, (w + pb - 1) / pb, batch);
     WireframeParams q{tan_half_fov, near_plane, far_plane, radius,    hp,
-                      two_hp,       background, albedo,    antialias};
-    wireframe_eye_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+                      two_hp,       background, albedo_scalar, antialias};
+    wireframe_eye_kernel<<<grid, block, staged_bytes(texture, ht * wt),
+                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(eye_pos), static_cast<const float2*>(eye_dir),
         static_cast<const float2*>(tgt), static_cast<const float2*>(hdg),
+        static_cast<const float*>(albedo), static_cast<const float*>(texture),
         static_cast<float*>(shade), static_cast<float*>(depth), static_cast<int*>(winner), ne,
-        nt, w, q);
+        nt, w, ht, wt, q);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,18 +55,18 @@ _F = ctypes.c_float
 SIGNATURES = {
     "nbt_gravity_forces": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
     "nbt_boids_velocity": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
-    "nbt_disc_eye": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "nbt_disc_eye": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "nbt_gravity_vjp": [_P, _P, _P, _I, _I, _F, _F, _P],
     "nbt_disc_eye_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
-    "nbt_wireframe_eye": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "nbt_wireframe_eye": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "nbt_boids_partials": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _F, _F, _F, _I, _P],
     "nbt_gravity_vjp_cross": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
-    "nbt_wireframe_eye_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    "nbt_wireframe_eye_bwd": [_P] * 15 + [_I, _I, _I, _I, _I, _I,
+                                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     # the RDMA ring (csrc/rdma_ring.cu): shard table, local shards, their
     # count, shards, blocks per shard, envs, rows per env, then each kernel's own
     "nbt_rdma_gravity": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -235,10 +235,11 @@ def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def use_kernel(*tensors: torch.Tensor) -> bool:
+def use_kernel(*tensors: torch.Tensor | None) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors (run
-    the plain version); raise for any other device or a device mix."""
-    devices = {t.device.type for t in tensors}
+    the plain version); raise for any other device or a device mix. None
+    (an optional input left out) is skipped."""
+    devices = {t.device.type for t in tensors if t is not None}
     if devices == {"cpu"}:
         return False
     if devices == {"cuda"}:
@@ -258,6 +259,28 @@ def check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: needs contiguous tensors")
         if t.shape[-1] != 2:
             raise ValueError(f"{name}: needs [..., N, 2] tensors, got {tuple(t.shape)}")
+
+
+def appearance_args(name: str, tgt: torch.Tensor, albedo: torch.Tensor | None,
+                    texture: torch.Tensor | None):
+    """The eye kernels' appearance arguments, checked: (albedo pointer,
+    texture pointer, Ht, Wt), a null pointer for each one left out. albedo
+    has one float32 per target ([..., M] against targets [..., M, 2]),
+    texture is a float32 [Ht, Wt]; both contiguous on the targets'
+    device."""
+    for label, t in (("albedo", albedo), ("texture", texture)):
+        if t is None:
+            continue
+        if t.device != tgt.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous float32 on {tgt.device}")
+    if albedo is not None and albedo.shape != tgt.shape[:-1]:
+        raise ValueError(f"{name}: albedo {tuple(albedo.shape)} must be one per target "
+                         f"{tuple(tgt.shape[:-1])}")
+    if texture is not None and (texture.dim() != 2 or texture.numel() == 0):
+        raise ValueError(f"{name}: texture must be [Ht, Wt], got {tuple(texture.shape)}")
+    ht, wt = texture.shape if texture is not None else (0, 0)
+    return (None if albedo is None else albedo.data_ptr(),
+            None if texture is None else texture.data_ptr(), ht, wt)
 
 
 def check_pullback_args(name: str, shape, device, winner, us, ud) -> None:

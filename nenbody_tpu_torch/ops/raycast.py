@@ -19,8 +19,14 @@ the kernel's header). `disc_eye` and `render_rows_tiled` route through the
 Function when an input requires grad; the plain backward is autograd
 through the plain renderer, chunk by chunk over eyes.
 
-Per-agent albedo and the texture's raw winner mode are not ported yet
-(ROADMAP queue 1 item 8).
+Appearance: `albedo` (one per target) and `texture` ([Ht, Wt], shared by
+every env) cover the Pallas kernels' `has_alb` and `raw` forms. The JAX
+package's raw form writes the winner's signed offset, 1/du and albedo for
+an XLA epilogue to sample the texture (raycast.py:382); disc_eye.cu reads
+the winner's albedo and samples the texture in its own epilogue, so no raw
+stream exists here. The JAX package has no gradient of a disc with albedo
+or texture, and neither has the port: such a render raises when an input
+requires grad.
 """
 
 from __future__ import annotations
@@ -32,12 +38,14 @@ import torch
 from ..config import VisionConfig
 from ..vision import camera, render
 from .common import (
-    KERNELS, check_batch, check_kernel_args, check_pullback_args, flat_batch, needs_grad,
-    stream_handle, use_kernel,
+    KERNELS, appearance_args, check_batch, check_kernel_args, check_pullback_args, flat_batch,
+    needs_grad, stream_handle, use_kernel,
 )
 
-# The plain version: the dense renderer, chunked over eyes.
-disc_eye_plain = render.render_eyes
+
+def disc_eye_plain(eye_pos, eye_dir, tgt, cfg: VisionConfig, albedo=None, texture=None):
+    """The kernel's plain version: the dense renderer, chunked over eyes."""
+    return render.render_eyes(eye_pos, eye_dir, tgt, cfg, albedo=albedo, texture=texture)
 
 
 def _check_disc(cfg: VisionConfig) -> None:
@@ -62,10 +70,12 @@ def _check_eye_shapes(name, eye_pos, eye_dir, tgt):
         )
 
 
-def _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg: VisionConfig, with_winner: bool = False):
+def _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg: VisionConfig, with_winner: bool = False,
+                   albedo=None, texture=None):
     """(shade, depth, winner) from the kernel; winner [..., N_e, W] int32 is
     None unless asked for."""
     _check_eye_shapes("disc_eye", eye_pos, eye_dir, tgt)
+    skin = appearance_args("disc_eye", tgt, albedo, texture)
     ep, ed, tp = flat_batch(eye_pos), flat_batch(eye_dir), flat_batch(tgt)
     batch, ne, nt, w = ep.shape[0], ep.shape[1], tp.shape[1], cfg.width
     check_batch("disc_eye", batch)
@@ -75,9 +85,9 @@ def _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg: VisionConfig, with_winner: bool =
     winner = (torch.empty(shape, dtype=torch.int32, device=eye_pos.device)
               if with_winner else None)
     KERNELS["disc_eye"].launch(
-        ep.data_ptr(), ed.data_ptr(), tp.data_ptr(), shade.data_ptr(),
+        ep.data_ptr(), ed.data_ptr(), tp.data_ptr(), *skin[:2], shade.data_ptr(),
         depth.data_ptr(), None if winner is None else winner.data_ptr(),
-        batch, ne, nt, w, *_eye_args(cfg), stream_handle(),
+        batch, ne, nt, w, *skin[2:], *_eye_args(cfg), stream_handle(),
     )
     return shade, depth, winner
 
@@ -96,16 +106,25 @@ def disc_eye(
     eye_dir: torch.Tensor,
     tgt: torch.Tensor,
     cfg: VisionConfig,
+    albedo: torch.Tensor | None = None,
+    texture: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(shade, depth) [..., N_e, W] of eyes at eye_pos with unit headings
-    eye_dir [..., N_e, 2] against targets [..., N_t, 2]: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors; through RenderRowsDiff
-    when autograd needs the render."""
-    if needs_grad(eye_pos, eye_dir, tgt):
+    eye_dir [..., N_e, 2] against targets [..., N_t, 2], with a per-target
+    `albedo` [..., N_t] and a `texture` [Ht, Wt] if given: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors; through
+    RenderRowsDiff when autograd needs the render (which raises with albedo
+    or texture: the disc has no textured gradient, as in the JAX
+    package)."""
+    if needs_grad(eye_pos, eye_dir, tgt, albedo, texture):
+        if albedo is not None or texture is not None:
+            raise NotImplementedError(
+                "the disc eye has no gradient with albedo or texture (nor has the JAX "
+                "package); use sprite_mode='wireframe' for a textured gradient")
         return RenderRowsDiff.apply(eye_pos, eye_dir, tgt, cfg)
-    if use_kernel(eye_pos, eye_dir, tgt):
-        return _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg)[:2]
-    return disc_eye_plain(eye_pos, eye_dir, tgt, cfg)
+    if use_kernel(eye_pos, eye_dir, tgt, albedo, texture):
+        return _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg, albedo=albedo, texture=texture)[:2]
+    return disc_eye_plain(eye_pos, eye_dir, tgt, cfg, albedo, texture)
 
 
 def render_rows_tiled(
@@ -113,17 +132,21 @@ def render_rows_tiled(
     vel: torch.Tensor,
     cfg: VisionConfig,
     targets: torch.Tensor | None = None,
+    albedo: torch.Tensor | None = None,
+    texture: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel counterpart of vision.render.render_rows.
 
     pos, vel: [..., N, 2] -> (shade [..., N, W], depth [..., N, W]).
     `targets` [..., M, 2] renders the eyes against another position set;
-    partial rows depth-merge with vision.render.merge_rows. Differentiable
-    (through RenderRowsDiff) when an input requires grad.
+    partial rows depth-merge with vision.render.merge_rows. `albedo`
+    [..., M] and `texture` [Ht, Wt] as in disc_eye. Differentiable
+    (through RenderRowsDiff) when an input requires grad, without albedo
+    and texture.
     """
     _check_disc(cfg)
     tgt = pos if targets is None else targets
-    return disc_eye(pos, camera.unit_heading(vel), tgt, cfg)
+    return disc_eye(pos, camera.unit_heading(vel), tgt, cfg, albedo, texture)
 
 
 def render_rows_vjp_cross_plain(

@@ -165,27 +165,38 @@ def ring_boids_velocity(
 # -- vision -------------------------------------------------------------------
 
 
-def _render_ring(pos, vel, vcfg: VisionConfig, mesh: Mesh, axis: str, data_axis, diff: bool):
+def _render_ring(pos, vel, vcfg: VisionConfig, mesh: Mesh, axis: str, data_axis, diff: bool,
+                 texture: Optional[torch.Tensor] = None):
     """The eye ring: each shard's eyes against the circulating target
     block, depth-merged hop by hop. Disc sprites circulate positions;
     wireframe sprites also their unit headings (they turn to them; the same
     values as the JAX ring's circulating velocities give, since the heading
     is elementwise). `diff` applies the eyes' autograd Functions whatever
-    grad mode says."""
+    grad mode says. A texture is replicated: each hop samples its copy on
+    the shard's device, and a pixel's merged shade is the one hop's that
+    won it."""
     _check_divisible(pos, mesh, data_axis)
     n = pos.shape[-2]
     (pos, vel), _ = _pad_agents([pos, vel], n, mesh.shape[axis])
     dirs = camera.unit_heading(vel)
     wf = vcfg.sprite_mode == "wireframe"
 
+    copies = {}  # the replicated texture, one copy per device
+
     def partial(eye_pos, eye_dir, circ):
+        tex = None
+        if texture is not None:
+            tex = copies.setdefault(eye_pos.device, texture.to(eye_pos.device))
         if wf:
             if diff:
-                return wireframe.RenderRowsWireframeDiff.apply(eye_pos, eye_dir, *circ, vcfg)
-            return wireframe.wireframe_eye(eye_pos, eye_dir, circ[0], circ[1], vcfg)
+                return wireframe.RenderRowsWireframeDiff.apply(eye_pos, eye_dir, *circ, vcfg, None,
+                                                               tex)
+            return wireframe.wireframe_eye(eye_pos, eye_dir, circ[0], circ[1], vcfg, texture=tex)
         if diff:
+            if tex is not None:
+                raise NotImplementedError("the disc eye has no gradient with a texture")
             return raycast.RenderRowsDiff.apply(eye_pos, eye_dir, circ[0], vcfg)
-        return raycast.disc_eye(eye_pos, eye_dir, circ[0], vcfg)
+        return raycast.disc_eye(eye_pos, eye_dir, circ[0], vcfg, texture=tex)
 
     def hop(k, mine, circ, acc):
         part = partial(mine[0], mine[1], circ)
@@ -202,13 +213,17 @@ def ring_render_rows(
     mesh: Optional[Mesh] = None,
     axis: str = AGENT_AXIS,
     data_axis: Optional[str] = None,
+    texture: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(shade, depth) [(B,) N, W] with both eyes and targets over
     mesh[axis], either sprite (vcfg.sprite_mode). Any N (far-sentinel
     padding: sentinel targets cull at the far plane, padded eye rows are
-    sliced off). Textures are not ported yet (ROADMAP queue 1 item 4).
-    Differentiable when pos or vel requires grad."""
-    return _render_ring(pos, vel, vcfg, mesh or default_mesh(), axis, data_axis, diff=False)
+    sliced off). `texture` [Ht, Wt] is the skin every hop samples (the JAX
+    ring's replicated texture; it takes no per-agent albedo, nor does this
+    one). Differentiable when pos or vel requires grad (the wireframe with
+    a texture too)."""
+    return _render_ring(pos, vel, vcfg, mesh or default_mesh(), axis, data_axis, diff=False,
+                        texture=texture)
 
 
 def ring_render_rows_diff(
@@ -218,13 +233,16 @@ def ring_render_rows_diff(
     mesh: Optional[Mesh] = None,
     axis: str = AGENT_AXIS,
     data_axis: Optional[str] = None,
+    texture: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ring_render_rows through the eyes' autograd Functions whatever grad
     mode says: each hop's Function saves its own winner index, and its
     backward (the disc's or the wireframe's backward kernel on CUDA
     tensors) gets the cotangents of the pixels its block won. Needs N
     divisible by the mesh axis, as the JAX ring does. Use
-    vcfg.antialias=True for useful gradients."""
+    vcfg.antialias=True for useful gradients. With a `texture` (wireframe
+    sprites only: the disc has no textured gradient) its gradient adds over
+    the hops."""
     mesh = mesh or default_mesh()
     n, d = pos.shape[-2], mesh.shape[axis]
     if n % d:
@@ -232,7 +250,7 @@ def ring_render_rows_diff(
             f"ring_render_rows_diff needs agent count {n} divisible by mesh "
             f"axis {axis!r} (size {d})"
         )
-    return _render_ring(pos, vel, vcfg, mesh, axis, data_axis, diff=True)
+    return _render_ring(pos, vel, vcfg, mesh, axis, data_axis, diff=True, texture=texture)
 
 
 # -- steppers (Scene backend="ring") ------------------------------------------

@@ -31,7 +31,7 @@ import torch
 
 from ..config import SimConfig
 from ..physics import dense
-from ..state import SceneState
+from ..state import SceneState, spawn
 
 
 class VisionEnv:
@@ -79,6 +79,12 @@ class VisionEnv:
     @property
     def obs_width(self) -> int:
         return self.cfg.vision.width + 2  # vision line + ego velocity
+
+    def reset(self, generator: torch.Generator,
+              device: str | torch.device = "cuda") -> Tuple[SceneState, torch.Tensor]:
+        """(a fresh state spawned from `generator` on `device`, its obs)."""
+        state = spawn(self.cfg, generator, device)
+        return state, self.observe(state)
 
     def actuate(self, action: torch.Tensor) -> torch.Tensor:
         """Bound raw policy actions to [-max_accel, max_accel] through the

@@ -4,10 +4,13 @@
 Typical use:
 
     from nenbody_tpu_torch import Scene, PRESETS
+    from nenbody_tpu_torch.vision import render
     scene = Scene(PRESETS["gravity-vision-1024"](), device="cuda")
     state = scene.spawn(seed=0)
     state = scene.step(state)              # one physics step
     obs = scene.observe(state)             # [N, W] vision lines
+    obs = scene.observe_textured(state, render.checker_texture(32, 4))  # a skin
+    rgb = scene.observe_rgb(state, render.default_agent_colors(1024, "cuda"))
     state, traj = scene.rollout(state, 100, record=("obs",))
 
 Routing: backend="dense" always runs the plain PyTorch functions;
@@ -74,8 +77,9 @@ def make_step_fn(cfg: SimConfig, mesh=None) -> Callable[..., SceneState]:
 
 
 def _render_fn(cfg: SimConfig, mesh=None) -> Callable:
-    """`(pos, vel) -> (shade, depth)` on the route the backend and the
-    sprite mode pick (the JAX `_vision_route`/`_vision_render_core`). The
+    """`(pos, vel, texture=None) -> (shade, depth)` on the route the backend
+    and the sprite mode pick (the JAX `_vision_route`/`_vision_render_core`),
+    the texture [Ht, Wt] sampled at each winner's uv when given. The
     dense and gspmd routes are plain autograd through vision.render, either
     sprite. The kernel route is the disc eye (raycast.render_rows_tiled) or
     the exact wireframe eye (wireframe.render_rows_wireframe_tiled), at any
@@ -88,23 +92,26 @@ def _render_fn(cfg: SimConfig, mesh=None) -> Callable:
     if backend in ("dense", "gspmd"):
         from .vision import render
 
-        return lambda pos, vel: render.render_rows(pos, vel, vcfg)
+        return lambda pos, vel, texture=None: render.render_rows(pos, vel, vcfg, texture=texture)
     if backend == "ring":
         from .parallel import mesh as mesh_lib
         from .parallel import ring
 
-        def ring_rows(pos, vel):
+        def ring_rows(pos, vel, texture=None):
             m = mesh or mesh_lib.default_mesh()
-            return ring.ring_render_rows(pos, vel, vcfg, mesh=m, data_axis=mesh_lib.data_axis_of(m))
+            return ring.ring_render_rows(pos, vel, vcfg, mesh=m, data_axis=mesh_lib.data_axis_of(m),
+                                         texture=texture)
 
         return ring_rows
     if vcfg.sprite_mode == "wireframe":
         from .ops import wireframe
 
-        return lambda pos, vel: wireframe.render_rows_wireframe_tiled(pos, vel, vcfg)
+        return lambda pos, vel, texture=None: wireframe.render_rows_wireframe_tiled(
+            pos, vel, vcfg, texture=texture)
     from .ops import raycast
 
-    return lambda pos, vel: raycast.render_rows_tiled(pos, vel, vcfg)
+    return lambda pos, vel, texture=None: raycast.render_rows_tiled(pos, vel, vcfg,
+                                                                     texture=texture)
 
 
 def make_observe_fn(cfg: SimConfig, mesh=None) -> Optional[Callable[[SceneState], torch.Tensor]]:
@@ -158,6 +165,42 @@ class Scene:
         if self._render is None:
             raise ValueError("vision is disabled for this config (vision=None)")
         return self._render(state.pos, state.vel)
+
+    def observe_textured(self, state: SceneState, texture: torch.Tensor) -> torch.Tensor:
+        """[..., N, W] shade rows with the skin `texture` [Ht, Wt] (values
+        in [0, 1], shared by every env; vision.render.checker_texture for a
+        stand-in asset) sampled at each winner's splat or edge uv: the
+        skin.png mechanism (src/main.rs:322-356, shaders/scene.frag:11-16) at
+        observation level, on the route observe takes. The texture moves to
+        the state's device."""
+        if self._render is None:
+            raise ValueError("vision is disabled for this config (vision=None)")
+        tex = texture if isinstance(texture, torch.Tensor) else torch.tensor(texture)
+        tex = tex.to(state.pos.device, torch.float32).contiguous()
+        return self._render(state.pos, state.vel, tex)[0]
+
+    def observe_rgb(self, state: SceneState, colors: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[..., N, W, 3] RGB observation rows: the reference's RGBA eye
+        texture (alpha always 1, shaders/scene.frag:16).
+
+        colors: optional [N, 3] per-agent colors (vision.render.
+        default_agent_colors(n) for a deterministic palette), rendered one
+        channel at a time by vision.render.render_rows_rgb on the eye
+        kernels (backend 'pallas') or the dense renderer (every other
+        backend, as in the JAX package). Unbatched states only when colors
+        are given. Without colors, to_rgb of observe_with_depth."""
+        from .vision import render
+
+        if self._render is None:
+            raise ValueError("vision is disabled for this config (vision=None)")
+        vcfg = self.cfg.vision
+        if colors is None:
+            return render.to_rgb(*self.observe_with_depth(state), vcfg)
+        if state.pos.dim() != 2:
+            raise ValueError("per-agent colors need an unbatched state")
+        colors = torch.as_tensor(colors, dtype=torch.float32, device=state.pos.device)
+        backend = "pallas" if _resolve_backend(self.cfg) == "pallas" else "dense"
+        return render.render_rows_rgb(state.pos, state.vel, vcfg, colors, backend=backend)
 
     # -- rollouts ------------------------------------------------------------
 

@@ -1,7 +1,9 @@
 """Dense PyTorch eye renderer — the port's vision oracle and the plain
 version of the CUDA eye kernels (counterpart of nenbody_tpu/vision/render.py:
 `_agent_row`, `_agent_row_wireframe`, `render_rows`, `merge_rows`,
-`render_lines*`).
+`render_lines*`, `render_single_row` and the appearance functions:
+`sample_texture`, `checker_texture`, `default_agent_colors`, `to_rgb`,
+`render_rows_rgb`).
 
 Same contract as the JAX renderer: the nearest covering agent wins each
 pixel (the reference's depth test, src/main.rs:608-632), shaded with the
@@ -11,12 +13,19 @@ coverage (the 8x MSAA analog). Two sprite models: the disc splat
 (`eye_rows`) and the reference's exact LineStrip triangle
 (`eye_rows_wireframe`).
 
-Per-agent albedo, textures, RGB and `render_single_row` are not ported yet
-(ROADMAP queue 1 item 4).
+Appearance: `albedo` [..., M] gives each target its own base brightness in
+place of cfg.sprite_albedo, and `texture` [Ht, Wt] (one skin shared by every
+env) is sampled bilinearly at the winner's uv before the vignette and before
+the antialias blend (shaders/scene.frag:11-16's tex * (1 - mag^2)): the disc
+at (0.5 + 0.5 off, 0.5) along its splat, the wireframe at the winning edge's
+interpolated uv. Both renderers evaluate the appearance at each pixel's
+winner only; the JAX dense renderer shades every (edge, target, pixel) and
+then selects, which gives the same values.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -34,11 +43,14 @@ def eye_rows(
     eye_dir: torch.Tensor,  # [..., E, 2] unit headings
     tgt: torch.Tensor,  # [..., M, 2] target positions (including self)
     cfg: VisionConfig,
+    albedo: torch.Tensor | None = None,  # [..., M] per-target albedo
+    texture: torch.Tensor | None = None,  # [Ht, Wt] sampled at the splat uv
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render E eye lines against M targets: (shade, depth) [..., E, W].
 
     `_agent_row` of the JAX renderer with the eye axis written out. The
     self-target is culled for free: rel=0 gives forward depth 0 < near.
+    `albedo` and `texture` as in the module docstring.
     """
     rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]  # [..., E, M, 2]
     u_c, du, f, visible = camera.project(rel, eye_dir, cfg)  # [..., E, M]
@@ -65,7 +77,11 @@ def eye_rows(
     # frag does mix(tex, 0, mag^2) => shade = albedo * (1 - off^2/4).
     o = off.gather(-2, winner[..., None, :]).squeeze(-2)  # [..., E, W]
     oc = o.clamp(-1.0, 1.0)
-    shade = cfg.sprite_albedo * (1.0 - 0.25 * oc * oc)
+    alb = cfg.sprite_albedo if albedo is None else winner_albedo(albedo, winner)
+    if texture is not None:
+        alb = alb * sample_texture(texture, torch.stack([0.5 + 0.5 * oc,
+                                                         torch.full_like(oc, 0.5)], dim=-1))
+    shade = alb * (1.0 - 0.25 * oc * oc)
     if cfg.antialias:
         # exact 1D box-filter coverage of the splat edge over the pixel
         # footprint (the MSAA analog); interior pixels saturate to 1.
@@ -79,12 +95,20 @@ def eye_rows(
     return shade, depth
 
 
+def winner_albedo(albedo: torch.Tensor, winner: torch.Tensor) -> torch.Tensor:
+    """albedo [..., M] read at each pixel's winning target winner [..., E, W]
+    (a valid index everywhere; the caller masks misses)."""
+    return albedo[..., None, :].expand(winner.shape[:-1] + albedo.shape[-1:]).gather(-1, winner)
+
+
 def render_eyes(
     eye_pos: torch.Tensor,
     eye_dir: torch.Tensor,
     tgt: torch.Tensor,
     cfg: VisionConfig,
     chunk: int | None = None,
+    albedo: torch.Tensor | None = None,
+    texture: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`eye_rows` chunked over eyes so that the [..., chunk, M, W]
     intermediates stay within PLAIN_PIXEL_BUDGET elements (the dense analog
@@ -95,9 +119,10 @@ def render_eyes(
     if chunk is None:
         chunk = max(1, PLAIN_PIXEL_BUDGET // max(1, batch * m * cfg.width))
     if chunk >= e:
-        return eye_rows(eye_pos, eye_dir, tgt, cfg)
+        return eye_rows(eye_pos, eye_dir, tgt, cfg, albedo, texture)
     rows = [
-        eye_rows(eye_pos[..., i:i + chunk, :], eye_dir[..., i:i + chunk, :], tgt, cfg)
+        eye_rows(eye_pos[..., i:i + chunk, :], eye_dir[..., i:i + chunk, :], tgt, cfg, albedo,
+                 texture)
         for i in range(0, e, chunk)
     ]
     return torch.cat([r[0] for r in rows], dim=-2), torch.cat([r[1] for r in rows], dim=-2)
@@ -203,12 +228,19 @@ def edge_fragment(fa, la, fb, lb, live, u_p, cfg: VisionConfig):
     return torch.where(hit, fk, float("inf")), tau, lo, hi
 
 
-def fragment_shade(tau, uv, cfg: VisionConfig):
+def fragment_shade(tau, uv, cfg: VisionConfig, alb=None, texture=None):
     """albedo * (1 - |uv - 0.5|^2) at uv = uv_a + tau * duv: uv = (ua_x,
-    ua_y, du_x, du_y), floats or tensors broadcasting against tau."""
-    ux = (uv[0] + tau * uv[2]) - 0.5
-    uy = (uv[1] + tau * uv[3]) - 0.5
-    return cfg.sprite_albedo * (1.0 - (ux * ux + uy * uy))
+    ua_y, du_x, du_y), floats or tensors broadcasting against tau. `alb`
+    (a tensor broadcasting against tau) replaces cfg.sprite_albedo; a
+    `texture` multiplies it by the skin sampled at uv."""
+    uvx = uv[0] + tau * uv[2]
+    uvy = uv[1] + tau * uv[3]
+    base = cfg.sprite_albedo if alb is None else alb
+    if texture is not None:
+        base = base * sample_texture(texture, torch.stack([uvx, uvy], dim=-1))
+    ux = uvx - 0.5
+    uy = uvy - 0.5
+    return base * (1.0 - (ux * ux + uy * uy))
 
 
 def coverage(sp_lo, sp_hi, u_p, cfg: VisionConfig):
@@ -225,6 +257,8 @@ def eye_rows_wireframe(
     tgt: torch.Tensor,  # [..., M, 2] target positions (including self)
     tgt_hdg: torch.Tensor,  # [..., M, 2] target unit headings
     cfg: VisionConfig,
+    albedo: torch.Tensor | None = None,  # [..., M] per-target albedo
+    texture: torch.Tensor | None = None,  # [Ht, Wt] sampled at the edge uv
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render E eye lines against M exact reference sprites: (shade, depth,
     winner) [..., E, W], winner the winning target's index (-1 where no
@@ -233,9 +267,10 @@ def eye_rows_wireframe(
     `_agent_row_wireframe` of the JAX renderer with the eye axis written
     out. The depth test takes the argmin over the flattened [3M] (edge,
     target) axis, edge-major, so a depth tie goes to the lower edge first
-    and then to the lower target. With antialias the winner's shade
-    box-filters against the background by the winning sprite's coverage
-    (the union of its 3 edge intervals)."""
+    and then to the lower target. The winner's albedo and texture sample
+    shade it (module docstring); with antialias its shade then box-filters
+    against the background by the winning sprite's coverage (the union of
+    its 3 edge intervals)."""
     f, l, live = sprite_view(eye_pos[..., :, None, :], eye_dir[..., :, None, :],
                              tgt[..., None, :, :], tgt_hdg[..., None, :, :], cfg)
     u_p = camera.pixel_centers(cfg, device=eye_pos.device)  # [W]
@@ -256,9 +291,12 @@ def eye_rows_wireframe(
     tau_w = torch.stack(taus, dim=-3).flatten(-3, -2).gather(-2, k[..., None, :]).squeeze(-2)
     del flat_d, depths, taus
     hit = torch.isfinite(best)
+    if texture is not None:
+        tau_w = torch.where(hit, tau_w, 0.0)  # a miss's tau may be huge; keep its uv tame
     winner = k % m
     table = torch.tensor(EDGE_UV, dtype=torch.float32, device=eye_pos.device)[k // m]
-    sh = fragment_shade(tau_w, table.unbind(-1), cfg)
+    alb = None if albedo is None else winner_albedo(albedo, winner)
+    sh = fragment_shade(tau_w, table.unbind(-1), cfg, alb, texture)
     if cfg.antialias:
         cov = coverage(sp_lo.squeeze(-1).gather(-1, winner), sp_hi.squeeze(-1).gather(-1, winner),
                        u_p, cfg)
@@ -275,6 +313,8 @@ def render_eyes_wireframe(
     tgt_hdg: torch.Tensor,
     cfg: VisionConfig,
     chunk: int | None = None,
+    albedo: torch.Tensor | None = None,
+    texture: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`eye_rows_wireframe` chunked over eyes so that each chunk's
     [..., chunk, 3M, W] intermediates stay within PLAIN_PIXEL_BUDGET
@@ -284,10 +324,10 @@ def render_eyes_wireframe(
     if chunk is None:
         chunk = max(1, PLAIN_PIXEL_BUDGET // max(1, batch * 3 * m * cfg.width))
     if chunk >= e:
-        return eye_rows_wireframe(eye_pos, eye_dir, tgt, tgt_hdg, cfg)
+        return eye_rows_wireframe(eye_pos, eye_dir, tgt, tgt_hdg, cfg, albedo, texture)
     rows = [
         eye_rows_wireframe(eye_pos[..., i:i + chunk, :], eye_dir[..., i:i + chunk, :], tgt,
-                           tgt_hdg, cfg)
+                           tgt_hdg, cfg, albedo, texture)
         for i in range(0, e, chunk)
     ]
     return tuple(torch.cat([r[i] for r in rows], dim=-2) for i in range(3))
@@ -300,6 +340,8 @@ def render_rows(
     chunk: int | None = None,
     targets: torch.Tensor | None = None,
     target_vel: torch.Tensor | None = None,
+    albedo: torch.Tensor | None = None,
+    texture: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render every agent's eye line. pos, vel: [..., N, 2].
 
@@ -307,7 +349,9 @@ def render_rows(
     `targets` (default: pos itself) renders the eyes against a different
     position set; partial renders merge with `merge_rows`. With
     sprite_mode='wireframe' the targets' sprites orient to their headings,
-    so `target_vel` must accompany `targets`.
+    so `target_vel` must accompany `targets`. `albedo` [..., M] (one per
+    target) and `texture` [Ht, Wt] set the sprites' appearance (module
+    docstring).
     """
     dirs = camera.unit_heading(vel)
     tgt = pos if targets is None else targets
@@ -316,8 +360,29 @@ def render_rows(
         if tvel is None:
             raise ValueError("wireframe sprites need target_vel with targets")
         hdg = dirs if targets is None else camera.unit_heading(tvel)
-        return render_eyes_wireframe(pos, dirs, tgt, hdg, cfg, chunk)[:2]
-    return render_eyes(pos, dirs, tgt, cfg, chunk)
+        return render_eyes_wireframe(pos, dirs, tgt, hdg, cfg, chunk, albedo, texture)[:2]
+    return render_eyes(pos, dirs, tgt, cfg, chunk, albedo, texture)
+
+
+def render_single_row(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    eye: int,
+    cfg: VisionConfig,
+    albedo: torch.Tensor | None = None,
+    texture: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One agent's eye line at any width, pos, vel [N, 2] -> (shade [W],
+    depth [W]): the first-person viewport's pixel source (the reference
+    re-renders the scene from the selected eye into the imgui viewport,
+    src/main.rs:979-998). `albedo`/`texture` as in render_rows."""
+    dirs = camera.unit_heading(vel)
+    one = slice(eye, eye + 1)
+    if cfg.sprite_mode == "wireframe":
+        shade, depth, _ = eye_rows_wireframe(pos[one], dirs[one], pos, dirs, cfg, albedo, texture)
+    else:
+        shade, depth = eye_rows(pos[one], dirs[one], pos, cfg, albedo, texture)
+    return shade[0], depth[0]
 
 
 def merge_rows(a, b):
@@ -340,3 +405,94 @@ def render_lines_with_depth(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(shade [..., N, W], depth [..., N, W])."""
     return render_rows(state.pos, state.vel, cfg)
+
+
+BACKGROUND_RGB = (0.1, 0.2, 0.3)  # clear color, src/main.rs:543
+SPRITE_RGB = (0.85, 0.80, 0.70)  # skin-texture mean stand-in
+
+
+def to_rgb(shade: torch.Tensor, depth: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
+    """Colorize (shade, depth) rows into [..., W, 3] RGB: the reference's
+    RGBA eye texture minus alpha (always 1, scene.frag:16). Sprite pixels
+    take the sprite color scaled by the vignetted shade, misses the clear
+    color."""
+    hit = (depth < cfg.far)[..., None]
+    bg = torch.tensor(BACKGROUND_RGB, dtype=shade.dtype, device=shade.device)
+    sprite = torch.tensor(SPRITE_RGB, dtype=shade.dtype, device=shade.device)
+    norm = shade[..., None] / max(cfg.sprite_albedo, 1e-6)
+    return torch.where(hit, sprite * norm, bg)
+
+
+def sample_texture(texture: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear texture sample, the sampler the reference binds for its
+    skin.png (clamp-to-edge, linear filter; src/main.rs:358-376): texture
+    [Ht, Wt], uv [..., 2] (uv.x along the width) -> [...]. A direct gather;
+    differentiable in the texture and, between texel centres, in uv. The
+    eye kernels sample with the same expressions in the same order. Texels
+    are read by index_select, whose gradient adds by index_add_."""
+    ht, wt = texture.shape
+    x = uv[..., 0].clamp(0.0, 1.0) * (wt - 1)
+    y = uv[..., 1].clamp(0.0, 1.0) * (ht - 1)
+    x0 = x.detach().floor().long()
+    y0 = y.detach().floor().long()
+    x1 = (x0 + 1).clamp(max=wt - 1)
+    y1 = (y0 + 1).clamp(max=ht - 1)
+    fx = x - x0
+    fy = y - y0
+    flat = texture.reshape(-1)
+    texel = lambda iy, ix: flat.index_select(0, (iy * wt + ix).reshape(-1)).reshape(iy.shape)
+    t00, t01, t10, t11 = texel(y0, x0), texel(y0, x1), texel(y1, x0), texel(y1, x1)
+    return t00 * (1 - fx) * (1 - fy) + t01 * fx * (1 - fy) + t10 * (1 - fx) * fy + t11 * fx * fy
+
+
+def checker_texture(size: int = 32, cells: int = 4, lo: float = 0.35, hi: float = 1.0,
+                    device: str | torch.device = "cpu") -> torch.Tensor:
+    """Procedural [size, size] float32 checkerboard: a stand-in for the
+    reference's skin.png (any [Ht, Wt] tensor in [0, 1] works)."""
+    i = torch.arange(size, device=device) * cells // size
+    board = (i[:, None] + i[None, :]) % 2
+    return (lo + (hi - lo) * board).to(torch.float32)
+
+
+def default_agent_colors(n: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """[n, 3] deterministic distinct colors (a golden-ratio hue walk): the
+    stand-in for giving every agent its own skin (the reference shares one
+    skin.png across agents, src/main.rs:322-356)."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    h = (i * 0.61803398875) % 1.0  # golden-ratio spacing: maximally spread
+    # compact HSV->RGB with s=0.65, v=1.0
+    k = torch.stack([(5.0 + h * 6.0) % 6.0, (3.0 + h * 6.0) % 6.0, (1.0 + h * 6.0) % 6.0])
+    f = 1.0 - 0.65 * torch.minimum(k, 4.0 - k).clamp(0.0, 1.0)
+    return f.T.contiguous()
+
+
+def render_rows_rgb(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    cfg: VisionConfig,
+    colors: torch.Tensor,
+    backend: str = "dense",
+) -> torch.Tensor:
+    """[..., N, W, 3] color observation with per-agent appearance: one
+    render per channel against that channel's clear color
+    (src/main.rs:543), the channel of each agent's color [..., N, 3] its
+    albedo. backend='pallas' renders on the eye kernels (ops.raycast or
+    ops.wireframe by sprite mode), 'dense' on this module."""
+    chans = []
+    for c in range(3):
+        ccfg = dataclasses.replace(cfg, background=float(BACKGROUND_RGB[c]))
+        alb = colors[..., c].contiguous()
+        if backend == "pallas" and cfg.sprite_mode == "wireframe":
+            from ..ops import wireframe
+
+            sh, _ = wireframe.render_rows_wireframe_tiled(pos, vel, ccfg, albedo=alb)
+        elif backend == "pallas":
+            from ..ops import raycast
+
+            sh, _ = raycast.render_rows_tiled(pos, vel, ccfg, albedo=alb)
+        elif backend == "dense":
+            sh, _ = render_rows(pos, vel, ccfg, albedo=alb)
+        else:
+            raise ValueError(f"render_rows_rgb: backend 'dense' or 'pallas', got {backend!r}")
+        chans.append(sh)
+    return torch.stack(chans, dim=-1)

@@ -497,3 +497,121 @@ def test_rdma_ring_kernel_matches_plain_and_repeats(cuda, kind, d, shape):
         again = again if kind == "rows" else (again,)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+# -- appearance: per-target albedo and skin textures -------------------------
+
+# a texture staged in shared memory (32 x 32), and one read from device
+# memory (more than 4,096 texels)
+TEXTURES = {"staged": (32, 32), "global": (80, 72)}
+
+
+def _appearance(form, tex, lead, m, device):
+    """(albedo [lead, M] or None, texture or None) for one appearance form."""
+    albedo = _uniform(lead + (m,), 0.3, 1.0, 11, device) if "albedo" in form else None
+    texture = None
+    if "texture" in form:
+        ht, wt = TEXTURES[tex]
+        texture = render.checker_texture(max(ht, wt), 4, device=device)[:ht, :wt].contiguous()
+        texture = texture * _uniform((ht, wt), 0.8, 1.0, 12, device)  # no two texels alike
+    return albedo, texture
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 24, 64), (1, 100, 128), (3, 72, 512), (5, 33, 17)])
+@pytest.mark.parametrize("aa", [False, True])
+@pytest.mark.parametrize("form,tex", [("albedo", None), ("texture", "staged"),
+                                      ("albedo+texture", "staged"), ("texture", "global")])
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+def test_eye_appearance_kernels_match_plain(cuda, b, n, w, aa, form, tex, sprite):
+    # tests/test_texture_kernel.py's tolerances (atol 3e-4, rtol 1e-5; the
+    # sample's texel picks are threshold tests on the winner's uv), the
+    # depth equal to the untextured kernel's: appearance moves no winner
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -40, 40, n, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, sprite_mode=sprite, far=200.0)
+    albedo, texture = _appearance(form, tex, shape[:-2], n, cuda)
+    if sprite == "wireframe":
+        gs, gd = wireframe.wireframe_eye(pos, dirs, pos, dirs, cfg, albedo, texture)
+        ws, wd, _ = wireframe.wireframe_eye_plain(pos, dirs, pos, dirs, cfg, albedo, texture)
+        _, bare = wireframe.wireframe_eye(pos, dirs, pos, dirs, cfg)
+    else:
+        gs, gd = raycast.disc_eye(pos, dirs, pos, cfg, albedo, texture)
+        ws, wd = raycast.disc_eye_plain(pos, dirs, pos, cfg, albedo, texture)
+        _, bare = raycast.disc_eye(pos, dirs, pos, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(gd, bare)
+    flips = (gd < cfg.far) != (wd < cfg.far)
+    assert (wd < cfg.far).double().mean() > 0.01
+    if w & (w - 1) == 0:
+        assert not flips.any()
+        _close(gd, wd, 1e-5, 3e-4)
+        _close(gs, ws, 1e-5, 3e-4)
+    else:  # pixel centres through a reciprocal on the card: the forward's allowance
+        beyond = flips | ((gd - wd).abs() > 3e-4 + 1e-5 * wd.abs())
+        beyond |= (gs - ws).abs() > 3e-4 + 1e-5 * ws.abs()
+        assert beyond.double().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 100, 64), (3, 60, 32), (256, 64, 64)])
+@pytest.mark.parametrize("aa", [False, True])
+@pytest.mark.parametrize("form,tex", [("albedo", None), ("texture", "staged"),
+                                      ("albedo+texture", "staged"), ("texture", "global")])
+def test_wireframe_eye_bwd_appearance_matches_winner_pullback(cuda, b, n, w, aa, form, tex):
+    # the disc backward's tolerances (per-pixel terms round apart; atomic
+    # sums in run-to-run order); 256 envs make the texture launch loop over
+    # envs (a staged texture's gradient sums per block)
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -40, 40, n, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe", far=200.0)
+    albedo, texture = _appearance(form, tex, shape[:-2], n, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    us = torch.randn(shape[:-1] + (w,), generator=gen, device=cuda)
+    ud = torch.randn(shape[:-1] + (w,), generator=gen, device=cuda) * 1e-2
+    _, _, winner = wireframe.wireframe_eye_with_winner(pos, dirs, pos, dirs, cfg, albedo, texture)
+    common.reset_launch_counts()
+    got = wireframe.wireframe_eye_vjp(pos, dirs, pos, dirs, winner, us, ud, cfg, albedo, texture)
+    assert common.launch_counts()["wireframe_eye_bwd"] == 1
+    want = wireframe.winner_pullback(pos, dirs, pos, dirs, winner, us, ud, cfg, albedo, texture)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 4 + (albedo is not None) + (texture is not None)
+    for g, x in zip(got, want):
+        assert x.abs().max() > 0
+        torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
+
+
+def test_appearance_paths_launch_the_kernels(cuda):
+    """With albedo or a texture on CUDA tensors, the disc rows, the
+    wireframe rows, the wireframe gradient and the ring each launch their
+    kernels (and no plain version runs: it would count no launch); the disc
+    refuses a gradient with appearance, as the JAX package has none."""
+    from nenbody_tpu_torch.parallel import make_mesh, ring
+
+    pos = _uniform((2, 64, 2), -30, 30, 1, cuda)
+    vel = _uniform((2, 64, 2), -1, 1, 2, cuda)
+    albedo = _uniform((2, 64), 0.3, 1.0, 3, cuda)
+    tex = render.checker_texture(32, 4, device=cuda)
+    disc = VisionConfig(width=64, antialias=True, far=200.0)
+    wf = dataclasses.replace(disc, sprite_mode="wireframe")
+    common.reset_launch_counts()
+    raycast.render_rows_tiled(pos, vel, disc, albedo=albedo, texture=tex)
+    wireframe.render_rows_wireframe_tiled(pos, vel, wf, albedo=albedo, texture=tex)
+    assert common.launch_counts()["disc_eye"] == 1 and common.launch_counts()["wireframe_eye"] == 1
+    p, a, t = pos.clone().requires_grad_(), albedo.clone().requires_grad_(), tex.clone().requires_grad_()
+    shade, _ = wireframe.render_rows_wireframe_diff(p, vel, wf, a, t)
+    shade.sum().backward()
+    counts = common.launch_counts()
+    assert counts["wireframe_eye"] == 2 and counts["wireframe_eye_bwd"] == 1
+    assert all(torch.isfinite(x.grad).all() and x.grad.abs().max() > 0 for x in (p, a, t))
+    mesh = make_mesh({"agents": 2}, devices=[cuda] * 2)
+    for cfg, name in ((disc, "disc_eye"), (wf, "wireframe_eye")):
+        common.reset_launch_counts()
+        got = ring.ring_render_rows(pos, vel, cfg, mesh=mesh, texture=tex)
+        assert common.launch_counts()[name] == 2 * 2  # shards x hops
+        one = (wireframe.render_rows_wireframe_tiled(pos, vel, cfg, texture=tex)
+               if cfg is wf else raycast.render_rows_tiled(pos, vel, cfg, texture=tex))
+        _close(got[1], one[1], 1e-5, 1e-4)
+        _close(got[0], one[0], 1e-5, 3e-4)
+    with pytest.raises(NotImplementedError, match="albedo or texture"):
+        raycast.render_rows_tiled(pos.clone().requires_grad_(), vel, disc, texture=tex)

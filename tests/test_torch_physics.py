@@ -23,11 +23,13 @@ from nenbody_tpu.ops import boids as jboids
 from nenbody_tpu.ops import pairwise as jpairwise
 from nenbody_tpu.physics import dense as jdense
 
-from nenbody_tpu_torch import SceneState, SimConfig, heading, model_matrices, spawn
+from nenbody_tpu_torch import SceneState, SimConfig, VisionConfig, heading, model_matrices, spawn
 from nenbody_tpu_torch.config import BoidsConfig, GravityConfig
 from nenbody_tpu_torch.ops import boids as tboids
-from nenbody_tpu_torch.ops import common, pairwise, tiled
+from nenbody_tpu_torch.ops import common, pairwise, raycast, tiled, wireframe
 from nenbody_tpu_torch.physics import dense
+from nenbody_tpu_torch.vision import render
+from oracle import boids_step_np, gravity_step_np
 
 torch.set_num_threads(1)
 
@@ -182,12 +184,19 @@ def test_batched_plain_matches_per_env():
 
 def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrappers never touch the kernel library, count no
-    launch, and stay differentiable by autograd."""
+    launch, and stay differentiable by autograd; the eyes too, with their
+    appearance forms (per-target albedo, a texture)."""
     common.reset_launch_counts()
     pos, vel = _arrays(64, 2, -1, 1)  # clustered: forces and their slopes are large
     p = _t(pos).requires_grad_()
     g = pairwise.gravity_forces_tiled(p, GravityConfig())
     tboids.boids_velocity_tiled(_t(pos), _t(vel), BoidsConfig())
+    albedo, texture = torch.rand(64), render.checker_texture(8, 2)
+    for sprite, rows in (("disc", raycast.render_rows_tiled),
+                         ("wireframe", wireframe.render_rows_wireframe_tiled)):
+        shade, _ = rows(_t(pos), _t(vel), VisionConfig(width=16, sprite_mode=sprite),
+                        albedo=albedo, texture=texture)
+        assert torch.isfinite(shade).all()
     assert common.launch_counts() == {"gravity": 0, "boids": 0, "disc_eye": 0,
                                       "gravity_vjp": 0, "disc_eye_bwd": 0, "wireframe_eye": 0,
                                       "boids_partials": 0, "wireframe_eye_bwd": 0,
@@ -244,3 +253,28 @@ def test_heading_and_model_matrices_match_jax():
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(model_matrices(_tstate(pos, vel)).numpy(),
                                np.asarray(jstate.model_matrices(jst)), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [4, 64, 256])
+@pytest.mark.parametrize("controller", ["gravity", "boids"])
+def test_dense_steps_match_numpy_oracle(controller, n):
+    """The port's dense steppers against the loop-for-loop NumPy
+    transcription of the reference (tests/oracle.py), on a spawn of the
+    port's own, at test_physics_parity.py's tolerances."""
+    cfg = SimConfig(n=n, controller=controller)
+    state = spawn(cfg, torch.Generator().manual_seed(n), "cpu")
+    oracle = gravity_step_np if controller == "gravity" else boids_step_np
+    ref_pos, ref_vel = oracle(state.pos.numpy(), state.vel.numpy())
+    out = dense.STEPPERS[controller](state, cfg)
+    np.testing.assert_allclose(out.vel.numpy(), ref_vel, rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(out.pos.numpy(), ref_pos, rtol=2e-5, atol=1e-5)
+
+
+def test_dense_gravity_multistep_stays_close_to_oracle():
+    cfg = SimConfig(n=64, controller="gravity")
+    state = spawn(cfg, torch.Generator().manual_seed(3), "cpu")
+    pos, vel = state.pos.numpy(), state.vel.numpy()
+    for _ in range(5):
+        state = dense.gravity_step(state, cfg)
+        pos, vel = gravity_step_np(pos, vel)
+    np.testing.assert_allclose(state.pos.numpy(), pos, rtol=1e-4, atol=1e-4)

@@ -149,3 +149,29 @@ def test_env_validation_matches_jax():
     with pytest.raises(ValueError):
         VisionEnv(SimConfig(n=4))
     assert VisionEnv(SimConfig(n=4, vision=VisionConfig(width=8))).obs_width == 10
+
+
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+def test_env_reset_matches_jax(sprite):
+    """VisionEnv.reset(generator, device) -> (state, obs): the obs equals
+    the JAX env's observe on the same spawned arrays, the spawn is seeded,
+    and its draws match the JAX env's reset by statistics (the random
+    streams differ)."""
+    n = 512
+    kw = dict(n=n, controller="gravity")
+    vcfg = dict(width=32, sprite_mode=sprite, far=200.0)
+    env = VisionEnv(SimConfig(**kw, vision=VisionConfig(**vcfg)))
+    jenv = JVisionEnv(JSimConfig(**kw, backend="dense", vision=JVisionConfig(**vcfg)))
+    state, obs = env.reset(torch.Generator().manual_seed(4), "cpu")
+    assert obs.shape == (n, 34) and state.pos.shape == (n, 2) and int(state.t) == 0
+    jst = jstate.SceneState(pos=jnp.asarray(state.pos.numpy()), vel=jnp.asarray(state.vel.numpy()),
+                            key=jax.random.key(0), t=jnp.int32(0))
+    np.testing.assert_allclose(obs.numpy(), np.asarray(jenv.observe(jst)), rtol=1e-5, atol=1e-4)
+    again, _ = env.reset(torch.Generator().manual_seed(4), "cpu")
+    assert torch.equal(again.pos, state.pos) and torch.equal(again.vel, state.vel)
+    jreset, _ = jenv.reset(jax.random.key(4))
+    for got, want, scale in ((state.pos, jreset.pos, 100.0), (state.vel, jreset.vel, 0.1)):
+        got, want = got.numpy(), np.asarray(want)
+        assert abs(got.mean() - want.mean()) < 0.1 * scale
+        assert abs(got.std() - want.std()) < 0.1 * scale
+        assert got.min() >= want.min() - 0.05 * scale and got.max() <= want.max() + 0.05 * scale
