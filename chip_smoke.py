@@ -11,7 +11,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes (the backward kernels and the
                 wireframe eye also at the trainers'), with the tolerance
-                stated; the autograd Functions' gradients on the card
+                stated (the disc eye equal to it at power-of-two widths,
+                spread and clustered; gravity's split sum and batch 20
+                more times bit-identical); the autograd Functions' gradients on the card
                 against plain autograd; the ring's kernels (the boids
                 partials at 16,384 x 16,384, the gravity VJP's cross form
                 against float64, the wireframe backward at the eye's shapes
@@ -70,9 +72,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 width (antialias) with finite, nonzero d pos, d vel,
                 d albedo and d texture.
   5. times    — CUDA-event times of each kernel and its plain version,
-                alternated (plain, kernel, kernel, plain), the eyes with and
+                alternated (plain, kernel, kernel, plain), gravity and the
+                disc eye at each shape of the main path with its bound
+                (GRAVITY_TIME_SHAPES, DISC_TIME_SHAPES: spread and
+                clustered, AA off and on), the eyes with and
                 without their winner index, steps/s of the config-2 rollout
-                (both sprites), reference-100 (wireframe) and entry(), the
+                (both sprites), reference-100 (wireframe) and entry(), ms
+                per Scene step + observe at configs 2-5 and reference-100, the
                 ring's kernels and the ring path against one device, the
                 RDMA kernels' device time (torch.profiler) beside the RDMA
                 call, the per-hop ring and one device, each eye kernel's
@@ -85,10 +91,13 @@ The line before the last is a JSON object with one entry per kernel
 operations over the card's fp32 peak and the bytes over its memory rate,
 for the inputs timed; `library_ms` is null: no single PyTorch call computes
 any of these functions; the three eye kernels carry their appearance
-forms' times and bounds under `forms`); the last line is
+forms' times and bounds under `forms`, gravity and the disc eye their
+per-shape ms, plain_ms and bound_ms under `shapes`); the last line is
 {"ok": true, "device": {...}}.
 `python3 chip_smoke.py --rdma-cards N` runs the RDMA phases alone with one
-shard on each of N cards. Imports no jax.
+shard on each of N cards; `--kernel-times` the gravity and disc eye timings
+and the serving steps alone (with another checkout first on sys.path, its
+kernels under the same harness). Imports no jax.
 """
 
 from __future__ import annotations
@@ -151,6 +160,20 @@ KERNEL_INFO = {
 EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64)]
 WF_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 1024, 1024), (64, 256, 64)]
 SERVING = ("gravity", "boids", "disc_eye")
+# phase 5's shapes of the serving path's gravity (envs, N) and disc eye
+# (label, envs, N, W, spawn half-range: U(-8, 8) is a swarm after a long
+# gravity collapse, where every target reaches every pixel), and the
+# serving steps timed (label, preset, steps per run, envs)
+GRAVITY_TIME_SHAPES = [(1, 1024), (1, 65536), (4096, 256)]
+DISC_TIME_SHAPES = [("config 2", 1, 1024, 64, 100), ("reference-100", 1, 100, 1024, 100),
+                    ("config 3", 1, 4096, 256, 100), ("64 envs", 64, 256, 64, 100),
+                    ("config-5 width", 4096, 256, 64, 100),
+                    ("config 2 clustered", 1, 1024, 64, 8),
+                    ("config-5 width clustered", 4096, 256, 64, 8)]
+SERVING_STEPS = [("config 2", "gravity-vision-1024", 50, None),
+                 ("config 3", "boids-4096", 20, None), ("config 4", "gravity-65536", 10, None),
+                 ("config 5", "envs-4096x256", 5, 4096),
+                 ("reference-100", "reference-100", 50, None)]
 TRAINING = ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd")
 WF_SERVING = ("gravity", "boids", "wireframe_eye")
 WF_TRAINING = {"reinforce": ("gravity", "wireframe_eye"),
@@ -322,18 +345,44 @@ def phase_kernels(errors: Errors, gen) -> None:
     errors.check("boids", "boids B=5 N=333", boids_ops.boids_velocity_tiled(pb, vb, bcfg),
                  boids_ops.boids_velocity_plain(pb, vb, bcfg), 3e-5, 1e-6)
 
-    # the disc eye (tests/test_kernels.py:209-210 tolerances)
+    # The checks below that the parent tree lacked draw from their own
+    # generator, so every later phase sees the inputs it always saw.
+    own = torch.Generator(device="cuda").manual_seed(7)
+    # the split sum (N=1,024 splits the j range across a cluster) and the
+    # batch of config 5 against the plain version; those and config 4 20
+    # more times, each giving the first launch's bits (the cluster's leader
+    # adds the partials in rank order)
+    for shape in ((1024, 2), (4096, 256, 2), (65536, 2)):
+        label = f"gravity {'x'.join(map(str, shape[:-1]))}"
+        pos = uniform(own, shape, -100, 100)
+        first = pairwise.gravity_forces_tiled(pos, gcfg)
+        if shape[0] != 65536:  # held against float64 above
+            errors.check("gravity", label, first, pairwise.gravity_forces_plain(pos, gcfg),
+                         3e-5, 1e-7)
+        same = all(torch.equal(pairwise.gravity_forces_tiled(pos, gcfg), first)
+                   for _ in range(RDMA_REPEATS))
+        log("kernels", f"{label}: {RDMA_REPEATS} more launches bit-identical: {same}")
+        expect(same, f"{label}: repeated launches to give the same bits")
+
+    # the disc eye, spread and clustered (a collapsed swarm, where every
+    # target reaches every pixel): equal to the plain version at power-of-two
+    # widths (both compute the same float32 expressions), else within
+    # tests/test_kernels.py:209-210's tolerances
     for b, n, w in EYE_SHAPES:
         shape = (b, n, 2) if b > 1 else (n, 2)
-        pos = uniform(gen, shape, -100, 100)
-        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
-        for aa in (False, True):
-            vcfg = VisionConfig(width=w, antialias=aa)
-            gs, gd = raycast.disc_eye(pos, dirs, pos, vcfg)
-            ws, wd = raycast.disc_eye_plain(pos, dirs, pos, vcfg)
-            label = f"disc_eye B={b} N={n} W={w} aa={aa}"
-            errors.check("disc_eye", label + " depth", gd, wd, 1e-5, 1e-4)
-            errors.check("disc_eye", label + " shade", gs, ws, 1e-5, 1e-5)
+        exact = w & (w - 1) == 0
+        for half, g in ((100, gen), (8, own)):
+            pos = uniform(g, shape, -half, half)
+            dirs = camera.unit_heading(uniform(g, shape, -1, 1))
+            for aa in (False, True):
+                vcfg = VisionConfig(width=w, antialias=aa)
+                gs, gd = raycast.disc_eye(pos, dirs, pos, vcfg)
+                ws, wd = raycast.disc_eye_plain(pos, dirs, pos, vcfg)
+                label = f"disc_eye B={b} N={n} W={w} U(-{half}, {half}) aa={aa}"
+                errors.check("disc_eye", label + " depth", gd, wd,
+                             *((0, 0) if exact else (1e-5, 1e-4)))
+                errors.check("disc_eye", label + " shade", gs, ws,
+                             *((0, 0) if exact else (1e-5, 1e-5)))
 
 
 def phase_backward_kernels(errors: Errors, gen) -> None:
@@ -1600,6 +1649,41 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, launches: int) -> float:
+    """ms per call of fn from CUDA events around replays of a CUDA graph of
+    `launches` calls: the device time alone, without the wrapper's host
+    time, which exceeds a small kernel's (the mean of 3 replays after a
+    warm-up call and a warm-up replay)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (3 * launches)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def alternate_graph(plain, kernel, iters_plain: int, launches: int):
+    """(plain ms, kernel ms) in the order plain, kernel, kernel, plain: the
+    plain version as `alternate` times it, the kernel by graph_ms."""
+    p1 = cuda_ms(plain, iters_plain)
+    k1 = graph_ms(kernel, launches)
+    k2 = graph_ms(kernel, launches)
+    p2 = cuda_ms(plain, iters_plain)
+    return (p1 + p2) / 2, (k1 + k2) / 2
+
+
 def alternate(plain, kernel, iters_plain: int, iters_kernel: int):
     """(plain ms, kernel ms), each the mean of two runs in the order plain,
     kernel, kernel, plain."""
@@ -1610,17 +1694,88 @@ def alternate(plain, kernel, iters_plain: int, iters_kernel: int):
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
+def shape_entry(shape: str, k_ms: float, p_ms: float, b_ms: float) -> dict:
+    return {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+
+
+def phase_gravity_disc_times(gen, card: str):
+    """The serving path's gravity and disc eye at the main path's shapes,
+    each kernel's device time (graph_ms) alternated with its plain version,
+    each with its bound: (times of the `kernels` line's shapes, {kernel:
+    per-shape entries})."""
+    times, shapes = {}, {"gravity": [], "disc_eye": []}
+    gcfg = GravityConfig()
+    for b, n in GRAVITY_TIME_SHAPES:
+        pos = uniform(gen, (b, n, 2) if b > 1 else (n, 2), -100, 100)
+        p_ms, k_ms = alternate_graph(lambda: pairwise.gravity_forces_plain(pos, gcfg),
+                                     lambda: pairwise.gravity_forces_tiled(pos, gcfg), 2, 20)
+        b_ms, b_by = bound(b * n * n * GRAVITY_OPS, 2 * nbytes(pos))
+        label = f"{b} x {n}" if b > 1 else f"N={n}"
+        shapes["gravity"].append(shape_entry(label, k_ms, p_ms, b_ms))
+        if (b, n) == (1, 65536):
+            times["gravity"] = (k_ms, p_ms, b_ms, b_by)
+        log("times", f"gravity {label}: kernel {k_ms:.4f} ms = {b * n * n / k_ms * 1e3:.4e} pair "
+            f"evals/s; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}) [{card}]")
+
+    for label, b, n_e, w, half in DISC_TIME_SHAPES:
+        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+        epos = uniform(gen, shape, -half, half)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa)
+            big = b * n_e * n_e * w > 1 << 28
+            p_ms, k_ms = alternate_graph(lambda: raycast.disc_eye_plain(epos, dirs, epos, vcfg),
+                                         lambda: raycast.disc_eye(epos, dirs, epos, vcfg),
+                                         1 if big else 2, 10 if big else 20)
+            covered = disc_covered(epos, dirs, vcfg)
+            b_ms, b_by = bound(b * n_e * n_e * DISC_PAIR_OPS + covered * DISC_PIXEL_OPS,
+                               nbytes(epos, dirs) + 2 * b * n_e * w * 4)
+            shapes["disc_eye"].append(shape_entry(f"{label} {b} x {n_e} x {w} aa={aa}",
+                                                  k_ms, p_ms, b_ms))
+            if (b, n_e, w, half, aa) == (1, 1024, 64, 100, False):
+                times["disc_eye"] = (k_ms, p_ms, b_ms, b_by)
+            log("times", f"disc_eye {label} B={b} N={n_e} W={w} U(-{half}, {half}) aa={aa}: "
+                f"kernel {k_ms:.4f} ms = {b * n_e / k_ms * 1e3:.4e} agent-frames/s; plain "
+                f"{p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}; {covered} covered pixels) "
+                f"[{card}]")
+    return times, shapes
+
+
+def serving_ms(preset: str, steps: int, envs: int | None = None) -> float:
+    """ms per Scene step + observe (step alone without an eye): the host
+    clock around `steps` steps ending in a synchronize, the median of 5 runs
+    after one of warm-up."""
+    scene = Scene(PRESETS[preset](), device="cuda")
+    state = scene.spawn(0) if envs is None else scene.spawn_envs(envs, seed=0)
+
+    def run() -> float:
+        s = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            s = scene.step(s)
+            if scene.cfg.vision is not None:
+                scene.observe(s)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    run()
+    runs = sorted(run() for _ in range(5))
+    return runs[2]
+
+
+def log_serving(card: str) -> None:
+    for label, preset, steps, envs in SERVING_STEPS:
+        log("times", f"serving {label}: {serving_ms(preset, steps, envs):.4f} ms per step + "
+            f"observe, median of 5 runs of {steps} steps [{card}]")
+
+
 def phase_times(gen, card: str) -> dict:
     times = {}
     n = 65536
     pos = uniform(gen, (n, 2), -100, 100)
     vel = uniform(gen, (n, 2), -1, 1)
     gcfg, bcfg = GravityConfig(), BoidsConfig()
-    p_ms, k_ms = alternate(lambda: pairwise.gravity_forces_plain(pos, gcfg),
-                           lambda: pairwise.gravity_forces_tiled(pos, gcfg), 2, 5)
-    times["gravity"] = (k_ms, p_ms, *bound(n * n * GRAVITY_OPS, 2 * nbytes(pos)))
-    log("times", f"gravity N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair evals/s; "
-        f"plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
     p_ms, k_ms = alternate(lambda: boids_ops.boids_velocity_plain(pos, vel, bcfg),
                            lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg), 1, 5)
     log("times", f"boids N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair evals/s; "
@@ -1631,24 +1786,6 @@ def phase_times(gen, card: str) -> dict:
                        lambda: boids_ops.boids_velocity_tiled(pos4, vel4, bcfg), 3, 20)
     times["boids"] = (k4, p4, *bound(4096 * 4096 * BOIDS_OPS, nbytes(pos4, vel4, vel4)))
     log("times", f"boids N=4096 (config 3): kernel {k4:.3f} ms; plain {p4:.3f} ms [{card}]")
-
-    for b, n_e, w in EYE_SHAPES:
-        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
-        epos = uniform(gen, shape, -100, 100)
-        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
-        for aa in (False, True):
-            vcfg = VisionConfig(width=w, antialias=aa)
-            p_ms, k_ms = alternate(lambda: raycast.disc_eye_plain(epos, dirs, epos, vcfg),
-                                   lambda: raycast.disc_eye(epos, dirs, epos, vcfg), 2, 10)
-            frames = b * n_e
-            if (b, n_e, w, aa) == (1, 1024, 64, False):
-                ops = (b * n_e * n_e * DISC_PAIR_OPS
-                       + disc_covered(epos, dirs, vcfg) * DISC_PIXEL_OPS)
-                times["disc_eye"] = (k_ms, p_ms, *bound(ops, nbytes(epos, dirs)
-                                                         + 2 * b * n_e * w * 4))
-            log("times", f"disc_eye B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
-                f"{frames / k_ms * 1e3:.4e} agent-frames/s; plain {p_ms:.3f} ms = "
-                f"{frames / p_ms * 1e3:.4e} agent-frames/s [{card}]")
 
     # the backward kernels against their plain versions
     u = torch.randn((n, 2), generator=gen, device="cuda")
@@ -1756,6 +1893,7 @@ def phase_times(gen, card: str) -> dict:
         d1, k1, k2, d2 = rate("dense"), rate("pallas"), rate("pallas"), rate("dense")
         log("times", f"{name}: kernels {(k1 + k2) / 2:.2f} steps/s; dense "
             f"{(d1 + d2) / 2:.2f} steps/s [{card}]")
+    log_serving(card)
     return times
 
 
@@ -1869,6 +2007,18 @@ def main_rdma_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) ->
                   for name in RDMA_KERNEL.values()], smi, kind)
 
 
+def main_kernel_times(gen, smi: str) -> None:
+    """`chip_smoke.py --kernel-times`: the gravity and disc eye timings of
+    phase 5 and the serving steps alone, on whichever nenbody_tpu_torch is
+    first on sys.path (an older checkout's, to compare two trees' kernels in
+    one call with one harness)."""
+    import nenbody_tpu_torch
+    log("times", f"package {nenbody_tpu_torch.__file__}")
+    with torch.no_grad():
+        phase_gravity_disc_times(gen, smi)
+        log_serving(smi)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1891,6 +2041,8 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = Errors()
+    if sys.argv[1:] == ["--kernel-times"]:
+        return main_kernel_times(gen, smi)
     if len(sys.argv) > 1:
         return main_rdma_cards(errors, gen, smi, kind, t_start)
     with torch.no_grad():
@@ -1913,7 +2065,8 @@ def main() -> None:
     appearance_counts = phase_appearance(errors, smi)
     paths += [training, wf_training, ring_counts, rdma_counts, appearance_counts]
     with torch.no_grad():
-        times = phase_times(gen, smi)
+        times, shapes = phase_gravity_disc_times(gen, smi)
+        times.update(phase_times(gen, smi))
         times.update(phase_ring_times(gen, smi))
         times.update(phase_rdma_times(gen, smi, rdma_mesh(1)))
         forms = phase_appearance_times(gen, smi)
@@ -1931,6 +2084,8 @@ def main() -> None:
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         if name in forms:
             kernels[-1]["forms"] = forms[name]
+        if name in shapes:
+            kernels[-1]["shapes"] = shapes[name]
     print_result(kernels, smi, kind)
 
 

@@ -8,57 +8,252 @@
 // the self-pair included (zero numerator, bias keeps the denominator
 // finite), exactly as nenbody_tpu_torch/physics/dense.py.
 //
-// What bounds it: the fp32 pipe. Each pair costs 8 flops plus one divide
-// (an exact IEEE divide is a reciprocal plus Newton refinement, several
-// instructions), against 8 bytes of position that every thread of a block
-// shares. Design: one thread per i keeps its accumulators in registers;
-// the block stages j-tiles of TILE float2 positions in shared memory, so
-// each position is read from device memory once per block, not once per
-// thread. A batch of envs rides blockIdx.y; the ragged tails of i and j are
-// masked by bounds (no padding). Built with -fmad=false so the products
-// round like the plain PyTorch version.
+// What bounds it: instruction issue on the fp32 pipe. Built with
+// -fmad=false (the products round like the plain PyTorch version), a pair
+// is 12 fp32 instructions (two differences, two squares, two adds, one
+// Newton step, two products, two accumulations) and one MUFU reciprocal:
+// at one warp instruction per scheduler and clock, about 1.7 ms at
+// N=65,536 on 132 SMs at 1.98 GHz, against the 0.7 ms the FMA-counted peak
+// gives. Design:
+// - T threads per block, R bodies per thread (register blocking): each x_j
+//   read from shared memory feeds R pairs, and the R reciprocals are
+//   independent, so their latency overlaps.
+// - The block stages j-tiles of T positions in shared memory, one coalesced
+//   load per thread, the next tile prefetched into a register while the
+//   current one is summed; a full tile runs an unrolled loop of constant
+//   trip count, the ragged tail a masked one.
+// - The reciprocal is rcp.approx (MUFU, within 1 ulp) plus one Newton step
+//   in explicit fma, which -fmad=false leaves alone: as accurate as the IEEE
+//   divide's reciprocal within an ulp, without its per-pair slow-path
+//   branch (d2 >= bias > 0 never takes it).
+// - When the bodies alone would give an SM fewer than MIN_WARPS_PER_SM
+//   warps (N=1,024 gives 32 in all), the j range is split S ways (S <= 8)
+//   across the blocks of a thread-block cluster: each sums its chunk in j
+//   order, and the leader adds the S partials through distributed shared
+//   memory in rank order, so the result is deterministic and the call one
+//   launch.
+// gravity_plan picks T, R and S (large blocks of two bodies a thread for
+// large N, one-warp blocks of one for small N, as measured on an H100);
+// ops/pairwise.py::gravity_plan is its plain version and the two must
+// agree (nbt_gravity_plan exposes this one to the tests). A batch of envs
+// rides blockIdx.y; the ragged tails of i and j are masked by bounds (no
+// padding).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "pair_math.cuh"
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TILE = 256;
+constexpr int MAX_SPLIT = 8;  // the portable cluster size
+// the grid the plan aims for: enough warps on each SM to hide the MUFU and
+// shared-memory latencies
+constexpr int MIN_WARPS_PER_SM = 8;
 
+struct GravityPlan {
+  int threads;  // T, threads per block
+  int r;        // R, bodies per thread
+  int split;    // S, blocks (cluster ranks) sharing one i-block's j range
+  int chunk;    // j positions per rank, a multiple of T when split > 1
+  int blocks_i;
+};
+
+// The first (T, R) of T in 256, 128, 64, 32 and R in 2, 1 that leaves no
+// thread idle beyond the ragged tail and, with the split, gives each SM
+// MIN_WARPS_PER_SM warps; S doubled while the grid is smaller than that and
+// each rank keeps a whole tile. Without such a (T, R): one-warp blocks of
+// one body a thread, split as far as m allows.
+GravityPlan gravity_plan(int batch, int n, int m, int sms) {
+  const long long target = (long long)MIN_WARPS_PER_SM * sms;
+  GravityPlan plan{32, 1, 1, m, 1};
+  bool filled = false;
+  for (int t = 256; t >= 32 && !filled; t /= 2) {
+    for (int r = 2; r >= 1 && !filled; --r) {
+      if (r > 1 && n < t * r) continue;
+      const int bi = (n + t * r - 1) / (t * r);
+      int s = 1;
+      while (s < MAX_SPLIT && (long long)batch * bi * s * t / 32 < target && m >= 2 * s * t) {
+        s *= 2;
+      }
+      plan = GravityPlan{t, r, s, m, bi};
+      filled = (long long)batch * bi * s * t / 32 >= target;
+    }
+  }
+  if (plan.split > 1) {
+    const int per = (m + plan.split - 1) / plan.split;
+    plan.chunk = (per + plan.threads - 1) / plan.threads * plan.threads;
+  }
+  return plan;
+}
+
+template <bool APPROX>
+__device__ __forceinline__ float reciprocal(float d2) {
+  if (APPROX) return __fdividef(1.0f, d2);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2));
+  return __fmaf_rn(r, __fmaf_rn(-d2, r, 1.0f), r);
+}
+
+// (gx, gy) += (x_j - x_i) / (|x_j - x_i|^2 + bias), in the order of
+// pair_math.cuh::gravity_pair
+template <bool APPROX>
+__device__ __forceinline__ void pair(float2 xi, float2 xj, float bias, float& gx, float& gy) {
+  const float dx = xj.x - xi.x;
+  const float dy = xj.y - xi.y;
+  const float d2 = dx * dx + dy * dy + bias;
+  const float w = reciprocal<APPROX>(d2);
+  gx += dx * w;
+  gy += dy * w;
+}
+
+template <int T, int R, bool APPROX>
 __global__ void gravity_kernel(const float2* __restrict__ pos_i,
                                const float2* __restrict__ pos_j, float2* __restrict__ out,
-                               int n, int m, float g, float bias, int approx) {
-  __shared__ float2 tile[TILE];
+                               int n, int m, int split, int chunk, float g, float bias) {
+  __shared__ float2 tile[T];
+  __shared__ float2 partial[R * T];  // read by the cluster's leader
+  const int t = threadIdx.x;
   const int b = blockIdx.y;
-  const int i = blockIdx.x * TILE + threadIdx.x;
+  const int rank = blockIdx.x % split;  // the block's rank in its cluster
+  const int i0 = (blockIdx.x / split) * T * R + t;
   const float2* pj = pos_j + (long long)b * m;
-  float2 xi = make_float2(0.f, 0.f);
-  if (i < n) xi = pos_i[(long long)b * n + i];
-  float gx = 0.f, gy = 0.f;
-  for (int j0 = 0; j0 < m; j0 += TILE) {
-    const int j = j0 + threadIdx.x;
-    if (j < m) tile[threadIdx.x] = pj[j];
-    __syncthreads();
-    const int cnt = min(TILE, m - j0);
-    for (int k = 0; k < cnt; ++k) gravity_pair(xi, tile[k], bias, approx, gx, gy);
-    __syncthreads();
+  float2 xi[R];
+  float gx[R], gy[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * T;
+    xi[r] = i < n ? pos_i[(long long)b * n + i] : make_float2(0.f, 0.f);
+    gx[r] = 0.f;
+    gy[r] = 0.f;
   }
-  if (i < n) out[(long long)b * n + i] = make_float2(g * gx, g * gy);
+  const int j_begin = rank * chunk;
+  const int j_end = min(m, j_begin + chunk);
+  float2 next = j_begin + t < j_end ? pj[j_begin + t] : make_float2(0.f, 0.f);
+  for (int j0 = j_begin; j0 < j_end; j0 += T) {
+    __syncthreads();
+    tile[t] = next;
+    __syncthreads();
+    if (j0 + T + t < j_end) next = pj[j0 + T + t];
+    if (j0 + T <= j_end) {
+#pragma unroll 32
+      for (int k = 0; k < T; ++k) {
+        const float2 xj = tile[k];
+#pragma unroll
+        for (int r = 0; r < R; ++r) pair<APPROX>(xi[r], xj, bias, gx[r], gy[r]);
+      }
+    } else {
+      for (int k = 0; k < j_end - j0; ++k) {
+        const float2 xj = tile[k];
+#pragma unroll
+        for (int r = 0; r < R; ++r) pair<APPROX>(xi[r], xj, bias, gx[r], gy[r]);
+      }
+    }
+  }
+
+  if (split > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+    for (int r = 0; r < R; ++r) partial[r * T + t] = make_float2(gx[r], gy[r]);
+    cluster.sync();
+    if (rank == 0) {
+      for (int s = 1; s < split; ++s) {
+        const float2* other = cluster.map_shared_rank(partial, s);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float2 v = other[r * T + t];
+          gx[r] += v.x;
+          gy[r] += v.y;
+        }
+      }
+    }
+    cluster.sync();  // every partial stays in shared memory until the leader has read it
+    if (rank != 0) return;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * T;
+    if (i < n) out[(long long)b * n + i] = make_float2(g * gx[r], g * gy[r]);
+  }
+}
+
+template <int T, int R, bool APPROX>
+cudaError_t launch(const GravityPlan& plan, const float2* pos_i, const float2* pos_j,
+                   float2* out, int batch, int n, int m, float g, float bias,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.blocks_i * plan.split, batch);
+  cfg.blockDim = dim3(T);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = plan.split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, gravity_kernel<T, R, APPROX>, pos_i, pos_j, out, n, m,
+                            plan.split, plan.chunk, g, bias);
+}
+
+// The instantiation of gravity_kernel that `plan` names.
+template <int T>
+cudaError_t launch_plan(const GravityPlan& plan, bool approx, const float2* pos_i,
+                        const float2* pos_j, float2* out, int batch, int n, int m, float g,
+                        float bias, cudaStream_t stream) {
+  if (plan.r == 2) {
+    return approx ? launch<T, 2, true>(plan, pos_i, pos_j, out, batch, n, m, g, bias, stream)
+                  : launch<T, 2, false>(plan, pos_i, pos_j, out, batch, n, m, g, bias, stream);
+  }
+  return approx ? launch<T, 1, true>(plan, pos_i, pos_j, out, batch, n, m, g, bias, stream)
+                : launch<T, 1, false>(plan, pos_i, pos_j, out, batch, n, m, g, bias, stream);
+}
+
+int multiprocessors() {
+  static int sms = 0;  // the first card's; queried once, outside any graph capture
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
 }
 
 }  // namespace
 
 // pos_i [B, N, 2], pos_j [B, M, 2] (may alias pos_i), out [B, N, 2]; all
-// fp32, contiguous. Returns cudaGetLastError() after the launch.
+// fp32, contiguous. Returns the launch's error, else cudaGetLastError().
 extern "C" int nbt_gravity_forces(const void* pos_i, const void* pos_j, void* out, int batch,
                                   int n, int m, float g, float bias, int approx,
                                   void* stream) {
   if (batch > 0 && n > 0) {
-    dim3 grid((n + TILE - 1) / TILE, batch);
-    gravity_kernel<<<grid, TILE, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float2*>(pos_i), static_cast<const float2*>(pos_j),
-        static_cast<float2*>(out), n, m, g, bias, approx);
+    const GravityPlan plan = gravity_plan(batch, n, m, multiprocessors());
+    const auto* pi = static_cast<const float2*>(pos_i);
+    const auto* pj = static_cast<const float2*>(pos_j);
+    auto* o = static_cast<float2*>(out);
+    auto* st = static_cast<cudaStream_t>(stream);
+    const bool ap = approx != 0;
+    cudaError_t err;
+    switch (plan.threads) {
+      case 256: err = launch_plan<256>(plan, ap, pi, pj, o, batch, n, m, g, bias, st); break;
+      case 128: err = launch_plan<128>(plan, ap, pi, pj, o, batch, n, m, g, bias, st); break;
+      case 64: err = launch_plan<64>(plan, ap, pi, pj, o, batch, n, m, g, bias, st); break;
+      default: err = launch_plan<32>(plan, ap, pi, pj, o, batch, n, m, g, bias, st); break;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan nbt_gravity_forces launches for (batch, n, m) on a card with
+// `sms` SMs: out[0..4] = T, R, S, chunk, i-blocks.
+extern "C" int nbt_gravity_plan(int batch, int n, int m, int sms, void* out) {
+  const GravityPlan plan = gravity_plan(batch, n, m, sms);
+  int* o = static_cast<int*>(out);
+  o[0] = plan.threads;
+  o[1] = plan.r;
+  o[2] = plan.split;
+  o[3] = plan.chunk;
+  o[4] = plan.blocks_i;
+  return 0;
 }

@@ -18,7 +18,7 @@
 //
 // What bounds it: the fp32 pipe, as in the forward: one exact divide and
 // about 16 flops per pair against 16 bytes of (x_j, u_j) that every thread
-// of a block shares. Design: gravity.cu's. One thread per k keeps (x_k, u_k)
+// of a block shares. Design: one thread per k keeps (x_k, u_k)
 // and its two accumulators in registers; the block stages j-tiles of TILE
 // (x_j, u_j) pairs as float4 in shared memory; a batch of envs rides
 // blockIdx.y; ragged tails are masked by bounds. Built with -fmad=false.

@@ -1,9 +1,11 @@
 // The pair arithmetic of the physics and disc-eye kernels, shared by the
-// single-device kernels (gravity.cu, boids.cu, boids_partials.cu,
-// disc_eye.cu) and the RDMA ring (rdma_ring.cu), so that a ring hop's
-// partial rounds exactly as the single-device kernel's. Every function
-// makes its products and sums in the plain PyTorch versions' order; the
-// kernels are built with -fmad=false, so none is contracted.
+// single-device kernels (boids.cu, boids_partials.cu, disc_eye.cu) and the
+// RDMA ring (rdma_ring.cu), so that a ring hop's partial rounds exactly as
+// the single-device kernel's. gravity.cu makes gravity_pair's products and
+// sums in the same order with its own reciprocal (rcp.approx and a Newton
+// step, within an ulp of this IEEE divide). Every function makes its
+// products and sums in the plain PyTorch versions' order; the kernels are
+// built with -fmad=false, so none is contracted.
 
 #pragma once
 

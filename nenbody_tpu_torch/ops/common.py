@@ -54,6 +54,7 @@ _F = ctypes.c_float
 # C signature of every kernel entry point (all return cudaGetLastError()).
 SIGNATURES = {
     "nbt_gravity_forces": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
+    "nbt_gravity_plan": [_I, _I, _I, _I, _P],  # the launch shape it picks (no launch)
     "nbt_boids_velocity": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     "nbt_disc_eye": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],

@@ -19,6 +19,14 @@ the kernel's header). `disc_eye` and `render_rows_tiled` route through the
 Function when an input requires grad; the plain backward is autograd
 through the plain renderer, chunk by chunk over eyes.
 
+The kernel projects only the (eye, target) pairs that may be visible
+(`disc_maybe_visible`, a frustum test without a divide), runs the exact
+per-pixel test of each only on the pixels its widened footprint can reach
+(`disc_pixel_ranges`), and keeps each pixel's least (depth, index) key.
+Those two functions are the culls in plain PyTorch with the kernel's
+float32 expressions (they must agree); the CPU tests prove them
+conservative against the exact test.
+
 Appearance: `albedo` (one per target) and `texture` ([Ht, Wt], shared by
 every env) cover the Pallas kernels' `has_alb` and `raw` forms. The JAX
 package's raw form writes the winner's signed offset, 1/du and albedo for
@@ -41,6 +49,51 @@ from .common import (
     KERNELS, appearance_args, check_batch, check_kernel_args, check_pullback_args, flat_batch,
     needs_grad, stream_handle, use_kernel,
 )
+
+
+# csrc/disc_eye.cu's pixel ranges widen a footprint by an eighth of a pixel
+# and by RANGE_SLACK of |u_c| + thr du + 1: far above the roundings of the
+# exact test, of the pixel centres and of the range's own arithmetic; its
+# frustum test without a divide widens the frustum by FRUSTUM_SLACK of f t + r
+RANGE_SLACK, FRUSTUM_SLACK = 2.0 ** -16, 2.0 ** -20
+
+
+def disc_maybe_visible(eye_pos, eye_dir, tgt, cfg: VisionConfig) -> torch.Tensor:
+    """[..., E, M] bool: csrc/disc_eye.cu's may_be_visible, with the same
+    float32 expressions (which must agree): near < f < far and |l| <= (f t +
+    r)(1 + FRUSTUM_SLACK), with f and l as camera.project makes them. Every
+    target camera.project calls visible passes it."""
+    rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
+    dx, dy = eye_dir[..., None, 0], eye_dir[..., None, 1]
+    rx, ry = rel[..., 0], rel[..., 1]
+    f = rx * dx + ry * dy
+    l = rx * dy - ry * dx
+    bound = (f * camera.tan_half_fov(cfg) + cfg.sprite_radius) * (1.0 + FRUSTUM_SLACK)
+    return (f > cfg.near) & (f < cfg.far) & (l.abs() <= bound)
+
+
+def disc_pixel_ranges(eye_pos, eye_dir, tgt, cfg: VisionConfig):
+    """(lo, hi, reach_plus) [..., E, M]: the pixels [lo, hi] (int64) of eye
+    e's line that csrc/disc_eye.cu tests target m on (lo > hi: none, an
+    invisible target), and the distance from the footprint centre u_c
+    within which it runs the exact test on a pixel centre: its
+    disc_pixel_range with the same float32 expressions, which must agree.
+    reach_plus is thr du plus RANGE_SLACK of |u_c| + thr du + 1, and the
+    range holds the centres within reach_plus + 0.25/W (an eighth of a
+    pixel more), so that no pixel the exact test covers is left out."""
+    w = cfg.width
+    rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
+    u_c, du, _, visible = camera.project(rel, eye_dir, cfg)
+    du = du.clamp(min=1e-30)
+    inv_w = torch.tensor(1.0 / w, dtype=torch.float32, device=du.device)
+    thr = 1.0 + inv_w / du if cfg.antialias else torch.ones_like(du)
+    reach = thr * du
+    reach_plus = reach + (u_c.abs() + reach + 1.0) * RANGE_SLACK
+    r = reach_plus + 0.25 * inv_w
+    half_w = 0.5 * w
+    lo = ((u_c - r + 1.0) * half_w - 0.5).clamp(min=-1.0).ceil().long().clamp(min=0)
+    hi = ((u_c + r + 1.0) * half_w - 0.5).clamp(max=float(w)).floor().long().clamp(max=w - 1)
+    return torch.where(visible, lo, 1), torch.where(visible, hi, 0), reach_plus
 
 
 def disc_eye_plain(eye_pos, eye_dir, tgt, cfg: VisionConfig, albedo=None, texture=None):

@@ -11,6 +11,7 @@ oracle (tests/test_kernels.py, tests/test_diff_vision.py), with the reason
 beside each.
 """
 
+import ctypes
 import dataclasses
 
 import pytest
@@ -615,3 +616,192 @@ def test_appearance_paths_launch_the_kernels(cuda):
         _close(got[0], one[0], 1e-5, 3e-4)
     with pytest.raises(NotImplementedError, match="albedo or texture"):
         raycast.render_rows_tiled(pos.clone().requires_grad_(), vel, disc, texture=tex)
+
+
+# -- the disc eye's culls and gravity's plan and split sum --------------------
+
+
+def _plain_winner(eye_pos, eye_dir, tgt, cfg):
+    """The plain renderer's winner index (vision.render.eye_rows's argmin
+    over the covered targets' depths; -1 where none covers the pixel)."""
+    rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
+    u_c, du, f, visible = camera.project(rel, eye_dir, cfg)
+    safe_du = du.clamp(min=1e-30)
+    off = (camera.pixel_centers(cfg, device=eye_pos.device) - u_c[..., None]) / safe_du[..., None]
+    thr = 1.0 + ((1.0 / cfg.width) / safe_du)[..., None] if cfg.antialias else 1.0
+    cover = visible[..., None] & (off.abs() < thr)
+    field = torch.where(cover, f[..., None], torch.full_like(off, float("inf")))
+    winner = field.argmin(dim=-2)  # the first minimum: the lowest index of a tie
+    best = field.gather(-2, winner[..., None, :]).squeeze(-2)
+    return torch.where(torch.isfinite(best), winner, -1).to(torch.int32)
+
+
+def _frame_targets(kind, b, m, w, aa, device, seed):
+    """(eye_pos [b, 1, 2], eye_dir [b, 1, 2], tgt [b, m, 2]): targets placed
+    in each env's eye frame (t = 1) with the footprint centre on a pixel
+    boundary ('boundaries') or the footprint's edge a few ulps from the
+    centre of the first or last pixel of a 32-pixel span ('edges')."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    eye = torch.rand((b, 1, 2), generator=g, device=device) * 100 - 50
+    d = camera.unit_heading(torch.rand((b, 1, 2), generator=g, device=device) * 2 - 1)
+    f = torch.rand((b, m), generator=g, device=device) * 58 + 2
+    if kind == "boundaries":
+        u = 2.0 * torch.randint(0, w + 1, (b, m), generator=g, device=device) / w - 1.0
+    else:
+        first = 32 * torch.randint(0, -(-w // 32), (b, m), generator=g, device=device)
+        low = torch.rand((b, m), generator=g, device=device) < 0.5
+        end = torch.where(low, first, (first + 31).clamp(max=w - 1))
+        reach = 1.0 / f + (1.0 / w if aa else 0.0)  # thr du at t = 1, r = 1
+        u = (2.0 * (end + 0.5) / w - 1.0) + torch.where(low, -1.0, 1.0) * reach
+    right = torch.stack([d[..., 1], -d[..., 0]], dim=-1)
+    tgt = (eye + f[..., None] * d + (u * f)[..., None] * right).contiguous()
+    return eye.contiguous(), d.contiguous(), tgt
+
+
+def _hold_disc_exact(eye_pos, eye_dir, tgt, cfg, albedo=None, texture=None):
+    """The kernel's shade, depth and winner equal the plain version's bit
+    for bit (a power-of-two width: the pixel centres and 1/W are exact
+    on both sides)."""
+    if albedo is None and texture is None:
+        gs, gd, winner = raycast.disc_eye_with_winner(eye_pos, eye_dir, tgt, cfg)
+    else:
+        (gs, gd), winner = raycast.disc_eye(eye_pos, eye_dir, tgt, cfg, albedo, texture), None
+    ws, wd = raycast.disc_eye_plain(eye_pos, eye_dir, tgt, cfg, albedo, texture)
+    torch.cuda.synchronize()
+    assert (wd < cfg.far).any()
+    assert torch.equal(gd, wd) and torch.equal(gs, ws)
+    if winner is not None:
+        assert torch.equal(winner, _plain_winner(eye_pos, eye_dir, tgt, cfg))
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_exact_depth_ties_go_to_the_lowest_index(cuda, aa):
+    # every target twice, at one position: each pixel's winner is the first copy
+    pos = _uniform((2, 40, 2), -30, 30, 21, cuda)
+    tgt = torch.cat([pos, pos], dim=-2).contiguous()
+    dirs = camera.unit_heading(_uniform((2, 40, 2), -1, 1, 22, cuda))
+    cfg = VisionConfig(width=64, antialias=aa)
+    _hold_disc_exact(pos, dirs, tgt, cfg)
+    _, _, winner = raycast.disc_eye_with_winner(pos, dirs, tgt, cfg)
+    assert (winner < 40).all() and (winner >= 0).any()
+
+
+@pytest.mark.parametrize("kind", ["boundaries", "edges"])
+@pytest.mark.parametrize("w", [64, 1024])
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_footprints_on_pixel_boundaries_and_edges(cuda, kind, w, aa):
+    eye, d, tgt = _frame_targets(kind, 8, 300, w, aa, cuda, seed=w)
+    _hold_disc_exact(eye, d, tgt, VisionConfig(width=w, antialias=aa))
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 1024, 64), (4, 256, 64), (1, 300, 256), (1, 100, 1024)])
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_clustered_swarm_is_exact(cuda, b, n, w, aa):
+    # U(-8, 8): near targets with wide ranges, which the warp walks together
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -8, 8, n + w, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + w + 1, cuda))
+    _hold_disc_exact(pos, dirs, pos, VisionConfig(width=w, antialias=aa))
+
+
+@pytest.mark.parametrize("nt", [4096, 5000])
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_many_targets_cross_form(cuda, nt, aa):
+    # eyes against another, larger target set (a ring hop's cross form):
+    # many tiles, the last one ragged
+    eyes = _uniform((2, 96, 2), -100, 100, nt, cuda)
+    dirs = camera.unit_heading(_uniform((2, 96, 2), -1, 1, nt + 1, cuda))
+    tgt = _uniform((2, nt, 2), -100, 100, nt + 2, cuda)
+    _hold_disc_exact(eyes, dirs, tgt, VisionConfig(width=128, antialias=aa))
+
+
+@pytest.mark.parametrize("w", [17, 100])
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_odd_widths(cuda, w, aa):
+    # pixel centres go through a reciprocal in the plain version on the card
+    # (the appearance test's allowance); the winner is still the plain argmin
+    # wherever both cover the pixel alike
+    pos = _uniform((3, 200, 2), -60, 60, w, cuda)
+    dirs = camera.unit_heading(_uniform((3, 200, 2), -1, 1, w + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa)
+    gs, gd = raycast.disc_eye(pos, dirs, pos, cfg)
+    ws, wd = raycast.disc_eye_plain(pos, dirs, pos, cfg)
+    torch.cuda.synchronize()
+    beyond = ((gd < cfg.far) != (wd < cfg.far)) | ((gd - wd).abs() > 1e-4 + 1e-5 * wd.abs())
+    beyond |= (gs - ws).abs() > 1e-5 + 1e-5 * ws.abs()
+    assert (wd < cfg.far).any() and beyond.double().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("form", ["albedo", "texture", "albedo+texture"])
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_appearance_forms_are_exact(cuda, form, aa):
+    pos = _uniform((3, 128, 2), -40, 40, 31, cuda)
+    dirs = camera.unit_heading(_uniform((3, 128, 2), -1, 1, 32, cuda))
+    albedo, texture = _appearance(form, "staged", (3,), 128, cuda)
+    _hold_disc_exact(pos, dirs, pos, VisionConfig(width=256, antialias=aa), albedo, texture)
+
+
+def _gravity_plan_of_card(batch, n, m, sms):
+    out = (ctypes.c_int * 5)()
+    common.kernel_library().call("nbt_gravity_plan", batch, n, m, sms, ctypes.addressof(out))
+    return tuple(out)
+
+
+def test_gravity_plan_matches_the_kernels(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for count in (sms, 132, 16):
+        for batch in (1, 3, 4096):
+            for n, m in ((1, 1), (2, 2), (300, 77), (1024, 1024), (16384, 16384), (65537, 65537)):
+                assert _gravity_plan_of_card(batch, n, m, count) == pairwise.gravity_plan(
+                    batch, n, m, count)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1024])
+def test_gravity_kernel_small_and_split(cuda, n):
+    # N=1,024 splits the j range 8 ways across a cluster on an H100
+    pos = _uniform((n, 2), -100, 100, n + 7, cuda)
+    cfg = GravityConfig()
+    _close(pairwise.gravity_forces_tiled(pos, cfg), pairwise.gravity_forces_plain(pos, cfg),
+           3e-5, 1e-7)
+
+
+def test_gravity_kernel_ragged_large_n_against_float64(cuda):
+    # N=65,537: a ragged i block and j tile; the sum cancels heavily, so the
+    # error is normalised by max |g| against N * 2^-24 (chip_smoke.py phase 3)
+    n = 65537
+    pos = _uniform((n, 2), -100, 100, 8, cuda)
+    cfg = GravityConfig()
+    got = pairwise.gravity_forces_tiled(pos, cfg)
+    want = pairwise.gravity_forces_plain(pos.double(), cfg)
+    torch.cuda.synchronize()
+    err = ((got.double() - want).abs().max() / want.norm(dim=-1).max()).item()
+    assert err < n * 2.0 ** -24
+
+
+@pytest.mark.parametrize("b,n,m", [(4096, 256, 256), (3, 300, 1000), (2, 1000, 37)])
+def test_gravity_kernel_batched_and_cross(cuda, b, n, m):
+    pos = _uniform((b, n, 2), -100, 100, n, cuda)
+    pos_j = pos if m == n else _uniform((b, m, 2), -100, 100, m, cuda)
+    cfg = GravityConfig()
+    _close(pairwise.gravity_forces_tiled(pos, cfg, pos_j),
+           pairwise.gravity_forces_plain(pos, cfg, pos_j), 3e-5, 1e-7)
+
+
+@pytest.mark.parametrize("n", [300, 1024])
+def test_gravity_kernel_approx_mode_split(cuda, n):
+    pos = _uniform((n, 2), -100, 100, n + 3, cuda)
+    want = pairwise.gravity_forces_plain(pos, GravityConfig())
+    got = pairwise.gravity_forces_tiled(pos, GravityConfig(approx_reciprocal=True))
+    torch.cuda.synchronize()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-2
+
+
+@pytest.mark.parametrize("shape", [(1024, 2), (16384, 2), (4096, 256, 2)])
+def test_gravity_kernel_repeats_bit_for_bit(cuda, shape):
+    # the cluster's leader adds the partials in rank order: 20 more launches
+    # give the first one's bits
+    pos = _uniform(shape, -100, 100, 9, cuda)
+    cfg = GravityConfig()
+    first = pairwise.gravity_forces_tiled(pos, cfg)
+    for _ in range(20):
+        assert torch.equal(pairwise.gravity_forces_tiled(pos, cfg), first)
