@@ -11,9 +11,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes (the backward kernels and the
                 wireframe eye also at the trainers'), with the tolerance
-                stated (the disc eye equal to it at power-of-two widths,
-                spread and clustered; gravity's split sum and batch 20
-                more times bit-identical); the autograd Functions' gradients on the card
+                stated (the disc eye and the wireframe eye equal to it at
+                power-of-two widths, spread and clustered, the wireframe
+                eye also at rows cut into segments, on sprites straddling
+                the near plane and on edges along a pixel's ray; gravity's
+                split sum and batch 20 more times bit-identical; boids at
+                each N where its launch plan changes T, R or S, the
+                kernel's plan equal to boids_plan); the autograd Functions' gradients on the card
                 against plain autograd; the ring's kernels (the boids
                 partials at 16,384 x 16,384, the gravity VJP's cross form
                 against float64, the wireframe backward at the eye's shapes
@@ -72,10 +76,13 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 width (antialias) with finite, nonzero d pos, d vel,
                 d albedo and d texture.
   5. times    — CUDA-event times of each kernel and its plain version,
-                alternated (plain, kernel, kernel, plain), gravity and the
-                disc eye at each shape of the main path with its bound
-                (GRAVITY_TIME_SHAPES, DISC_TIME_SHAPES: spread and
-                clustered, AA off and on), the eyes with and
+                alternated (plain, kernel, kernel, plain), gravity, the
+                disc eye, the wireframe eye and boids at each shape of the
+                main paths with its bound (GRAVITY_TIME_SHAPES,
+                DISC_TIME_SHAPES, WF_TIME_SHAPES, BOIDS_TIME_SHAPES: spread
+                and clustered, AA off and on), the share of pairs the
+                wireframe eye's frustum test keeps and its mean pixel range
+                per kept sprite, the eyes with and
                 without their winner index, steps/s of the config-2 rollout
                 (both sprites), reference-100 (wireframe) and entry(), ms
                 per Scene step + observe at configs 2-5 and reference-100, the
@@ -92,17 +99,19 @@ operations over the card's fp32 peak and the bytes over its memory rate,
 for the inputs timed; `library_ms` is null: no single PyTorch call computes
 any of these functions; the three eye kernels carry their appearance
 forms' times and bounds under `forms`, gravity and the disc eye their
-per-shape ms, plain_ms and bound_ms under `shapes`); the last line is
-{"ok": true, "device": {...}}.
+per-shape ms, plain_ms and bound_ms under `shapes`, as do the wireframe
+eye and boids); the last line is {"ok": true, "device": {...}}.
 `python3 chip_smoke.py --rdma-cards N` runs the RDMA phases alone with one
-shard on each of N cards; `--kernel-times` the gravity and disc eye timings
-and the serving steps alone (with another checkout first on sys.path, its
-kernels under the same harness). Imports no jax.
+shard on each of N cards; `--kernel-times` the gravity, disc eye,
+wireframe eye and boids timings and the serving steps alone (with another
+checkout first on sys.path, its kernels under the same harness). Imports
+no jax.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import itertools
@@ -170,10 +179,25 @@ DISC_TIME_SHAPES = [("config 2", 1, 1024, 64, 100), ("reference-100", 1, 100, 10
                     ("config-5 width", 4096, 256, 64, 100),
                     ("config 2 clustered", 1, 1024, 64, 8),
                     ("config-5 width clustered", 4096, 256, 64, 8)]
-SERVING_STEPS = [("config 2", "gravity-vision-1024", 50, None),
-                 ("config 3", "boids-4096", 20, None), ("config 4", "gravity-65536", 10, None),
-                 ("config 5", "envs-4096x256", 5, 4096),
-                 ("reference-100", "reference-100", 50, None)]
+# phase 5's shapes of the wireframe eye (label, envs, N, W, spawn half-range;
+# each spread and clustered) and of boids (label, envs, N, half-range)
+WF_TIME_SHAPES = [(label, b, n, w, half)
+                  for label, b, n, w in (("config 2", 1, 1024, 64),
+                                         ("reference-100", 1, 100, 1024),
+                                         ("N=1,024 W=1,024", 1, 1024, 1024),
+                                         ("64 envs", 64, 256, 64),
+                                         ("config-5 width", 4096, 256, 64))
+                  for half in (100, 8)]
+BOIDS_TIME_SHAPES = [("reference-100", 1, 100, 100), ("config 3", 1, 4096, 100),
+                     ("config 3 clustered", 1, 4096, 8), ("config 4", 1, 65536, 100),
+                     ("64 envs", 64, 256, 100)]
+SERVING_STEPS = [("config 2", "gravity-vision-1024", 50, None, "disc"),
+                 ("config 3", "boids-4096", 20, None, "disc"),
+                 ("config 4", "gravity-65536", 10, None, "disc"),
+                 ("config 5", "envs-4096x256", 5, 4096, "disc"),
+                 ("reference-100", "reference-100", 50, None, "disc"),
+                 ("config 2 wireframe", "gravity-vision-1024", 50, None, "wireframe"),
+                 ("reference-100 wireframe", "reference-100", 50, None, "wireframe")]
 TRAINING = ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd")
 WF_SERVING = ("gravity", "boids", "wireframe_eye")
 WF_TRAINING = {"reinforce": ("gravity", "wireframe_eye"),
@@ -285,6 +309,24 @@ class Errors:
             raise AssertionError(f"{label}: beyond its bound")
 
 
+def boids_plan_edges(sms: int, n_max: int) -> list:
+    """Each N <= n_max where boids_plan(1, N) changes T, R or S on a card of
+    `sms` SMs, and the N before it."""
+    edges, prev = set(), None
+    for n in range(1, n_max + 1):
+        plan = boids_ops.boids_plan(1, n, sms)[:3]
+        if prev is not None and plan != prev:
+            edges |= {n - 1, n}
+        prev = plan
+    return sorted(edges)
+
+
+def boids_plan_of_card(batch: int, n: int, sms: int) -> tuple:
+    out = (ctypes.c_int * 5)()
+    common.kernel_library().call("nbt_boids_plan", batch, n, sms, ctypes.addressof(out))
+    return tuple(out)
+
+
 def phase_kernels(errors: Errors, gen) -> None:
     # gravity at N=1,000 (tests/test_kernels.py:28 tolerances)
     gcfg = GravityConfig()
@@ -344,6 +386,31 @@ def phase_kernels(errors: Errors, gen) -> None:
     vb = uniform(gen, (5, 333, 2), -1, 1)
     errors.check("boids", "boids B=5 N=333", boids_ops.boids_velocity_tiled(pb, vb, bcfg),
                  boids_ops.boids_velocity_plain(pb, vb, bcfg), 3e-5, 1e-6)
+    # the launch plan on this card: at each N where it changes T, R or S and
+    # the N before, ragged tails included, the kernel's plan (nbt_boids_plan)
+    # equals boids_plan, and the kernel its plain version, with and without
+    # global_alignment (from its own generator: later phases keep their
+    # inputs). Beyond N=16,385 the cohesion sums run over thousands of
+    # positions and cancel where the mean is near 0, and the summation order
+    # alone moves such elements past atol (N=65,536: by up to 1.8e-6 on the
+    # H100), so there the error is held, normalised by max |want|, to the ring
+    # boids' bound against one device (RING_BOIDS_BOUND)
+    own = torch.Generator(device="cuda").manual_seed(9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in sorted(set(boids_plan_edges(sms, 65536)) | {65536}):
+        half = 20 if n < 1024 else 100
+        pos = uniform(own, (n, 2), -half, half)
+        vel = uniform(own, (n, 2), -1, 1)
+        plan = boids_ops.boids_plan(1, n, sms)
+        expect(boids_plan_of_card(1, n, sms) == plan, f"nbt_boids_plan(1, {n}) == {plan}")
+        want = boids_ops.boids_velocity_plain(pos, vel, bcfg)
+        for glob in (False, True):
+            got = boids_ops.boids_velocity_tiled(pos, vel, BoidsConfig(global_alignment=glob))
+            label = f"boids N={n} plan {plan[:3]} global_alignment={glob}"
+            if n <= 16385:
+                errors.check("boids", label, got, want, 3e-5, 1e-6)
+            else:
+                errors.check_scaled("boids", label, got, want, RING_BOIDS_BOUND)
 
     # The checks below that the parent tree lacked draw from their own
     # generator, so every later phase sees the inputs it always saw.
@@ -684,14 +751,63 @@ def wf_cfg(cfg: SimConfig, antialias: bool | None = None) -> SimConfig:
         cfg.vision, sprite_mode="wireframe", antialias=aa))
 
 
+def hold_wireframe(errors: Errors, label: str, got, want, vcfg: VisionConfig) -> None:
+    """The wireframe eye's (shade, depth, winner) against its plain
+    version's, at the JAX suite's tolerance (rtol 1e-5, atol 2e-4,
+    tests/test_wireframe_kernel.py): the kernel follows the plain division
+    route op for op, so no pixel may flip between hit and miss, the winner
+    index must equal the plain argmin's wherever the depths differ, and at a
+    power-of-two width (where the pixel centres agree) all three must be
+    equal."""
+    gs, gd, gw = got
+    ws, wd, ww = want
+    errors.check("wireframe_eye", label + " depth", gd, wd, 1e-5, 2e-4)
+    errors.check("wireframe_eye", label + " shade", gs, ws, 1e-5, 2e-4)
+    flips = int(((gd < vcfg.far) != (wd < vcfg.far)).sum())
+    other = gw.long() != ww
+    pow2 = vcfg.width & (vcfg.width - 1) == 0
+    equal = torch.equal(gd, wd) and torch.equal(gs, ws) and not other.any()
+    log("kernels", f"{label}: hit pixels {(wd < vcfg.far).double().mean().item():.3f}, "
+        f"flipped {flips} (bound 0), winners differing {int(other.sum())}, of them at "
+        f"differing depths {int((other & (gd != wd)).sum())} (bound 0); bit-equal {equal}"
+        + (" (required)" if pow2 else ""))
+    if flips or (other & (gd != wd)).any() or (pow2 and not equal):
+        raise AssertionError(f"{label}: flipped pixels or winners, or not bit-equal")
+
+
+def wf_frame(kind: str, b: int, m: int, w: int, gen):
+    """(eye_pos, eye_dir [b, 1, 2], tgt, hdg [b, m, 2]) on the card: sprites
+    in each env's eye frame (t = 1) straddling the near plane ('near_plane':
+    centres within 1.5 r of it) or with edge 0 along the ray of a pixel
+    centre, turned by less than 1e-6 rad ('edge_on': |den| near 0)."""
+    eye = uniform(gen, (b, 1, 2), -50, 50)
+    d = camera.unit_heading(uniform(gen, (b, 1, 2), -1, 1))
+    right = torch.stack([d[..., 1], -d[..., 0]], dim=-1)
+    if kind == "near_plane":
+        f = 1.0 + uniform(gen, (b, m), -1.5, 1.5)
+        lat = uniform(gen, (b, m), -1.5, 1.5) * f.clamp(min=0.5)
+        tgt = eye + f[..., None] * d + lat[..., None] * right
+        return eye, d, tgt.contiguous(), camera.unit_heading(uniform(gen, (b, m, 2), -1, 1))
+    f = uniform(gen, (b, m), 3.0, 40.0)
+    u = 2.0 * (torch.randint(0, w, (b, m), generator=gen, device="cuda") + 0.5) / w - 1.0
+    flip = (torch.rand((b, m), generator=gen, device="cuda") < 0.5) * math.pi
+    phi = torch.atan2(u, torch.ones_like(u)) + uniform(gen, (b, m), -1e-6, 1e-6) + flip
+    world = torch.cos(phi)[..., None] * d + torch.sin(phi)[..., None] * right
+    theta = torch.atan2(world[..., 1], world[..., 0]) - math.atan2(1.0, 2.0)  # edge 0 is (2, 1) r
+    c, s_ = torch.cos(theta), torch.sin(theta)
+    vert0 = eye + f[..., None] * d + (u * f)[..., None] * right
+    tgt = vert0 - torch.stack([-c + s_, -s_ - c], dim=-1)  # vert 0 is (-1, -1) r, turned
+    return eye, d, tgt.contiguous(), torch.stack([c, s_], dim=-1)
+
+
 def phase_wireframe_kernel(errors: Errors, gen) -> None:
-    """wireframe_eye against its plain version at the paths' shapes, AA off
-    and on, at the JAX suite's tolerance (rtol 1e-5, atol 2e-4,
-    tests/test_wireframe_kernel.py); the kernel follows the plain division
-    route op for op, so no pixel may flip between hit and miss, and the
-    winner index must equal the plain argmin's wherever the depths differ.
-    At the trainers' shape (4,096 envs) the plain version runs on the
-    first and last 64 envs of the kernel's batch."""
+    """wireframe_eye against its plain version (hold_wireframe) at the paths'
+    shapes, AA off and on; at the trainers' shape (4,096 envs) the plain
+    version runs on the first and last 64 envs of the kernel's batch. Then,
+    from their own generator (later phases keep their inputs): clustered
+    swarms (U(-8, 8), every sprite reaching many pixels) at the same shapes
+    and at rows cut into segments, sprites straddling the near plane, and
+    edges almost along a pixel's ray."""
     shapes = [(b, n, w, None) for b, n, w in WF_SHAPES]
     shapes.append((TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH, (slice(0, 64), slice(-64, None))))
     for b, n, w, envs in shapes:
@@ -703,20 +819,29 @@ def phase_wireframe_kernel(errors: Errors, gen) -> None:
             got = wireframe.wireframe_eye_with_winner(pos, dirs, pos, dirs, vcfg)
             parts = [slice(None)] if envs is None else list(envs)
             for part in parts:
-                gs, gd, gw = (x[part] for x in got)
-                ws, wd, ww = wireframe.wireframe_eye_plain(pos[part], dirs[part], pos[part],
-                                                           dirs[part], vcfg)
                 label = f"wireframe_eye B={b} N={n} W={w} aa={aa}" + (
                     "" if envs is None else f" envs[{part.start}:{part.stop}]")
-                errors.check("wireframe_eye", label + " depth", gd, wd, 1e-5, 2e-4)
-                errors.check("wireframe_eye", label + " shade", gs, ws, 1e-5, 2e-4)
-                flips = int(((gd < vcfg.far) != (wd < vcfg.far)).sum())
-                other = gw.long() != ww
-                log("kernels", f"{label}: hit pixels {(wd < vcfg.far).double().mean().item():.3f}, "
-                    f"flipped {flips} (bound 0), winners differing {int(other.sum())}, "
-                    f"of them at differing depths {int((other & (gd != wd)).sum())} (bound 0)")
-                if flips or (other & (gd != wd)).any():
-                    raise AssertionError(f"{label}: flipped pixels or winners")
+                hold_wireframe(errors, label, tuple(x[part] for x in got),
+                               wireframe.wireframe_eye_plain(pos[part], dirs[part], pos[part],
+                                                             dirs[part], vcfg), vcfg)
+    own = torch.Generator(device="cuda").manual_seed(8)
+    for b, n, w in WF_SHAPES + [(1, 300, 512), (3, 200, 2048)]:
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        pos = uniform(own, shape, -8, 8)
+        dirs = camera.unit_heading(uniform(own, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            hold_wireframe(errors, f"wireframe_eye B={b} N={n} W={w} U(-8, 8) aa={aa}",
+                           wireframe.wireframe_eye_with_winner(pos, dirs, pos, dirs, vcfg),
+                           wireframe.wireframe_eye_plain(pos, dirs, pos, dirs, vcfg), vcfg)
+    for kind in ("near_plane", "edge_on"):
+        for w in (64, 1024):
+            eye, d, tgt, hdg = wf_frame(kind, 8, 300, w, own)
+            for aa in (False, True):
+                vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+                hold_wireframe(errors, f"wireframe_eye {kind} 8 x 1 eye x 300 W={w} aa={aa}",
+                               wireframe.wireframe_eye_with_winner(eye, d, tgt, hdg, vcfg),
+                               wireframe.wireframe_eye_plain(eye, d, tgt, hdg, vcfg), vcfg)
 
 
 def phase_wireframe_grads() -> None:
@@ -1698,12 +1823,13 @@ def shape_entry(shape: str, k_ms: float, p_ms: float, b_ms: float) -> dict:
     return {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
 
 
-def phase_gravity_disc_times(gen, card: str):
-    """The serving path's gravity and disc eye at the main path's shapes,
-    each kernel's device time (graph_ms) alternated with its plain version,
-    each with its bound: (times of the `kernels` line's shapes, {kernel:
-    per-shape entries})."""
-    times, shapes = {}, {"gravity": [], "disc_eye": []}
+def phase_kernel_times(gen, card: str):
+    """The serving path's gravity, disc eye, wireframe eye and boids at the
+    main paths' shapes, each kernel's device time (graph_ms) alternated with
+    its plain version (not timed for the wireframe eye at config-5 width,
+    where it takes minutes), each with its bound: (times of the `kernels`
+    line's shapes, {kernel: per-shape entries})."""
+    times, shapes = {}, {"gravity": [], "disc_eye": [], "wireframe_eye": [], "boids": []}
     gcfg = GravityConfig()
     for b, n in GRAVITY_TIME_SHAPES:
         pos = uniform(gen, (b, n, 2) if b > 1 else (n, 2), -100, 100)
@@ -1738,14 +1864,80 @@ def phase_gravity_disc_times(gen, card: str):
                 f"kernel {k_ms:.4f} ms = {b * n_e / k_ms * 1e3:.4e} agent-frames/s; plain "
                 f"{p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}; {covered} covered pixels) "
                 f"[{card}]")
+
+    for label, b, n_e, w, half in WF_TIME_SHAPES:
+        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+        epos = uniform(gen, shape, -half, half)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            kernel = lambda: wireframe.wireframe_eye(epos, dirs, epos, dirs, vcfg)
+            if b == TRAIN_ENVS:
+                p_ms, k_ms = None, (graph_ms(kernel, 5) + graph_ms(kernel, 5)) / 2
+            else:
+                big = b * n_e * n_e * w > 1 << 26
+                p_ms, k_ms = alternate_graph(
+                    lambda: wireframe.wireframe_eye_plain(epos, dirs, epos, dirs, vcfg), kernel,
+                    1 if big else 2, 10 if big else 20)
+            ops = (b * n_e * n_e * (WF_PAIR_AA_OPS if aa else WF_PAIR_OPS)
+                   + wireframe_covered(epos, dirs, vcfg) * 3 * WF_EDGE_OPS)
+            b_ms, b_by = bound(ops, nbytes(epos, dirs) + 2 * b * n_e * w * 4)
+            where = f"{label} U(-{half}, {half}) {b} x {n_e} x {w} aa={aa}"
+            shapes["wireframe_eye"].append(shape_entry(where, k_ms, p_ms, b_ms))
+            if (b, n_e, w, half, aa) == (1, 1024, 64, 100, False):
+                times["wireframe_eye"] = (k_ms, p_ms, b_ms, b_by)
+            plain = "not timed" if p_ms is None else f"{p_ms:.4f} ms"
+            log("times", f"wireframe_eye {where}: kernel {k_ms:.4f} ms = "
+                f"{b * n_e / k_ms * 1e3:.4e} agent-frames/s; plain {plain}; bound {b_ms:.5f} ms "
+                f"({b_by}) [{card}]")
+
+    bcfg = BoidsConfig()
+    for label, b, n, half in BOIDS_TIME_SHAPES:
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        pos = uniform(gen, shape, -half, half)
+        vel = uniform(gen, shape, -1, 1)
+        big = b * n * n > 1 << 26
+        p_ms, k_ms = alternate_graph(lambda: boids_ops.boids_velocity_plain(pos, vel, bcfg),
+                                     lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg),
+                                     1 if big else 3, 10 if big else 20)
+        b_ms, b_by = bound(b * n * n * BOIDS_OPS, nbytes(pos, vel, vel))
+        shapes["boids"].append(shape_entry(f"{label} {b} x {n} U(-{half}, {half})", k_ms, p_ms,
+                                           b_ms))
+        if (b, n, half) == (1, 4096, 100):
+            times["boids"] = (k_ms, p_ms, b_ms, b_by)
+        log("times", f"boids {label} B={b} N={n} U(-{half}, {half}): kernel {k_ms:.4f} ms = "
+            f"{b * n * n / k_ms * 1e3:.4e} pair evals/s; plain {p_ms:.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}) [{card}]")
     return times, shapes
 
 
-def serving_ms(preset: str, steps: int, envs: int | None = None) -> float:
+def log_wireframe_culls(gen, card: str) -> None:
+    """The wireframe eye's culls at the timed shapes, from their plain models
+    on the card (the kernel computes the same expressions): the share of
+    (eye, target) pairs the frustum test keeps, and the mean pixel range (the
+    union of its edges') per kept sprite."""
+    for label, b, n_e, w, half in WF_TIME_SHAPES:
+        shape = (min(b, 128), n_e, 2) if b > 1 else (n_e, 2)
+        pos = uniform(gen, shape, -half, half)
+        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+            maybe = wireframe.wireframe_maybe_visible(pos, dirs, pos, vcfg)
+            lo, hi = wireframe.wireframe_pixel_ranges(pos, dirs, pos, dirs, vcfg)
+            width = (hi.max(-1).values - lo.min(-1).values + 1).clamp(min=0)
+            kept = maybe.double().mean().item()
+            mean = (width * maybe).sum().item() / max(1, int(maybe.sum()))
+            log("times", f"wireframe culls {label} U(-{half}, {half}) {shape[0] if b > 1 else 1} "
+                f"x {n_e} x {w} aa={aa}: frustum test keeps {kept:.4f} of the pairs; mean "
+                f"pixel range per kept sprite {mean:.3f} px [{card}]")
+
+
+def serving_ms(preset: str, steps: int, envs: int | None = None, sprite: str = "disc") -> float:
     """ms per Scene step + observe (step alone without an eye): the host
     clock around `steps` steps ending in a synchronize, the median of 5 runs
     after one of warm-up."""
-    scene = Scene(PRESETS[preset](), device="cuda")
+    cfg = PRESETS[preset]()
+    scene = Scene(cfg if sprite == "disc" else wf_cfg(cfg), device="cuda")
     state = scene.spawn(0) if envs is None else scene.spawn_envs(envs, seed=0)
 
     def run() -> float:
@@ -1765,8 +1957,8 @@ def serving_ms(preset: str, steps: int, envs: int | None = None) -> float:
 
 
 def log_serving(card: str) -> None:
-    for label, preset, steps, envs in SERVING_STEPS:
-        log("times", f"serving {label}: {serving_ms(preset, steps, envs):.4f} ms per step + "
+    for label, preset, steps, envs, sprite in SERVING_STEPS:
+        log("times", f"serving {label}: {serving_ms(preset, steps, envs, sprite):.4f} ms per step + "
             f"observe, median of 5 runs of {steps} steps [{card}]")
 
 
@@ -1774,18 +1966,7 @@ def phase_times(gen, card: str) -> dict:
     times = {}
     n = 65536
     pos = uniform(gen, (n, 2), -100, 100)
-    vel = uniform(gen, (n, 2), -1, 1)
-    gcfg, bcfg = GravityConfig(), BoidsConfig()
-    p_ms, k_ms = alternate(lambda: boids_ops.boids_velocity_plain(pos, vel, bcfg),
-                           lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg), 1, 5)
-    log("times", f"boids N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair evals/s; "
-        f"plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
-    pos4 = uniform(gen, (4096, 2), -100, 100)
-    vel4 = uniform(gen, (4096, 2), -1, 1)
-    p4, k4 = alternate(lambda: boids_ops.boids_velocity_plain(pos4, vel4, bcfg),
-                       lambda: boids_ops.boids_velocity_tiled(pos4, vel4, bcfg), 3, 20)
-    times["boids"] = (k4, p4, *bound(4096 * 4096 * BOIDS_OPS, nbytes(pos4, vel4, vel4)))
-    log("times", f"boids N=4096 (config 3): kernel {k4:.3f} ms; plain {p4:.3f} ms [{card}]")
+    gcfg = GravityConfig()
 
     # the backward kernels against their plain versions
     u = torch.randn((n, 2), generator=gen, device="cuda")
@@ -1826,38 +2007,18 @@ def phase_times(gen, card: str) -> dict:
             f"without the winner index {bare:.3f} ms, writing it {with_winner:.3f} ms "
             f"({with_winner / bare - 1:+.2%}) [{card}]")
 
-    # the wireframe eye against its plain version, and its bound, at the
-    # phase-3 shapes; at the trainers' shape the kernel alone, with and
-    # without its winner index
-    for b, n_e, w in WF_SHAPES + [(TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)]:
-        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
-        epos = uniform(gen, shape, -100, 100)
-        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
-        for aa in (False, True):
-            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
-            ops = (b * n_e * n_e * (WF_PAIR_AA_OPS if aa else WF_PAIR_OPS)
-                   + wireframe_covered(epos, dirs, vcfg) * 3 * WF_EDGE_OPS)
-            b_ms, b_by = bound(ops, nbytes(epos, dirs) + 2 * b * n_e * w * 4)
-            frames = b * n_e
-            if b == TRAIN_ENVS:
-                k_ms, with_winner = alternate(
-                    lambda: wireframe.wireframe_eye(epos, dirs, epos, dirs, vcfg),
-                    lambda: wireframe.wireframe_eye_with_winner(epos, dirs, epos, dirs, vcfg),
-                    3, 3)
-                log("times", f"wireframe_eye {b} x {n_e} x {w} aa={aa}: kernel {k_ms:.3f} ms = "
-                    f"{frames / k_ms * 1e3:.4e} agent-frames/s, writing the winner index "
-                    f"{with_winner:.3f} ms; bound {b_ms:.4f} ms ({b_by}) [{card}]")
-                continue
-            p_ms, k_ms = alternate(lambda: wireframe.wireframe_eye_plain(epos, dirs, epos, dirs,
-                                                                         vcfg),
-                                   lambda: wireframe.wireframe_eye(epos, dirs, epos, dirs, vcfg),
-                                   2, 10)
-            if (b, n_e, w, aa) == (1, 1024, 64, False):
-                times["wireframe_eye"] = (k_ms, p_ms, b_ms, b_by)
-            log("times", f"wireframe_eye B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
-                f"{frames / k_ms * 1e3:.4e} agent-frames/s; plain {p_ms:.3f} ms = "
-                f"{frames / p_ms * 1e3:.4e} agent-frames/s; bound {b_ms:.4f} ms ({b_by}) "
-                f"[{card}]")
+    # what writing the winner index costs the wireframe eye at the trainers' shape
+    shape = (TRAIN_ENVS, TRAIN_AGENTS, 2)
+    epos = uniform(gen, shape, -100, 100)
+    dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+    for aa in (False, True):
+        vcfg = VisionConfig(width=TRAIN_WIDTH, antialias=aa, sprite_mode="wireframe")
+        bare, with_winner = alternate(
+            lambda: wireframe.wireframe_eye(epos, dirs, epos, dirs, vcfg),
+            lambda: wireframe.wireframe_eye_with_winner(epos, dirs, epos, dirs, vcfg), 5, 5)
+        log("times", f"wireframe_eye {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH} aa={aa}: "
+            f"without the winner index {bare:.3f} ms, writing it {with_winner:.3f} ms "
+            f"({with_winner / bare - 1:+.2%}) [{card}]")
 
     # steps/s of the rollouts and of entry(): kernels vs dense, on the card
     def rollout_rate(backend: str, preset: str = "gravity-vision-1024",
@@ -2008,14 +2169,14 @@ def main_rdma_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) ->
 
 
 def main_kernel_times(gen, smi: str) -> None:
-    """`chip_smoke.py --kernel-times`: the gravity and disc eye timings of
-    phase 5 and the serving steps alone, on whichever nenbody_tpu_torch is
-    first on sys.path (an older checkout's, to compare two trees' kernels in
-    one call with one harness)."""
+    """`chip_smoke.py --kernel-times`: the gravity, disc eye, wireframe eye
+    and boids timings of phase 5 and the serving steps alone, on whichever
+    nenbody_tpu_torch is first on sys.path (an older checkout's, to compare
+    two trees' kernels in one call with one harness)."""
     import nenbody_tpu_torch
     log("times", f"package {nenbody_tpu_torch.__file__}")
     with torch.no_grad():
-        phase_gravity_disc_times(gen, smi)
+        phase_kernel_times(gen, smi)
         log_serving(smi)
 
 
@@ -2065,7 +2226,8 @@ def main() -> None:
     appearance_counts = phase_appearance(errors, smi)
     paths += [training, wf_training, ring_counts, rdma_counts, appearance_counts]
     with torch.no_grad():
-        times, shapes = phase_gravity_disc_times(gen, smi)
+        times, shapes = phase_kernel_times(gen, smi)
+        log_wireframe_culls(gen, smi)
         times.update(phase_times(gen, smi))
         times.update(phase_ring_times(gen, smi))
         times.update(phase_rdma_times(gen, smi, rdma_mesh(1)))

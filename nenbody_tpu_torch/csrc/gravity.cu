@@ -32,60 +32,25 @@
 //   order, and the leader adds the S partials through distributed shared
 //   memory in rank order, so the result is deterministic and the call one
 //   launch.
-// gravity_plan picks T, R and S (large blocks of two bodies a thread for
-// large N, one-warp blocks of one for small N, as measured on an H100);
-// ops/pairwise.py::gravity_plan is its plain version and the two must
-// agree (nbt_gravity_plan exposes this one to the tests). A batch of envs
+// pair_plan.cuh's pair_plan picks T, R and S (large blocks of two bodies a
+// thread for large N, one-warp blocks of one for small N, as measured on an
+// H100); ops/pairwise.py::gravity_plan is its plain version and the two
+// must agree (nbt_gravity_plan exposes this one to the tests). A batch of envs
 // rides blockIdx.y; the ragged tails of i and j are masked by bounds (no
 // padding).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "pair_plan.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAX_SPLIT = 8;  // the portable cluster size
 // the grid the plan aims for: enough warps on each SM to hide the MUFU and
 // shared-memory latencies
 constexpr int MIN_WARPS_PER_SM = 8;
-
-struct GravityPlan {
-  int threads;  // T, threads per block
-  int r;        // R, bodies per thread
-  int split;    // S, blocks (cluster ranks) sharing one i-block's j range
-  int chunk;    // j positions per rank, a multiple of T when split > 1
-  int blocks_i;
-};
-
-// The first (T, R) of T in 256, 128, 64, 32 and R in 2, 1 that leaves no
-// thread idle beyond the ragged tail and, with the split, gives each SM
-// MIN_WARPS_PER_SM warps; S doubled while the grid is smaller than that and
-// each rank keeps a whole tile. Without such a (T, R): one-warp blocks of
-// one body a thread, split as far as m allows.
-GravityPlan gravity_plan(int batch, int n, int m, int sms) {
-  const long long target = (long long)MIN_WARPS_PER_SM * sms;
-  GravityPlan plan{32, 1, 1, m, 1};
-  bool filled = false;
-  for (int t = 256; t >= 32 && !filled; t /= 2) {
-    for (int r = 2; r >= 1 && !filled; --r) {
-      if (r > 1 && n < t * r) continue;
-      const int bi = (n + t * r - 1) / (t * r);
-      int s = 1;
-      while (s < MAX_SPLIT && (long long)batch * bi * s * t / 32 < target && m >= 2 * s * t) {
-        s *= 2;
-      }
-      plan = GravityPlan{t, r, s, m, bi};
-      filled = (long long)batch * bi * s * t / 32 >= target;
-    }
-  }
-  if (plan.split > 1) {
-    const int per = (m + plan.split - 1) / plan.split;
-    plan.chunk = (per + plan.threads - 1) / plan.threads * plan.threads;
-  }
-  return plan;
-}
 
 template <bool APPROX>
 __device__ __forceinline__ float reciprocal(float d2) {
@@ -178,7 +143,7 @@ __global__ void gravity_kernel(const float2* __restrict__ pos_i,
 }
 
 template <int T, int R, bool APPROX>
-cudaError_t launch(const GravityPlan& plan, const float2* pos_i, const float2* pos_j,
+cudaError_t launch(const PairPlan& plan, const float2* pos_i, const float2* pos_j,
                    float2* out, int batch, int n, int m, float g, float bias,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -198,7 +163,7 @@ cudaError_t launch(const GravityPlan& plan, const float2* pos_i, const float2* p
 
 // The instantiation of gravity_kernel that `plan` names.
 template <int T>
-cudaError_t launch_plan(const GravityPlan& plan, bool approx, const float2* pos_i,
+cudaError_t launch_plan(const PairPlan& plan, bool approx, const float2* pos_i,
                         const float2* pos_j, float2* out, int batch, int n, int m, float g,
                         float bias, cudaStream_t stream) {
   if (plan.r == 2) {
@@ -209,16 +174,6 @@ cudaError_t launch_plan(const GravityPlan& plan, bool approx, const float2* pos_
                 : launch<T, 1, false>(plan, pos_i, pos_j, out, batch, n, m, g, bias, stream);
 }
 
-int multiprocessors() {
-  static int sms = 0;  // the first card's; queried once, outside any graph capture
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 }  // namespace
 
 // pos_i [B, N, 2], pos_j [B, M, 2] (may alias pos_i), out [B, N, 2]; all
@@ -227,7 +182,7 @@ extern "C" int nbt_gravity_forces(const void* pos_i, const void* pos_j, void* ou
                                   int n, int m, float g, float bias, int approx,
                                   void* stream) {
   if (batch > 0 && n > 0) {
-    const GravityPlan plan = gravity_plan(batch, n, m, multiprocessors());
+    const PairPlan plan = pair_plan(batch, n, m, multiprocessors(), MIN_WARPS_PER_SM, MAX_SPLIT);
     const auto* pi = static_cast<const float2*>(pos_i);
     const auto* pj = static_cast<const float2*>(pos_j);
     auto* o = static_cast<float2*>(out);
@@ -248,12 +203,6 @@ extern "C" int nbt_gravity_forces(const void* pos_i, const void* pos_j, void* ou
 // The plan nbt_gravity_forces launches for (batch, n, m) on a card with
 // `sms` SMs: out[0..4] = T, R, S, chunk, i-blocks.
 extern "C" int nbt_gravity_plan(int batch, int n, int m, int sms, void* out) {
-  const GravityPlan plan = gravity_plan(batch, n, m, sms);
-  int* o = static_cast<int*>(out);
-  o[0] = plan.threads;
-  o[1] = plan.r;
-  o[2] = plan.split;
-  o[3] = plan.chunk;
-  o[4] = plan.blocks_i;
+  write_plan(pair_plan(batch, n, m, sms, MIN_WARPS_PER_SM, MAX_SPLIT), out);
   return 0;
 }

@@ -12,6 +12,11 @@ the velocity, and the speed clamp and x += v*dt happen outside (ops.tiled).
 With `global_alignment` the kernel skips the alignment fold and the exact
 O(N) global mean sum_{j != i} v_j / (n - 1) is added here, in torch
 (nenbody_tpu/ops/boids.py:296-302).
+
+The fused kernel's launch (`boids_plan`: T threads a block, R bodies a
+thread, the j range split S ways across a thread-block cluster when the
+bodies alone would not fill the card) is ops.pairwise.pair_plan, whose C
+twin csrc/pair_plan.cuh boids.cu launches from.
 """
 
 from __future__ import annotations
@@ -23,9 +28,22 @@ from ..physics import dense
 from .common import (
     KERNELS, check_batch, check_kernel_args, flat_batch, stream_handle, use_kernel,
 )
+from .pairwise import pair_plan
 
 # Elements of one [..., chunk, N] pair tensor the plain version materializes.
 PLAIN_PAIR_BUDGET = 1 << 24
+# the warps per SM the fused kernel's plan aims for, and its largest
+# cluster (16: a non-portable size, which csrc/boids.cu asks for)
+BOIDS_MIN_WARPS_PER_SM, BOIDS_MAX_SPLIT = 8, 16
+
+
+def boids_plan(batch: int, n: int, sms: int):
+    """(T, R, S, chunk, i-blocks) of the fused kernel's launch for `batch`
+    envs of n agents on a card with `sms` SMs: pair_plan over the j range
+    of the same n agents, aiming at BOIDS_MIN_WARPS_PER_SM warps per SM
+    with clusters of up to BOIDS_MAX_SPLIT blocks (nbt_boids_plan returns
+    the kernel's own)."""
+    return pair_plan(batch, n, n, sms, BOIDS_MIN_WARPS_PER_SM, BOIDS_MAX_SPLIT)
 
 
 def boids_velocity_plain(

@@ -56,6 +56,7 @@ SIGNATURES = {
     "nbt_gravity_forces": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
     "nbt_gravity_plan": [_I, _I, _I, _I, _P],  # the launch shape it picks (no launch)
     "nbt_boids_velocity": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
+    "nbt_boids_plan": [_I, _I, _I, _P],  # the launch shape it picks (no launch)
     "nbt_disc_eye": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "nbt_gravity_vjp": [_P, _P, _P, _I, _I, _F, _F, _P],

@@ -10,7 +10,8 @@ dims go to the kernel as one grid dimension.
 
 The kernel's launch shape (R bodies per thread, the j range split S ways
 across a thread-block cluster when the grid would not fill the card) is
-`gravity_plan`, whose C twin in gravity.cu must agree with it.
+`gravity_plan`, from `pair_plan`, whose C twin in csrc/pair_plan.cuh must
+agree with it (the boids kernel takes its launch from it too).
 
 `gravity_forces_diff` is the differentiable form (the JAX custom VJP
 `gravity_forces_diff`): a torch.autograd.Function whose backward is the VJP
@@ -34,28 +35,29 @@ from .common import (
 
 # Elements of one [..., chunk, M] pair tensor the plain version materializes.
 PLAIN_PAIR_BUDGET = 1 << 24
-# csrc/gravity.cu's launch: the largest cluster (the split of the j range)
-# and the warps per SM its plan aims for
-GRAVITY_MAX_SPLIT, GRAVITY_MIN_WARPS_PER_SM = 8, 8
+# csrc/pair_plan.cuh's launch plan: the largest portable cluster (gravity's
+# split of the j range), and the warps per SM gravity's plan aims for
+PAIR_MAX_SPLIT, GRAVITY_MIN_WARPS_PER_SM = 8, 8
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def gravity_plan(batch: int, n: int, m: int, sms: int) -> Tuple[int, int, int, int, int]:
-    """(T, R, S, chunk, i-blocks) of the gravity kernel's launch for `batch`
-    envs of n bodies against m, on a card with `sms` SMs: csrc/gravity.cu's
-    gravity_plan, which must agree (nbt_gravity_plan returns it). T threads
-    per block and R bodies per thread: the first of T in 256, 128, 64, 32
-    and R in 2, 1 that leaves no thread idle beyond the ragged tail and,
-    with the split, gives each SM GRAVITY_MIN_WARPS_PER_SM warps. S, the
-    blocks of a cluster that share one i-block's j range: doubled while the
-    grid is smaller than that and each rank keeps a whole tile of T. Rank s
-    sums j in [s chunk, (s + 1) chunk), the last rank fewer or none; the
-    leader adds the S partials in rank order. Without such a (T, R): one-warp
+def pair_plan(batch: int, n: int, m: int, sms: int, min_warps: int,
+              max_split: int = PAIR_MAX_SPLIT) -> Tuple[int, int, int, int, int]:
+    """(T, R, S, chunk, i-blocks) of an all-pairs kernel's launch for
+    `batch` envs of n bodies against m, on a card with `sms` SMs:
+    csrc/pair_plan.cuh's pair_plan, which must agree. T threads per block
+    and R bodies per thread: the first of T in 256, 128, 64, 32 and R in 2,
+    1 that leaves no thread idle beyond the ragged tail and, with the split,
+    gives each SM `min_warps` warps. S, the blocks of a cluster that share
+    one i-block's j range: doubled up to `max_split` while the grid is
+    smaller than that and each rank keeps a whole tile of T. Rank s sums j
+    in [s chunk, (s + 1) chunk), the last rank fewer or none; the leader
+    adds the S partials in rank order. Without such a (T, R): one-warp
     blocks of one body a thread, split as far as m allows."""
-    target = GRAVITY_MIN_WARPS_PER_SM * sms
+    target = min_warps * sms
     plan = (32, 1, 1, m, 1)
     for t in (256, 128, 64, 32):
         for r in (2, 1):
@@ -63,8 +65,7 @@ def gravity_plan(batch: int, n: int, m: int, sms: int) -> Tuple[int, int, int, i
                 continue
             bi = _ceil_div(n, t * r)
             s = 1
-            while (s < GRAVITY_MAX_SPLIT and batch * bi * s * t // 32 < target
-                   and m >= 2 * s * t):
+            while s < max_split and batch * bi * s * t // 32 < target and m >= 2 * s * t:
                 s *= 2
             plan = (t, r, s, m, bi)
             if batch * bi * s * t // 32 >= target:
@@ -76,6 +77,13 @@ def gravity_plan(batch: int, n: int, m: int, sms: int) -> Tuple[int, int, int, i
     if s > 1:
         chunk = _ceil_div(_ceil_div(m, s), t) * t
     return t, r, s, chunk, bi
+
+
+def gravity_plan(batch: int, n: int, m: int, sms: int) -> Tuple[int, int, int, int, int]:
+    """The gravity kernel's launch (csrc/gravity.cu; nbt_gravity_plan
+    returns the kernel's own): `pair_plan` aiming at
+    GRAVITY_MIN_WARPS_PER_SM warps per SM."""
+    return pair_plan(batch, n, m, sms, GRAVITY_MIN_WARPS_PER_SM)
 
 
 def gravity_forces_plain(

@@ -13,7 +13,13 @@ projects in-kernel, takes any N, any width and a batch of envs, and follows
 the plain renderer's division route (vision.render.eye_rows_wireframe) op
 for op, its edge-major tie rule included. The routing predicates, the
 precomputed layouts, the compact prologue and the TPU knobs have no
-counterpart here.
+counterpart here. The kernel draws only the sprites that may be visible
+(`wireframe_maybe_visible`, a frustum test of the sprite's bounding circle
+without a divide), runs the exact per-pixel test of each edge only on the
+pixels of its slab-clipped, widened u-interval (`wireframe_pixel_ranges`),
+and keeps each pixel's least (depth, edge, target) key. Those two functions
+are the culls in plain PyTorch with the kernel's float32 expressions (they
+must agree); the CPU tests prove them conservative against the exact test.
 
 Gradients (`RenderRowsWireframeDiff`) take the JAX package's default winner
 route (WF_WINNER_BWD, wireframe.py:2734): the forward also returns each
@@ -51,6 +57,15 @@ from .common import (
     needs_grad, stream_handle, use_kernel,
 )
 
+# csrc/wireframe_eye.cu's culls: the sprite's bounding circle (its verts lie
+# within sqrt(2) r of its centre) widened by FRUSTUM_SLACK of the positions
+# and of t (f + m); each edge's slab-clipped u-interval widened (beyond half
+# a pixel with antialias) by RANGE_SLACK of (1 + |e_lo| + |e_hi|)(1 + (|df|
+# + |dl|) / (t near)): far above every rounding of the exact test, of the
+# slab clip and of the pixel centres
+SPRITE_REACH = 1.4142137
+FRUSTUM_SLACK, RANGE_SLACK = 2.0 ** -16, 2.0 ** -18
+
 # Pixels one chunk of the pullback re-evaluates: its autograd graph keeps
 # about 200 float32 tensors of that size, about 6.4 GiB at 1 << 23 (the
 # 4,096 x 256 x 64 trainers' batch runs in 8 chunks of 512 envs).
@@ -63,6 +78,85 @@ def wireframe_eye_plain(eye_pos, eye_dir, tgt, tgt_hdg, cfg: VisionConfig, albed
     Returns (shade, depth, winner)."""
     return render.render_eyes_wireframe(eye_pos, eye_dir, tgt, tgt_hdg, cfg, albedo=albedo,
                                         texture=texture)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def wireframe_maybe_visible(eye_pos, eye_dir, tgt, cfg: VisionConfig) -> torch.Tensor:
+    """[..., E, M] bool: csrc/wireframe_eye.cu's wireframe_maybe_visible,
+    with the same float32 expressions (which must agree). The sprite's
+    bounding circle, radius m = r SPRITE_REACH widened by FRUSTUM_SLACK of
+    the positions, meets the [near, far] slab (f + m > near, f - m < far)
+    and the frustum, |l| <= t (f + m)(1 + FRUSTUM_SLACK) + m, with f and l
+    the centre's as camera.project makes them; a target coincident with the
+    eye never is. Every target eye_rows_wireframe lets win a pixel passes
+    it."""
+    xj, pe = tgt[..., None, :, :], eye_pos[..., :, None, :]
+    rx, ry = xj[..., 0] - pe[..., 0], xj[..., 1] - pe[..., 1]
+    dx, dy = eye_dir[..., :, None, 0], eye_dir[..., :, None, 1]
+    f = rx * dx + ry * dy
+    l = rx * dy - ry * dx
+    r = _f32(cfg.sprite_radius, tgt)
+    m = r * SPRITE_REACH + FRUSTUM_SLACK * (
+        ((xj[..., 0].abs() + xj[..., 1].abs()) + (pe[..., 0].abs() + pe[..., 1].abs())) + r)
+    live = (xj[..., 0] != pe[..., 0]) | (xj[..., 1] != pe[..., 1])
+    bound = (f + m) * camera.tan_half_fov(cfg) * (1.0 + FRUSTUM_SLACK) + m
+    return live & (f + m > cfg.near) & (f - m < cfg.far) & (l.abs() <= bound)
+
+
+def _slab(fa, la, df, dl, live, near, far, t):
+    """csrc/wireframe_common.cuh's slab_interval (render.edge_fragment's
+    antialias prologue): (valid, e_lo, e_hi). csrc/wireframe_eye.cu's
+    edge_slab gives the same bits with two divides where both ends of the
+    edge lie strictly inside (near, far)."""
+    big = df.abs() > 1e-30
+    safe_df = torch.where(big, df, 1e-30)
+    t_near = (near - fa) / safe_df
+    t_far = (far - fa) / safe_df
+    tau_lo = torch.where(big, torch.maximum(t_near.minimum(t_far), torch.zeros_like(df)), 0.0)
+    tau_hi = torch.where(big, torch.minimum(t_near.maximum(t_far), torch.ones_like(df)), 1.0)
+    valid = live & torch.where(big, tau_lo < tau_hi, (fa > near) & (fa < far))
+    f_lo = torch.where(valid, fa + tau_lo * df, 1.0)
+    f_hi = torch.where(valid, fa + tau_hi * df, 1.0)
+    u_a = (la + tau_lo * dl) / (t * f_lo.clamp(min=1e-30))
+    u_b = (la + tau_hi * dl) / (t * f_hi.clamp(min=1e-30))
+    return valid, torch.minimum(u_a, u_b), torch.maximum(u_a, u_b)
+
+
+def wireframe_pixel_ranges(eye_pos, eye_dir, tgt, tgt_hdg, cfg: VisionConfig):
+    """(lo, hi) [..., E, M, 3] int64: the pixels [lo, hi] of eye e's line on
+    which csrc/wireframe_eye.cu runs the exact test of edge k of target m
+    (lo > hi: none), its edge_pixel_range with the same float32 expressions
+    (which must agree). The edge's slab-clipped u-interval [e_lo, e_hi]
+    widened by half a pixel with antialias (the coverage test's reach) and
+    by RANGE_SLACK of (1 + |e_lo| + |e_hi|)(1 + (|df| + |dl|) / (t near)),
+    so that no pixel the exact test hits is left out: a hit lies on the
+    clipped segment up to the test's roundings (near and far are floats, so
+    a depth that rounds inside the slab lies inside it up to the rounding
+    of tau df), and the segment's projection is monotone in tau."""
+    w = cfg.width
+    f, l, live = render.sprite_view(eye_pos[..., :, None, :], eye_dir[..., :, None, :],
+                                    tgt[..., None, :, :], tgt_hdg[..., None, :, :], cfg)
+    t = camera.tan_half_fov(cfg)
+    hp = _f32(1.0 / w, tgt)
+    base = hp if cfg.antialias else _f32(0.0, tgt)
+    inv_tnear = 1.0 / (_f32(t, tgt) * _f32(cfg.near, tgt))
+    lows, highs = [], []
+    for a, b in render.SPRITE_EDGES:
+        fa, la = f[a], l[a]
+        df, dl = f[b] - fa, l[b] - la
+        valid, e_lo, e_hi = _slab(fa, la, df, dl, live, cfg.near, cfg.far, t)
+        pad = base + RANGE_SLACK * ((1.0 + e_lo.abs()) + e_hi.abs()) * (
+            1.0 + (df.abs() + dl.abs()) * inv_tnear)
+        lo_f = (e_lo - pad + 1.0) * (0.5 * w) - 0.5
+        hi_f = (e_hi + pad + 1.0) * (0.5 * w) - 0.5
+        lo = lo_f.clamp(min=-1.0, max=float(w)).ceil().long().clamp(min=0)
+        hi = hi_f.clamp(max=float(w)).clamp(min=-1.0).floor().long().clamp(max=w - 1)
+        lows.append(torch.where(valid, lo, 1))
+        highs.append(torch.where(valid, hi, 0))
+    return torch.stack(lows, dim=-1), torch.stack(highs, dim=-1)
 
 
 def _check_wireframe(cfg: VisionConfig) -> None:
@@ -98,6 +192,8 @@ def _wireframe_eye_cuda(eye_pos, eye_dir, tgt, tgt_hdg, cfg: VisionConfig,
     tp, th = flat_batch(tgt), flat_batch(tgt_hdg)
     batch, ne, nt, w = ep.shape[0], ep.shape[1], tp.shape[1], cfg.width
     check_batch("wireframe_eye", batch)
+    if 3 * nt >= 1 << 32:  # the kernel's keys hold k N_t + j (edge k, target j) in 32 bits
+        raise ValueError(f"wireframe_eye: 3 N_t must be below 2^32, got N_t={nt}")
     shape = eye_pos.shape[:-1] + (w,)
     shade = torch.empty(shape, dtype=torch.float32, device=eye_pos.device)
     depth = torch.empty(shape, dtype=torch.float32, device=eye_pos.device)

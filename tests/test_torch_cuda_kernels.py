@@ -13,6 +13,7 @@ beside each.
 
 import ctypes
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -805,3 +806,136 @@ def test_gravity_kernel_repeats_bit_for_bit(cuda, shape):
     first = pairwise.gravity_forces_tiled(pos, cfg)
     for _ in range(20):
         assert torch.equal(pairwise.gravity_forces_tiled(pos, cfg), first)
+
+
+# -- the wireframe eye's culls and keys, boids' plan and split sum ------------
+
+
+def _hold_wireframe_exact(eye_pos, eye_dir, tgt, hdg, cfg):
+    """The kernel's shade, depth and winner equal the plain version's bit
+    for bit at a power-of-two width (the pixel centres and 1/W are exact on
+    both sides); at other widths the plain pixel centres divide by W through
+    a reciprocal on the card, so, as test_wireframe_eye_kernel_matches_plain
+    allows, at most 1e-3 of the pixels may flip or differ beyond
+    tests/test_wireframe_kernel.py's tolerance."""
+    gs, gd, gw = wireframe.wireframe_eye_with_winner(eye_pos, eye_dir, tgt, hdg, cfg)
+    ws, wd, ww = wireframe.wireframe_eye_plain(eye_pos, eye_dir, tgt, hdg, cfg)
+    torch.cuda.synchronize()
+    assert (wd < cfg.far).any()
+    if cfg.width & (cfg.width - 1) == 0:
+        assert torch.equal(gd, wd) and torch.equal(gs, ws) and torch.equal(gw.long(), ww)
+        return
+    beyond = ((gd < cfg.far) != (wd < cfg.far)) | ((gd - wd).abs() > 2e-4 + 1e-5 * wd.abs())
+    beyond |= (gs - ws).abs() > 2e-4 + 1e-5 * ws.abs()
+    assert beyond.double().mean().item() <= 1e-3
+
+
+def _wf_frame(kind, b, m, w, device, seed):
+    """(eye_pos, eye_dir [b, 1, 2], tgt, hdg [b, m, 2]): sprites in each
+    env's eye frame (t = 1) straddling the near plane ('near_plane') or with
+    edge 0 ((2, 1) r in the sprite frame) along the ray of a pixel centre,
+    turned by less than 1e-6 rad ('edge_on')."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=device)
+    eye = rand(b, 1, 2) * 100 - 50
+    d = camera.unit_heading(rand(b, 1, 2) * 2 - 1)
+    right = torch.stack([d[..., 1], -d[..., 0]], dim=-1)
+    if kind == "near_plane":
+        f = 1.0 + rand(b, m) * 3 - 1.5
+        lat = (rand(b, m) * 3 - 1.5) * f.clamp(min=0.5)
+        tgt = eye + f[..., None] * d + lat[..., None] * right
+        return eye, d, tgt.contiguous(), camera.unit_heading(rand(b, m, 2) * 2 - 1)
+    f = rand(b, m) * 37 + 3
+    u = 2.0 * (torch.randint(0, w, (b, m), generator=g, device=device) + 0.5) / w - 1.0
+    flip = (rand(b, m) < 0.5) * math.pi
+    phi = torch.atan2(u, torch.ones_like(u)) + (rand(b, m) * 2e-6 - 1e-6) + flip
+    world = torch.cos(phi)[..., None] * d + torch.sin(phi)[..., None] * right
+    theta = torch.atan2(world[..., 1], world[..., 0]) - math.atan2(1.0, 2.0)
+    c, s = torch.cos(theta), torch.sin(theta)
+    vert0 = eye + f[..., None] * d + (u * f)[..., None] * right
+    return eye, d, (vert0 - torch.stack([-c + s, -s - c], dim=-1)).contiguous(), torch.stack(
+        [c, s], dim=-1)
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 1024, 64), (4, 256, 64), (1, 300, 256), (1, 100, 1024),
+                                   (1, 300, 513), (3, 200, 300), (2, 77, 257)])
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_clustered_swarm_and_segments(cuda, b, n, w, aa):
+    # U(-8, 8): near sprites over many pixels, which the warp walks
+    # together; rows wider than 256 pixels are cut into segments
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -8, 8, n + w, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + w + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
+    _hold_wireframe_exact(pos, dirs, pos, dirs, cfg)
+
+
+@pytest.mark.parametrize("kind", ["near_plane", "edge_on"])
+@pytest.mark.parametrize("w", [64, 512, 1024])
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_adversarial_sprites(cuda, kind, w, aa):
+    eye, d, tgt, hdg = _wf_frame(kind, 8, 300, w, cuda, seed=w)
+    _hold_wireframe_exact(eye, d, tgt, hdg,
+                          VisionConfig(width=w, antialias=aa, sprite_mode="wireframe"))
+
+
+@pytest.mark.parametrize("nt", [4096, 5000])
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_many_targets_cross_form(cuda, nt, aa):
+    # eyes against another, larger target set (a ring hop's cross form)
+    eyes = _uniform((2, 96, 2), -100, 100, nt, cuda)
+    dirs = camera.unit_heading(_uniform((2, 96, 2), -1, 1, nt + 1, cuda))
+    tgt = _uniform((2, nt, 2), -100, 100, nt + 2, cuda)
+    hdg = camera.unit_heading(_uniform((2, nt, 2), -1, 1, nt + 3, cuda))
+    _hold_wireframe_exact(eyes, dirs, tgt, hdg,
+                          VisionConfig(width=128, antialias=aa, sprite_mode="wireframe"))
+
+
+def _boids_plan_of_card(batch, n, sms):
+    out = (ctypes.c_int * 5)()
+    common.kernel_library().call("nbt_boids_plan", batch, n, sms, ctypes.addressof(out))
+    return tuple(out)
+
+
+def test_boids_plan_matches_the_kernels(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for count in (sms, 132, 16):
+        for batch in (1, 5, 64):
+            for n in (1, 63, 64, 100, 333, 4096, 4097, 8193, 16385, 65536):
+                assert _boids_plan_of_card(batch, n, count) == boids_ops.boids_plan(
+                    batch, n, count)
+
+
+# each N where the plan changes T, R or S on an H100, and the N before it
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 127, 128, 255, 256, 511, 512, 2048, 2049, 4095, 4096,
+                               4097, 8192, 8193, 16384, 16385])
+@pytest.mark.parametrize("glob", [False, True])
+def test_boids_kernel_at_the_plan_boundaries(cuda, n, glob):
+    half = 20 if n < 1024 else 100
+    pos = _uniform((n, 2), -half, half, n + 5, cuda)
+    vel = _uniform((n, 2), -1, 1, n + 6, cuda)
+    got = boids_ops.boids_velocity_tiled(pos, vel, BoidsConfig(global_alignment=glob))
+    _close(got, boids_ops.boids_velocity_plain(pos, vel, BoidsConfig()), 3e-5, 1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4096, 2), (5, 333, 2), (64, 256, 2), (65536, 2)])
+def test_boids_kernel_repeats_bit_for_bit(cuda, shape):
+    # the cluster's leader adds the partials in rank order. At N=65,536 each
+    # cohesion sum runs over thousands of positions and cancels where the
+    # mean is near 0, so the summation order alone moves such elements past
+    # atol 1e-6 (by up to 1.8e-6 on the H100): there the error is held,
+    # normalised by max |want|, to the ring boids' bound against one device
+    # (chip_smoke.py's RING_BOIDS_BOUND)
+    pos = _uniform(shape, -20 if shape[0] < 65536 else -100, 20 if shape[0] < 65536 else 100,
+                   10, cuda)
+    vel = _uniform(shape, -1, 1, 11, cuda)
+    cfg = BoidsConfig()
+    first = boids_ops.boids_velocity_tiled(pos, vel, cfg)
+    want = boids_ops.boids_velocity_plain(pos, vel, cfg)
+    if shape[0] < 65536:
+        _close(first, want, 3e-5, 1e-6)
+    else:
+        torch.cuda.synchronize()
+        assert ((first - want).abs().max() / want.abs().max()).item() < 1e-5
+    for _ in range(5):
+        assert torch.equal(boids_ops.boids_velocity_tiled(pos, vel, cfg), first)

@@ -260,7 +260,7 @@ def test_split_gravity_cross_form_matches_jax():
 
 def _max_split(m, t):
     s = 1
-    while s < pairwise.GRAVITY_MAX_SPLIT and m >= 2 * s * t:
+    while s < pairwise.PAIR_MAX_SPLIT and m >= 2 * s * t:
         s *= 2
     return s
 
@@ -276,7 +276,7 @@ def test_gravity_plan_covers_j_once_and_fills_the_card(sms):
                 assert t in (32, 64, 128, 256) and r in (1, 2), where
                 assert r == 1 or n >= t * r, where
                 assert bi == -(-n // (t * r)), where
-                assert 1 <= split <= pairwise.GRAVITY_MAX_SPLIT and split & (split - 1) == 0, where
+                assert 1 <= split <= pairwise.PAIR_MAX_SPLIT and split & (split - 1) == 0, where
                 assert split == 1 and chunk == m or chunk % t == 0, where
                 owner = torch.zeros(m, dtype=torch.int64)
                 for s in range(split):
