@@ -80,7 +80,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 disc eye, the wireframe eye and boids at each shape of the
                 main paths with its bound (GRAVITY_TIME_SHAPES,
                 DISC_TIME_SHAPES, WF_TIME_SHAPES, BOIDS_TIME_SHAPES: spread
-                and clustered, AA off and on), the share of pairs the
+                and clustered, AA off and on), the two eye backward
+                kernels' device times (graph_ms) at DISC_BWD_TIME_SHAPES
+                and WF_BWD_TIME_SHAPES (AA off and on, the wireframe's
+                also with a texture), the share of pairs the
                 wireframe eye's frustum test keeps and its mean pixel range
                 per kept sprite, the eyes with and
                 without their winner index, steps/s of the config-2 rollout
@@ -100,12 +103,14 @@ for the inputs timed; `library_ms` is null: no single PyTorch call computes
 any of these functions; the three eye kernels carry their appearance
 forms' times and bounds under `forms`, gravity and the disc eye their
 per-shape ms, plain_ms and bound_ms under `shapes`, as do the wireframe
-eye and boids); the last line is {"ok": true, "device": {...}}.
+eye, boids and the two eye backward kernels, whose `ms` is a host loop
+of 10 calls, wrapper time included, while `shapes` holds device times);
+the last line is {"ok": true, "device": {...}}.
 `python3 chip_smoke.py --rdma-cards N` runs the RDMA phases alone with one
 shard on each of N cards; `--kernel-times` the gravity, disc eye,
-wireframe eye and boids timings and the serving steps alone (with another
-checkout first on sys.path, its kernels under the same harness). Imports
-no jax.
+wireframe eye, boids and eye backward timings and the serving steps alone
+(with another checkout first on sys.path, its kernels under the same
+harness). Imports no jax.
 """
 
 from __future__ import annotations
@@ -191,6 +196,13 @@ WF_TIME_SHAPES = [(label, b, n, w, half)
 BOIDS_TIME_SHAPES = [("reference-100", 1, 100, 100), ("config 3", 1, 4096, 100),
                      ("config 3 clustered", 1, 4096, 8), ("config 4", 1, 65536, 100),
                      ("64 envs", 64, 256, 100)]
+# phase 5's shapes of the backward kernels (label, envs, N, W): each AA off
+# and on, the wireframe's trainers' shape also with a texture; reference-100
+# is the wide row, where the grid's segments of a row (GRID_WARPS) bind
+WF_BWD_TIME_SHAPES = [("config 2", 1, 1024, 64), ("reference-100", 1, 100, 1024),
+                      ("config-5 width", 4096, 256, 64)]
+DISC_BWD_TIME_SHAPES = [("config 2", 1, 1024, 64), ("reference-100", 1, 100, 1024),
+                        ("64 envs", 64, 256, 64), ("config-5 width", 4096, 256, 64)]
 SERVING_STEPS = [("config 2", "gravity-vision-1024", 50, None, "disc"),
                  ("config 3", "boids-4096", 20, None, "disc"),
                  ("config 4", "gravity-65536", 10, None, "disc"),
@@ -239,9 +251,12 @@ GRAVITY_OPS, GRAVITY_VJP_OPS, BOIDS_OPS = 11, 25, 22
 DISC_PAIR_OPS, DISC_PIXEL_OPS = 16, 6
 WF_PAIR_OPS, WF_PAIR_AA_OPS, WF_EDGE_OPS = 54, 114, 13
 DISC_BWD_PIXEL_OPS = 60
-# the wireframe pullback per live pixel: the 3-edge re-evaluation (about
-# 150 operations) and its reverse sweep (about twice that)
-WF_BWD_PIXEL_OPS = 450
+# the wireframe pullback per live pixel, with antialias: the 3-edge
+# re-evaluation with the slab clips, u-intervals, union span and coverage
+# (about 150 operations) and its reverse sweep (about twice that); without:
+# the 3 edge tests (3 WF_EDGE_OPS), the merge and the shade (about 50) and
+# its reverse sweep (about twice that)
+WF_BWD_PIXEL_OPS, WF_BWD_PIXEL_OPS_NOAA = 450, 150
 # the appearance per shaded pixel: the bilinear sample (about 20
 # operations; 3 times that in the pullback, as above) and the albedo's product
 TEX_SAMPLE_OPS, ALBEDO_OPS = 20, 1
@@ -270,6 +285,7 @@ class Errors:
 
     def __init__(self):
         self.max_abs = {k: 0.0 for k in KERNEL_INFO}
+        self.witnessed = 0  # elements the float64 witness held, over the run
 
     def check(self, kernel, label, got, want, rtol, atol, witness=None):
         """Every element within rtol/atol, or, with `witness`, every element
@@ -286,6 +302,10 @@ class Errors:
         beyond = bad.double().mean().item()
         log("kernels", f"{label}: max_abs_err={err:.3e} differing={differing:.2e} "
             f"beyond_tol={beyond:.2e} (rtol={rtol}, atol={atol})")
+        if witness is not None:
+            self.witnessed += int(bad.sum())
+            log("kernels", f"{label}: {int(bad.sum())} of {bad.numel()} elements fall to the "
+                f"float64 witness ({self.witnessed} so far in this run)")
         if bad.any():
             worst = torch.topk((diff - rtol * want.abs()).flatten(), min(3, int(bad.sum()))).indices
             log("kernels", f"{label}: worst got {got.flatten()[worst].tolist()} want "
@@ -1033,12 +1053,12 @@ def phase_ring_kernels(errors: Errors, gen) -> None:
     hops of shard 0 on a 4-shard agent axis (eyes against their own block,
     then the 3 others): rtol 2e-4, atol 2e-4 of the largest component
     (per-pixel terms round apart; target sums in atomic, run-to-run
-    order). At config-5 width a few components per million sit at a
+    order). At config-5 width a few components per million may sit at a
     near-degenerate edge (the ray almost along it, or the pixel centre
     clamped to a slab-clip endpoint), where both sides differentiate
-    through a cancelling difference, forward mode here and reverse mode
-    there, and round apart by more; each such element must pass the
-    float64 witness (pullback_witness) instead."""
+    through a cancelling difference and round apart by more; each such
+    element must pass the float64 witness (pullback_witness) instead, and
+    each check logs how many fell to it."""
     n = RING_PAIRS
     bound = n * 2.0 ** -24
     bcfg = BoidsConfig()
@@ -1829,7 +1849,8 @@ def phase_kernel_times(gen, card: str):
     its plain version (not timed for the wireframe eye at config-5 width,
     where it takes minutes), each with its bound: (times of the `kernels`
     line's shapes, {kernel: per-shape entries})."""
-    times, shapes = {}, {"gravity": [], "disc_eye": [], "wireframe_eye": [], "boids": []}
+    times, shapes = {}, {"gravity": [], "disc_eye": [], "wireframe_eye": [], "boids": [],
+                         "disc_eye_bwd": [], "wireframe_eye_bwd": []}
     gcfg = GravityConfig()
     for b, n in GRAVITY_TIME_SHAPES:
         pos = uniform(gen, (b, n, 2) if b > 1 else (n, 2), -100, 100)
@@ -1908,7 +1929,80 @@ def phase_kernel_times(gen, card: str):
         log("times", f"boids {label} B={b} N={n} U(-{half}, {half}): kernel {k_ms:.4f} ms = "
             f"{b * n * n / k_ms * 1e3:.4e} pair evals/s; plain {p_ms:.4f} ms; bound "
             f"{b_ms:.5f} ms ({b_by}) [{card}]")
+    backward_kernel_times(gen, card, times, shapes)
     return times, shapes
+
+
+def backward_kernel_times(gen, card: str, times: dict, shapes: dict) -> None:
+    """The two eye backward kernels' device times (graph_ms: CUDA events
+    around a CUDA graph of 5-20 calls, each the launch and the memsets that
+    zero its outputs) at their main paths' shapes, AA off and on, and the
+    wireframe's with a texture at the trainers' shape, alternated with the
+    plain version (CUDA events; not timed for the disc where its dense
+    renderer would hold more than 2^31 (eye, target, pixel) triples, as at
+    config-5 width), with the bound; appended to shapes["disc_eye_bwd"] and
+    shapes["wireframe_eye_bwd"]. At the `kernels` line's shapes (the disc
+    at config 2, AA off; the wireframe at the trainers' shape, AA on, APG
+    diff_vision's setting) times also gets the kernel's `ms` from CUDA
+    events around a host loop of 10 calls, the wrapper's host time
+    included, alternated with the plain version."""
+    tex = render.checker_texture(32, 4, device="cuda")
+    for sprite, table in (("disc", DISC_BWD_TIME_SHAPES), ("wireframe", WF_BWD_TIME_SHAPES)):
+        name = f"{sprite}_eye_bwd"
+        for label, b, n_e, w in table:
+            shape = (b, n_e, 2) if b > 1 else (n_e, 2)
+            epos = uniform(gen, shape, -100, 100)
+            dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
+            us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
+            ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-2
+            forms = [(aa, None) for aa in (False, True)]
+            if sprite == "wireframe" and b == TRAIN_ENVS:
+                forms.append((True, tex))
+            for aa, t in forms:
+                vcfg = VisionConfig(width=w, antialias=aa, sprite_mode=sprite)
+                if sprite == "disc":
+                    _, _, winner = raycast.disc_eye_with_winner(epos, dirs, epos, vcfg)
+                    kernel = lambda: raycast.render_rows_vjp_cross(epos, dirs, winner, us, ud,
+                                                                   vcfg)
+                    plain = None
+                    if b * n_e * n_e * w <= 2 ** 31:
+                        plain = lambda: raycast.render_rows_vjp_cross_plain(epos, dirs, us, ud,
+                                                                            vcfg)
+                    ops = DISC_BWD_PIXEL_OPS
+                    moved = nbytes(epos, dirs, winner, us, ud) + 3 * nbytes(epos)
+                else:
+                    ins = (epos, dirs, epos, dirs)
+                    _, _, winner = wireframe.wireframe_eye_with_winner(*ins, vcfg, None, t)
+                    kernel = lambda: wireframe.wireframe_eye_vjp(*ins, winner, us, ud, vcfg,
+                                                                 None, t)
+                    plain = lambda: wireframe.winner_pullback(*ins, winner, us, ud, vcfg, None, t)
+                    ops = ((WF_BWD_PIXEL_OPS if aa else WF_BWD_PIXEL_OPS_NOAA)
+                           + (3 * TEX_SAMPLE_OPS if t is not None else 0))
+                    moved = (nbytes(epos, dirs, winner, us, ud) + 4 * nbytes(epos)
+                             + (2 * nbytes(t) if t is not None else 0))
+                live = int((winner >= 0).sum())
+                launches = 5 if b == TRAIN_ENVS else 20
+                iters = 1 if b == TRAIN_ENVS else 3
+                b_ms, b_by = bound(live * ops, moved)
+                if (sprite, b, n_e, aa, t) in (("disc", 1, 1024, False, None),
+                                               ("wireframe", TRAIN_ENVS, TRAIN_AGENTS, True, None)):
+                    p_ms, h_ms = alternate(plain, kernel, iters, 10)
+                    times[name] = (h_ms, p_ms, b_ms, b_by)
+                    log("times", f"{name} {label} aa={aa}: the `kernels` line's ms (a host "
+                        f"loop of 10 calls) {h_ms:.4f} [{card}]")
+                    k_ms = (graph_ms(kernel, launches) + graph_ms(kernel, launches)) / 2
+                elif plain is None:
+                    p_ms = None
+                    k_ms = (graph_ms(kernel, launches) + graph_ms(kernel, launches)) / 2
+                else:
+                    p_ms, k_ms = alternate_graph(plain, kernel, iters, launches)
+                where = (f"{label} {b} x {n_e} x {w} aa={aa}"
+                         + (" texture 32 x 32" if t is not None else ""))
+                shapes[name].append(shape_entry(where, k_ms, p_ms, b_ms))
+                shown = "not timed" if p_ms is None else f"{p_ms:.4f} ms"
+                log("times", f"{name} {where} ({live} live pixels): kernel {k_ms:.4f} ms = "
+                    f"{b * n_e / k_ms * 1e3:.4e} agent-frames/s; plain {shown}; bound "
+                    f"{b_ms:.5f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f} [{card}]")
 
 
 def log_wireframe_culls(gen, card: str) -> None:
@@ -1968,32 +2062,13 @@ def phase_times(gen, card: str) -> dict:
     pos = uniform(gen, (n, 2), -100, 100)
     gcfg = GravityConfig()
 
-    # the backward kernels against their plain versions
+    # the gravity VJP against its plain version
     u = torch.randn((n, 2), generator=gen, device="cuda")
     p_ms, k_ms = alternate(lambda: pairwise.gravity_vjp_plain(pos, u, gcfg),
                            lambda: pairwise.gravity_vjp_tiled(pos, u, gcfg), 2, 5)
     times["gravity_vjp"] = (k_ms, p_ms, *bound(n * n * GRAVITY_VJP_OPS, nbytes(pos, u, u)))
     log("times", f"gravity_vjp N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair "
         f"evals/s; plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
-    for b, n_e, w in ((1, 1024, 64), (64, 256, 64)):
-        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
-        epos = uniform(gen, shape, -100, 100)
-        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
-        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
-        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-3
-        for aa in (False, True):
-            vcfg = VisionConfig(width=w, antialias=aa)
-            _, _, winner = raycast.disc_eye_with_winner(epos, dirs, epos, vcfg)
-            p_ms, k_ms = alternate(
-                lambda: raycast.render_rows_vjp_cross_plain(epos, dirs, us, ud, vcfg),
-                lambda: raycast.render_rows_vjp_cross(epos, dirs, winner, us, ud, vcfg), 2, 10)
-            if (b, n_e, w, aa) == (1, 1024, 64, False):
-                ops = int((winner >= 0).sum()) * DISC_BWD_PIXEL_OPS
-                times["disc_eye_bwd"] = (k_ms, p_ms, *bound(
-                    ops, nbytes(epos, dirs, winner, us, ud) + 3 * nbytes(epos)))
-            log("times", f"disc_eye_bwd B={b} N={n_e} W={w} aa={aa}: kernel {k_ms:.3f} ms = "
-                f"{b * n_e / k_ms * 1e3:.4e} agent-frames/s; plain (autograd through the "
-                f"plain renderer) {p_ms:.3f} ms [{card}]")
     # what writing the winner index costs the forward, at the trainers' shape
     shape = (TRAIN_ENVS, TRAIN_AGENTS, 2)
     epos = uniform(gen, shape, -100, 100)
@@ -2060,9 +2135,9 @@ def phase_times(gen, card: str) -> dict:
 
 def phase_ring_times(gen, card: str) -> dict:
     """CUDA-event times of the ring's kernels against their plain versions
-    (the boids partials and the gravity VJP's cross form at one hop's shape,
-    the wireframe backward at the eye's and the trainers' shapes), and of
-    the ring on 4 shards of one card against one device."""
+    (the boids partials and the gravity VJP's cross form at one hop's shape;
+    the wireframe backward's are backward_kernel_times'), and of the ring on
+    4 shards of one card against one device."""
     times = {}
     gcfg, bcfg = GravityConfig(), BoidsConfig()
     n_r = RING_PAIRS
@@ -2081,28 +2156,6 @@ def phase_ring_times(gen, card: str) -> dict:
     log("times", f"gravity_vjp cross {n_r} x {n_r}: kernel {k_ms:.3f} ms (two launches of the "
         f"pair loop) = {n_r * n_r / k_ms * 1e3:.4e} pair evals/s; plain (autograd through the "
         f"dense cross form) {p_ms:.3f} ms [{card}]")
-    for b, n_e, w in ((1, 1024, 64), (TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)):
-        shape = (b, n_e, 2) if b > 1 else (n_e, 2)
-        epos = uniform(gen, shape, -100, 100)
-        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
-        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
-        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-2
-        for aa in (False, True):
-            vcfg = VisionConfig(width=w, antialias=aa, sprite_mode="wireframe")
-            _, _, winner = wireframe.wireframe_eye_with_winner(epos, dirs, epos, dirs, vcfg)
-            p_ms, k_ms = alternate(
-                lambda: wireframe.winner_pullback(epos, dirs, epos, dirs, winner, us, ud, vcfg),
-                lambda: wireframe.wireframe_eye_vjp(epos, dirs, epos, dirs, winner, us, ud, vcfg),
-                1 if b == TRAIN_ENVS else 3, 10)
-            live = int((winner >= 0).sum())
-            b_ms, b_by = bound(live * WF_BWD_PIXEL_OPS,
-                               nbytes(epos, dirs, winner, us, ud) + 4 * nbytes(epos))
-            if (b, aa) == (TRAIN_ENVS, True):  # APG diff_vision's shape and setting
-                times["wireframe_eye_bwd"] = (k_ms, p_ms, b_ms, b_by)
-            log("times", f"wireframe_eye_bwd B={b} N={n_e} W={w} aa={aa} ({live} live pixels): "
-                f"kernel {k_ms:.3f} ms; plain (winner_pullback) {p_ms:.3f} ms; bound "
-                f"{b_ms:.4g} ms ({b_by}) [{card}]")
-
     # the ring on 4 shards of one card against one device: the same work
     # split into hops, so the gap is the ring's own cost
     cuda = torch.device("cuda", 0)
@@ -2168,11 +2221,24 @@ def main_rdma_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) ->
                   for name in RDMA_KERNEL.values()], smi, kind)
 
 
+def registers_of(report: str, source: str) -> list:
+    """The registers per thread of each kernel nvcc built from `source`,
+    read off the library's -Xptxas -v report."""
+    regs, inside = [], False
+    for line in report.splitlines():
+        if line.startswith("=="):
+            inside = line[2:].strip() == source
+        elif inside and "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split("registers")[0]))
+    return regs
+
+
 def main_kernel_times(gen, smi: str) -> None:
-    """`chip_smoke.py --kernel-times`: the gravity, disc eye, wireframe eye
-    and boids timings of phase 5 and the serving steps alone, on whichever
-    nenbody_tpu_torch is first on sys.path (an older checkout's, to compare
-    two trees' kernels in one call with one harness)."""
+    """`chip_smoke.py --kernel-times`: the gravity, disc eye, wireframe eye,
+    boids and eye backward timings of phase 5 and the serving steps alone,
+    on whichever nenbody_tpu_torch is first on sys.path (an older
+    checkout's, to compare two trees' kernels in one call with one
+    harness)."""
     import nenbody_tpu_torch
     log("times", f"package {nenbody_tpu_torch.__file__}")
     with torch.no_grad():
@@ -2197,8 +2263,12 @@ def main() -> None:
     lib = common.kernel_library()
     log("build", f"{lib.path.name} built in {lib.build_seconds:.1f} s")
     for line in lib.ptxas_log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if line.startswith("==") or any(k in line for k in ("registers", "spill",
+                                                             "Function properties")):
             log("build", line.strip())
+    for source in ("disc_eye_bwd.cu", "wireframe_eye_bwd.cu"):
+        log("build", f"{source}: registers per thread of each entry "
+            f"{registers_of(lib.ptxas_log, source)} (nvcc -Xptxas -v)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = Errors()

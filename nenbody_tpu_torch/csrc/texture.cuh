@@ -3,12 +3,10 @@
 // (disc_eye.cu, wireframe_eye.cu) and the wireframe pullback
 // (wireframe_eye_bwd.cu).
 //
-// sample_texture is a template on the scalar type, as the wireframe geometry
-// is (wireframe_common.cuh): float in the eyes, the pullback's dual number
-// there. The texel indices come from the primal value, and the fractional
-// weights carry the derivative. Its products and sums are those of
+// sample_texture's products and sums are those of
 // nenbody_tpu_torch/vision/render.py::sample_texture in the same order, so
-// that with -fmad=false the kernels sample as the plain versions do.
+// that with -fmad=false the kernels sample as the plain versions do; the
+// pullback reads the texels and weights it used from its Tap.
 //
 // A texture of at most SMEM_TEXELS texels (a 64 x 64 skin) is staged in
 // shared memory by each block (stage_texture); a larger one is read through
@@ -23,9 +21,6 @@ namespace {
 
 constexpr int SMEM_TEXELS = 4096;
 
-__device__ __forceinline__ float texel_primal(float a) { return a; }
-__device__ __forceinline__ float texel_clamp01(float a) { return fminf(fmaxf(a, 0.0f), 1.0f); }
-
 // The four texels one sample reads (row-major [Ht, Wt] indices) and its
 // primal fractional position within them.
 struct Tap {
@@ -39,19 +34,17 @@ __device__ __forceinline__ float fetch_texel(const float* tex, int i, bool stage
 
 // The texture [ht, wt] sampled at (u, v) (u along the width); `tex` points to
 // shared memory when `staged`, else to device memory.
-template <typename T>
-__device__ __forceinline__ T sample_texture(const float* tex, bool staged, int ht, int wt,
-                                            const T& u, const T& v, Tap& tap) {
-  const T x = texel_clamp01(u) * (float)(wt - 1);
-  const T y = texel_clamp01(v) * (float)(ht - 1);
-  const int x0 = (int)floorf(texel_primal(x));
-  const int y0 = (int)floorf(texel_primal(y));
+__device__ __forceinline__ float sample_texture(const float* tex, bool staged, int ht, int wt,
+                                                float u, float v, Tap& tap) {
+  const float x = fminf(fmaxf(u, 0.0f), 1.0f) * (float)(wt - 1);
+  const float y = fminf(fmaxf(v, 0.0f), 1.0f) * (float)(ht - 1);
+  const int x0 = (int)floorf(x);
+  const int y0 = (int)floorf(y);
   const int x1 = min(x0 + 1, wt - 1);
   const int y1 = min(y0 + 1, ht - 1);
-  const T fx = x - (float)x0;
-  const T fy = y - (float)y0;
-  tap = Tap{y0 * wt + x0, y0 * wt + x1, y1 * wt + x0, y1 * wt + x1, texel_primal(fx),
-            texel_primal(fy)};
+  const float fx = x - (float)x0;
+  const float fy = y - (float)y0;
+  tap = Tap{y0 * wt + x0, y0 * wt + x1, y1 * wt + x0, y1 * wt + x1, fx, fy};
   const float t00 = fetch_texel(tex, tap.i00, staged);
   const float t01 = fetch_texel(tex, tap.i01, staged);
   const float t10 = fetch_texel(tex, tap.i10, staged);

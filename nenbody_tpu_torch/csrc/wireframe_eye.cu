@@ -84,9 +84,9 @@
 // the plain versions of the two culls: they must agree with the kernel,
 // expression for expression (the CPU tests prove them conservative against
 // the exact test). Any width and any N; pixel, eye and target tails are
-// masked by bounds. The sprite projection and the slab clip are templates in
-// wireframe_common.cuh, which the pullback (wireframe_eye_bwd.cu) evaluates
-// on dual numbers.
+// masked by bounds. The sprite projection, the slab clip and the per-pixel
+// edge test are in wireframe_common.cuh, whose float code the pullback
+// (wireframe_eye_bwd.cu) runs for its primal.
 
 #include "texture.cuh"
 #include "wireframe_common.cuh"
@@ -124,11 +124,6 @@ struct RangeParams {
   float inv_tnear;   // 1/(t near)
 };
 
-// NDC centre of pixel p of a w-pixel line (camera.pixel_centers_for_width).
-__device__ __forceinline__ float pixel_center(int p, int w) {
-  return 2.0f * ((float)p + 0.5f) / (float)w - 1.0f;
-}
-
 // Whether the sprite of the target at xj may be hit from the eye at (pe,
 // de), without a divide: its bounding circle (radius r SPRITE_REACH, widened
 // by FRUSTUM_SLACK of the positions) meets the [near, far] slab and the
@@ -147,27 +142,6 @@ __device__ __forceinline__ bool wireframe_maybe_visible(float2 pe, float2 de, fl
   const bool live = (xj.x != pe.x) || (xj.y != pe.y);
   return live && f + m > q.near_plane && f - m < q.far_plane &&
          fabsf(l) <= (f + m) * q.tan_half_fov * (1.0f + FRUSTUM_SLACK) + m;
-}
-
-// slab_interval's result (wireframe_common.cuh) with half its divides where
-// both ends of the edge lie strictly inside the slab, as under spread
-// spawns nearly every visible edge does: f_a and f_a + df inside (near,
-// far) make near - f_a and far - f_a put both clip parameters outside [0,
-// 1] (IEEE rounding is monotonic), so tau_lo = 0 and tau_hi = 1 exactly, the
-// edge is valid, and the u-interval is read off the two ends with
-// slab_interval's own expressions, bit for bit.
-__device__ __forceinline__ Slab<float> edge_slab(float fa, float la, float df, float dl,
-                                                 bool live, const WireframeParams& q) {
-  const float tau_lo = 0.0f, tau_hi = 1.0f;
-  const float f_lo = fa + tau_lo * df;
-  const float f_hi = fa + tau_hi * df;
-  if (live && fa > q.near_plane && fa < q.far_plane && f_hi > q.near_plane &&
-      f_hi < q.far_plane) {
-    const float u_a = (la + tau_lo * dl) / (q.tan_half_fov * clamp_min(f_lo, 1e-30f));
-    const float u_b = (la + tau_hi * dl) / (q.tan_half_fov * clamp_min(f_hi, 1e-30f));
-    return Slab<float>{tau_lo, tau_hi, fminf(u_a, u_b), fmaxf(u_a, u_b), true};
-  }
-  return slab_interval(fa, la, df, dl, live, q);
 }
 
 // Pixels [lo, hi] of a w-pixel line that edge (fa, la, df, dl) can hit (lo >
@@ -196,42 +170,6 @@ __device__ __forceinline__ void edge_pixel_range(float fa, float la, float df, f
 
 __device__ __forceinline__ int range_lo(int r) { return r & 0xffff; }
 __device__ __forceinline__ int range_hi(int r) { return r >> 16; }
-
-// The plain per-pixel test of edge k of a target at segment pixel p (centre
-// u_p): the fragment's depth, +inf on a miss (render.edge_fragment's
-// expressions; without antialias the divide is skipped where tau = num/den
-// is outside [0, 1] by its operands' signs and sizes, which cannot hit).
-__device__ __forceinline__ float edge_depth(const float4& g, const float4& sl, float u_p,
-                                            const WireframeParams& q, float* tau_out) {
-  float tau, fk;
-  bool hit;
-  if (q.antialias) {
-    if (!(sl.w > u_p - q.hp && sl.z < u_p + q.hp)) return INFINITY;  // no coverage
-    const float utc = fminf(fmaxf(u_p, sl.z), sl.w) * q.tan_half_fov;
-    const float num = utc * g.x - g.y;
-    const float den = g.w - utc * g.z;
-    if (!(fabsf(den) > 1e-12f)) return INFINITY;  // edge parallel to the ray
-    tau = fminf(fmaxf(num / den, sl.x), sl.y);
-    fk = g.x + tau * g.z;
-    hit = fk < q.far_plane;
-  } else {
-    const float ut = u_p * q.tan_half_fov;
-    const float num = ut * g.x - g.y;
-    const float den = g.w - ut * g.z;
-    if (!(fabsf(den) > 1e-12f)) return INFINITY;
-    // tau = num/den outside [0, 1] without the divide: opposite signs with
-    // |num| > |den| 2^-60 give tau <= -2^-60; |num| > fl(|den| (1 + 2^-22))
-    // >= |den| (1 + 2^-23) gives |tau| >= 1 + 2^-23
-    const float an = fabsf(num), ad = fabsf(den);
-    if (((num < 0.f) != (den < 0.f) && an > ad * 0x1p-60f) || an > ad * (1.0f + 0x1p-22f))
-      return INFINITY;
-    tau = num / den;
-    fk = g.x + tau * g.z;
-    hit = tau >= 0.f && tau <= 1.f && fk > q.near_plane && fk < q.far_plane;
-  }
-  if (tau_out) *tau_out = tau;
-  return hit ? fk : INFINITY;
-}
 
 // Target j's least key at segment pixel p over its edges whose range (lo |
 // hi << 16; empty: lo > hi) holds p, atomicMin'd into the pixel's key where

@@ -28,9 +28,13 @@ pixel's winning target, and the backward re-evaluates only that sprite's
 decisions agree). On CUDA tensors that pullback is the hand-written kernel
 nenbody_tpu_torch/csrc/wireframe_eye_bwd.cu, which replaces the Pallas
 `_wf_bwd_kernel` (the ring's per-hop backward) and `_compact_bwd_kernel`
-(its wide-row edition) and runs on one device as on every ring hop. Its
-plain version, `winner_pullback`, pulls the cotangents back with autograd
-and routes the target and heading shares by `index_add_`.
+(its wide-row edition) and runs on one device as on every ring hop: a
+written-out reverse sweep to the winning sprite's view-space verts per
+pixel (`wireframe_view_cotangents` is its CPU model, line for line),
+summed per run of pixels with one winner and pulled back through the
+sprite's projection once per run (`sprite_view_vjp`). Its plain version,
+`winner_pullback`, pulls the cotangents back with autograd and routes the
+target and heading shares by `index_add_`.
 
 Appearance: `albedo` (one per target) and `texture` ([Ht, Wt], shared by
 every env) cover the Pallas kernels' `has_alb` and `raw` forms. The JAX raw
@@ -312,6 +316,13 @@ def _winner_fragments(eye_pos, eye_dir, tgt, hdg, u_p, cfg: VisionConfig, alb=No
     depth, uv) [..., E, W] (uv [..., E, W, 2], where the texture is
     sampled)."""
     f, l, live = render.sprite_view(eye_pos[..., None, :], eye_dir[..., None, :], tgt, hdg, cfg)
+    return _view_fragments(f, l, live, u_p, cfg, alb, texture)
+
+
+def _view_fragments(f, l, live, u_p, cfg: VisionConfig, alb=None, texture=None):
+    """_winner_fragments from the sprite's view-space verts (f, l: lists of
+    3 tensors [..., E, W]) on: the function whose reverse sweep
+    wireframe_view_cotangents writes out."""
     d_m = tau_m = e_m = sp_lo = sp_hi = None
     for k, (a, b) in enumerate(render.SPRITE_EDGES):
         d_e, tau, lo, hi = render.edge_fragment(f[a], l[a], f[b], l[b], live, u_p, cfg)
@@ -333,6 +344,289 @@ def _winner_fragments(eye_pos, eye_dir, tgt, hdg, u_p, cfg: VisionConfig, alb=No
     depth = torch.where(hit, d_m, cfg.far)
     uv_w = torch.stack([uv_m[0] + tau_m * uv_m[2], uv_m[1] + tau_m * uv_m[3]], dim=-1)
     return shade, depth, uv_w
+
+
+# -- the reverse sweep of csrc/wireframe_eye_bwd.cu, in plain PyTorch ---------
+# The kernel's adjoint is a transcription of the functions below, line for
+# line; they run on no card path (the tests hold them against autograd
+# through _view_fragments and against winner_pullback).
+
+def _min_w(a, b):
+    """autograd's share of d min(a, b) that goes to a: all of it where a is
+    the smaller, half on a tie."""
+    return torch.where(a < b, 1.0, torch.where(b < a, 0.0, 0.5)).to(a.dtype)
+
+
+def _max_w(a, b):
+    """autograd's share of d max(a, b) that goes to a (half on a tie)."""
+    return torch.where(a > b, 1.0, torch.where(b > a, 0.0, 0.5)).to(a.dtype)
+
+
+def _edge_primal(fa, la, fb, lb, live, u_p, cfg: VisionConfig):
+    """render.edge_fragment's values with the intermediates its adjoint
+    reads (a dict): the same expressions, so the same branches."""
+    t = camera.tan_half_fov(cfg)
+    df, dl = fb - fa, lb - la
+    p = dict(fa=fa, la=la, df=df, dl=dl)
+    if cfg.antialias:
+        hp = 1.0 / cfg.width
+        big = df.abs() > 1e-30
+        safe = torch.where(big, df, 1e-30)
+        t_near = (cfg.near - fa) / safe
+        t_far = (cfg.far - fa) / safe
+        mn, mx = t_near.minimum(t_far), t_near.maximum(t_far)
+        tau_lo = torch.where(big, torch.maximum(mn, torch.zeros_like(df)), 0.0)
+        tau_hi = torch.where(big, torch.minimum(mx, torch.ones_like(df)), 1.0)
+        in_slab = (fa > cfg.near) & (fa < cfg.far)
+        valid = live & torch.where(big, tau_lo < tau_hi, in_slab)
+        f_lo = torch.where(valid, fa + tau_lo * df, 1.0)
+        f_hi = torch.where(valid, fa + tau_hi * df, 1.0)
+        d_a, d_b = t * f_lo.clamp(min=1e-30), t * f_hi.clamp(min=1e-30)
+        u_a = (la + tau_lo * dl) / d_a
+        u_b = (la + tau_hi * dl) / d_b
+        e_lo, e_hi = torch.minimum(u_a, u_b), torch.maximum(u_a, u_b)
+        c1 = torch.maximum(u_p, e_lo)
+        utc = torch.minimum(c1, e_hi) * t
+        num = utc * fa - la
+        den = dl - utc * df
+        ok = den.abs() > 1e-12
+        tau0 = num / torch.where(ok, den, 1.0)
+        c3 = torch.maximum(tau0, tau_lo)
+        tau = torch.minimum(c3, tau_hi)
+        fk = fa + tau * df
+        cover = (e_hi > u_p - hp) & (e_lo < u_p + hp)
+        hit = ok & valid & cover & (fk < cfg.far)
+        p.update(big=big, safe=safe, t_near=t_near, t_far=t_far, mn=mn, mx=mx, tau_lo=tau_lo,
+                 tau_hi=tau_hi, valid=valid, f_lo=f_lo, f_hi=f_hi, d_a=d_a, d_b=d_b, u_a=u_a,
+                 u_b=u_b, e_lo=e_lo, e_hi=e_hi, c1=c1, utc=utc, den=den, ok=ok, tau0=tau0,
+                 c3=c3, lo=torch.where(valid, e_lo, render.OFF_SCREEN),
+                 hi=torch.where(valid, e_hi, -render.OFF_SCREEN))
+    else:
+        utc = u_p * t
+        num = utc * fa - la
+        den = dl - utc * df
+        ok = den.abs() > 1e-12
+        tau = num / torch.where(ok, den, 1.0)
+        fk = fa + tau * df
+        hit = ok & live & (tau >= 0.0) & (tau <= 1.0) & (fk > cfg.near) & (fk < cfg.far)
+        p.update(utc=utc, den=den, ok=ok, tau0=tau)
+    p.update(tau=tau, depth=torch.where(hit, fk, float("inf")))
+    return p
+
+
+def _edge_grad(g_fa, g_la, g_df, g_dl):
+    """(d f_a, d l_a, d f_b, d l_b) from the cotangents of f_a, l_a and of
+    the edge's differences df = f_b - f_a, dl = l_b - l_a."""
+    return g_fa - g_df, g_la - g_dl, g_df, g_dl
+
+
+def _winner_adjoint(p, g_tau, g_fk, u_p, cfg: VisionConfig):
+    """The reverse sweep of the winning edge's fragment (_edge_primal's
+    record `p`): the cotangents of its clamped tau and of its depth ->
+    (its vert cotangents through the ray's hit, and with antialias `span`:
+    what reaches its u-interval's ends and its clipped tau range, as a
+    dict of e_lo, e_hi, tau_lo, tau_hi). Quotients are the primal's, times
+    a reciprocal; ties and clamps follow autograd (half to each side of a
+    tied min or max, a clamp passes at its bounds, a torch.where passes to
+    the side it took)."""
+    t = camera.tan_half_fov(cfg)
+    fa, df, tau = p["fa"], p["df"], p["tau"]
+    g_fa = g_fk
+    g_df = g_fk * tau
+    g_tau = g_tau + g_fk * df
+    zero = torch.zeros_like(g_tau)
+    span = dict(e_lo=zero, e_hi=zero, tau_lo=zero, tau_hi=zero)
+    g_tau0 = g_tau
+    if cfg.antialias:
+        w = _min_w(p["c3"], p["tau_hi"])
+        g_c3, span["tau_hi"] = g_tau * w, g_tau * (1.0 - w)
+        w = _max_w(p["tau0"], p["tau_lo"])
+        g_tau0, span["tau_lo"] = g_c3 * w, g_c3 * (1.0 - w)
+    r = 1.0 / torch.where(p["ok"], p["den"], 1.0)
+    g_num = g_tau0 * r
+    g_den = torch.where(p["ok"], -(g_tau0 * p["tau0"]) * r, 0.0)
+    if cfg.antialias:
+        g_c2 = (g_num * fa - g_den * df) * t
+        w = _min_w(p["c1"], p["e_hi"])
+        span["e_hi"] = g_c2 * (1.0 - w)
+        span["e_lo"] = g_c2 * w * _max_w(p["e_lo"], u_p)
+    g_fa = g_fa + g_num * p["utc"]
+    g_df = g_df - g_den * p["utc"]
+    return _edge_grad(g_fa, -g_num, g_df, g_den), span
+
+
+def _span_adjoint(p, span, cfg: VisionConfig):
+    """The reverse sweep of an edge's u-interval and slab clip (with
+    antialias): `span` (the cotangents of its u-interval's ends and of its
+    clipped tau range) -> its vert cotangents. An invalid edge's interval is
+    the off-screen sentinels: no cotangent."""
+    t = camera.tan_half_fov(cfg)
+    df, dl, valid = p["df"], p["dl"], p["valid"]
+    g_fa = g_la = g_df = g_dl = torch.zeros_like(df)
+    g_e_lo = torch.where(valid, span["e_lo"], 0.0)
+    g_e_hi = torch.where(valid, span["e_hi"], 0.0)
+    g_tau_lo = torch.where(valid, span["tau_lo"], 0.0)
+    g_tau_hi = torch.where(valid, span["tau_hi"], 0.0)
+    w_lo, w_hi = _min_w(p["u_a"], p["u_b"]), _max_w(p["u_a"], p["u_b"])
+    g_u_a = g_e_lo * w_lo + g_e_hi * w_hi
+    g_u_b = g_e_lo * (1.0 - w_lo) + g_e_hi * (1.0 - w_hi)
+    for g_u, u, d, f_end, tau_end, side in ((g_u_a, p["u_a"], p["d_a"], p["f_lo"],
+                                             p["tau_lo"], "lo"),
+                                            (g_u_b, p["u_b"], p["d_b"], p["f_hi"],
+                                             p["tau_hi"], "hi")):
+        r = 1.0 / d
+        g_n = g_u * r
+        g_f = torch.where(valid & (f_end >= 1e-30), -(g_u * u) * r * t, 0.0)
+        g_fa = g_fa + g_f
+        g_df = g_df + g_f * tau_end
+        g_la = g_la + g_n
+        g_dl = g_dl + g_n * tau_end
+        g_end = g_f * df + g_n * dl
+        if side == "lo":
+            g_tau_lo = g_tau_lo + g_end
+        else:
+            g_tau_hi = g_tau_hi + g_end
+    big = p["big"]
+    g_mn = torch.where(big, g_tau_lo * _max_w(p["mn"], torch.zeros_like(df)), 0.0)
+    g_mx = torch.where(big, g_tau_hi * _min_w(p["mx"], torch.ones_like(df)), 0.0)
+    w_n, w_x = _min_w(p["t_near"], p["t_far"]), _max_w(p["t_near"], p["t_far"])
+    g_tn = g_mn * w_n + g_mx * w_x
+    g_tf = g_mn * (1.0 - w_n) + g_mx * (1.0 - w_x)
+    rs = 1.0 / p["safe"]
+    g_fa = g_fa - (g_tn + g_tf) * rs
+    g_df = g_df + torch.where(big, -(g_tn * p["t_near"] + g_tf * p["t_far"]) * rs, 0.0)
+    return _edge_grad(g_fa, g_la, g_df, g_dl)
+
+
+def wireframe_view_cotangents(f, l, live, u_p, us, ud, cfg: VisionConfig, alb=None,
+                              texture=None):
+    """The written-out reverse sweep of _view_fragments: cotangents (us, ud)
+    [..., E, W] on each pixel's (shade, depth) -> (gf, gl, g_alb, g_tex):
+    the cotangents of the winning sprite's view-space verts (lists of 3
+    tensors [..., E, W]), each pixel's share of d albedo (of the scalar's
+    when `alb` is None) and, with a texture, d texture [Ht, Wt] summed over
+    pixels. The CPU model of csrc/wireframe_eye_bwd.cu's per-pixel adjoint;
+    the caller masks the cotangents of background pixels. Only the winning
+    edge reaches (shade, depth) through its tau and depth, and with
+    antialias the edges that give the union span's ends through the
+    coverage."""
+    edges = [_edge_primal(f[a], l[a], f[b], l[b], live, u_p, cfg) for a, b in render.SPRITE_EDGES]
+    d_m, tau_m = edges[0]["depth"], edges[0]["tau"]
+    e_m = torch.zeros_like(d_m, dtype=torch.long)
+    for k in (1, 2):
+        take = edges[k]["depth"] < d_m
+        d_m, tau_m = torch.where(take, edges[k]["depth"], d_m), torch.where(take, edges[k]["tau"],
+                                                                             tau_m)
+        e_m = torch.where(take, k, e_m)
+    hit = torch.isfinite(d_m)
+    cs, cd = torch.where(hit, us, 0.0), torch.where(hit, ud, 0.0)
+    tau_m = torch.where(hit, tau_m, 0.0)
+    uv = torch.tensor(render.EDGE_UV, dtype=tau_m.dtype, device=tau_m.device)[e_m].unbind(-1)
+    uvx, uvy = uv[0] + tau_m * uv[2], uv[1] + tau_m * uv[3]
+    base0 = cfg.sprite_albedo if alb is None else alb
+    sample = 1.0
+    if texture is not None:
+        sample = render.sample_texture(texture, torch.stack([uvx, uvy], dim=-1))
+    base = base0 * sample
+    ux, uy = uvx - 0.5, uvy - 0.5
+    vig = 1.0 - (ux * ux + uy * uy)
+    if cfg.antialias:
+        hp = 1.0 / cfg.width
+        lo = [e["lo"] for e in edges]
+        hi = [e["hi"] for e in edges]
+        s_lo, s_hi = torch.minimum(lo[0], lo[1]), torch.maximum(hi[0], hi[1])
+        a_lo, b_lo = _min_w(lo[0], lo[1]), _min_w(s_lo, lo[2])
+        a_hi, b_hi = _max_w(hi[0], hi[1]), _max_w(s_hi, hi[2])
+        sp_lo, sp_hi = torch.minimum(s_lo, lo[2]), torch.maximum(s_hi, hi[2])
+        raw = (torch.minimum(sp_hi, u_p + hp) - torch.maximum(sp_lo, u_p - hp)) / (2.0 * hp)
+        cov = raw.clamp(0.0, 1.0)
+        g_s = cs * cov
+        g_raw = torch.where((raw >= 0.0) & (raw <= 1.0), cs * (base * vig - cfg.background),
+                            0.0) / (2.0 * hp)
+        g_sp_hi = g_raw * _min_w(sp_hi, u_p + hp)
+        g_sp_lo = -g_raw * _max_w(sp_lo, u_p - hp)
+        g_lo = [g_sp_lo * b_lo * a_lo, g_sp_lo * b_lo * (1.0 - a_lo), g_sp_lo * (1.0 - b_lo)]
+        g_hi = [g_sp_hi * b_hi * a_hi, g_sp_hi * b_hi * (1.0 - a_hi), g_sp_hi * (1.0 - b_hi)]
+    else:
+        g_s = cs
+    g_vig = g_s * base
+    g_base = g_s * vig
+    g_uvx = -(g_vig * ux + g_vig * ux)
+    g_uvy = -(g_vig * uy + g_vig * uy)
+    g_alb = g_base * sample
+    g_tex = None
+    if texture is not None:
+        ht, wt = texture.shape
+        g_smp = g_base * base0
+        x = uvx.clamp(0.0, 1.0) * (wt - 1)
+        y = uvy.clamp(0.0, 1.0) * (ht - 1)
+        x0, y0 = x.floor().long(), y.floor().long()
+        x1, y1 = (x0 + 1).clamp(max=wt - 1), (y0 + 1).clamp(max=ht - 1)
+        fx, fy = x - x0, y - y0
+        flat = texture.reshape(-1)
+        texel = lambda iy, ix: flat[iy * wt + ix]
+        t00, t01, t10, t11 = texel(y0, x0), texel(y0, x1), texel(y1, x0), texel(y1, x1)
+        g_fx = g_smp * ((t01 - t00) * (1.0 - fy) + (t11 - t10) * fy)
+        g_fy = g_smp * ((t10 - t00) * (1.0 - fx) + (t11 - t01) * fx)
+        g_uvx = g_uvx + torch.where((uvx >= 0.0) & (uvx <= 1.0), g_fx * (wt - 1), 0.0)
+        g_uvy = g_uvy + torch.where((uvy >= 0.0) & (uvy <= 1.0), g_fy * (ht - 1), 0.0)
+        g_tex = torch.zeros_like(flat)
+        for iy, ix, wgt in ((y0, x0, (1.0 - fx) * (1.0 - fy)), (y0, x1, fx * (1.0 - fy)),
+                            (y1, x0, (1.0 - fx) * fy), (y1, x1, fx * fy)):
+            g_tex.index_add_(0, (iy * wt + ix).reshape(-1), (g_smp * wgt).reshape(-1))
+        g_tex = g_tex.reshape(ht, wt)
+    g_tau = g_uvx * uv[2] + g_uvy * uv[3]
+    gf = [torch.zeros_like(cs) for _ in range(3)]
+    gl = [torch.zeros_like(cs) for _ in range(3)]
+
+    def add(k, g):
+        a, b = render.SPRITE_EDGES[k]
+        gf[a], gl[a] = gf[a] + g[0], gl[a] + g[1]
+        gf[b], gl[b] = gf[b] + g[2], gl[b] + g[3]
+
+    # the winning edge, by its tau and depth (the kernel picks it per pixel)
+    spans = []
+    for k in range(3):
+        mine = e_m == k
+        g, span = _winner_adjoint(edges[k], torch.where(mine, g_tau, 0.0),
+                                  torch.where(mine, cd, 0.0), u_p, cfg)
+        add(k, g)
+        spans.append({key: torch.where(mine, v, 0.0) for key, v in span.items()})
+    if cfg.antialias:
+        # each edge's u-interval and slab clip: the winner's through its
+        # clamps, those that give the union span's ends through the coverage
+        for k in range(3):
+            span = dict(spans[k], e_lo=spans[k]["e_lo"] + g_lo[k],
+                        e_hi=spans[k]["e_hi"] + g_hi[k])
+            add(k, _span_adjoint(edges[k], span, cfg))
+    return gf, gl, g_alb, g_tex
+
+
+def sprite_view_vjp(eye_pos, eye_dir, tgt, hdg, gf, gl, cfg: VisionConfig):
+    """The transpose of render.sprite_view at (eye_pos, eye_dir, tgt, hdg)
+    (broadcasting as there): the cotangents gf, gl (lists of 3) of the
+    verts' (f, l) -> (d eye_pos, d eye_dir, d tgt, d hdg) of the broadcast
+    shape [..., 2] (the caller sums over broadcast axes). The kernel applies
+    it once per (eye, winner) group to the group's summed cotangents."""
+    r = cfg.sprite_radius
+    cth, sth = hdg[..., 0], hdg[..., 1]
+    px, py = tgt[..., 0], tgt[..., 1]
+    ex, ey = eye_pos[..., 0], eye_pos[..., 1]
+    dx, dy = eye_dir[..., 0], eye_dir[..., 1]
+    g_px = g_py = g_dx = g_dy = g_c = g_s = 0.0
+    for (vx, vy), g_f, g_l in zip(render.SPRITE_VERTS, gf, gl):
+        vxr, vyr = vx * r, vy * r
+        relx = (px + (vxr * cth - vyr * sth)) - ex
+        rely = (py + (vxr * sth + vyr * cth)) - ey
+        g_rx = g_f * dx + g_l * dy
+        g_ry = g_f * dy - g_l * dx
+        g_dx = g_dx + (g_f * relx - g_l * rely)
+        g_dy = g_dy + (g_f * rely + g_l * relx)
+        g_px, g_py = g_px + g_rx, g_py + g_ry
+        g_c = g_c + (g_rx * vxr + g_ry * vyr)
+        g_s = g_s + (g_ry * vxr - g_rx * vyr)
+    return (torch.stack([-g_px, -g_py], dim=-1), torch.stack([g_dx, g_dy], dim=-1),
+            torch.stack([g_px, g_py], dim=-1), torch.stack([g_c, g_s], dim=-1))
 
 
 def winner_pullback(
@@ -436,8 +730,10 @@ def wireframe_eye_vjp(eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, cfg: Visio
     """Pullback of the wireframe eye through the forward's winner index:
     cotangents (us, ud) [..., E, W] -> (d eye_pos, d eye_dir [..., E, 2],
     d tgt, d tgt_hdg [..., M, 2][, d albedo [..., M]][, d texture]) as
-    winner_pullback returns them. The backward kernel for CUDA tensors,
-    its plain version `winner_pullback` for CPU tensors."""
+    winner_pullback returns them. The backward kernel for CUDA tensors (a
+    float primal and the reverse sweep of wireframe_view_cotangents per
+    pixel, sprite_view_vjp once per run of pixels with one winner), its
+    plain version `winner_pullback` for CPU tensors."""
     args = (eye_pos, eye_dir, tgt, tgt_hdg, winner, us, ud, cfg, albedo, texture,
             appearance_grads)
     if use_kernel(eye_pos, eye_dir, tgt, tgt_hdg, us, ud, albedo, texture):
@@ -450,8 +746,9 @@ class RenderRowsWireframeDiff(torch.autograd.Function):
     -> (shade, depth) with the winner pullback as its backward (the winner
     route of render_rows_wireframe_diff, its batched form and the textured
     diff). On CUDA tensors the forward is the kernel with the winner index
-    and the backward the backward kernel; on CPU tensors the plain renderer
-    (which returns its winner) and `winner_pullback`. The headings are
+    and the backward the backward kernel (the written-out reverse sweep,
+    wireframe_eye_vjp); on CPU tensors the plain renderer (which returns
+    its winner) and `winner_pullback`. The headings are
     inputs, so autograd pulls them back through camera.unit_heading to the
     velocity; for a self-render the same tensors come in as eyes and
     targets, and autograd adds the two shares (the eyes look along, and the

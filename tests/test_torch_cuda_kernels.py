@@ -383,7 +383,7 @@ def test_gravity_vjp_cross_kernel_matches_float64(cuda, b, n, m):
                                    (5, 33, 17), (1, 16, 512)])
 @pytest.mark.parametrize("aa", [False, True])
 def test_wireframe_eye_bwd_kernel_matches_winner_pullback(cuda, b, n, w, aa):
-    # the dual-number re-evaluation against autograd through the same
+    # the written-out reverse sweep against autograd through the same
     # expressions: per-pixel terms round apart, and the target sums run in
     # atomic (run-to-run) order (the disc backward's tolerances)
     shape = (b, n, 2) if b > 1 else (n, 2)
@@ -939,3 +939,158 @@ def test_boids_kernel_repeats_bit_for_bit(cuda, shape):
         assert ((first - want).abs().max() / want.abs().max()).item() < 1e-5
     for _ in range(5):
         assert torch.equal(boids_ops.boids_velocity_tiled(pos, vel, cfg), first)
+
+
+# -- the eye backward kernels' winner runs ------------------------------------
+# Each case against the plain version at the backward kernels' tolerances
+# (per-pixel terms round apart; target sums in atomic, run-to-run order:
+# rtol 2e-4, atol 2e-4 of the largest component), one launch each.
+
+
+def _cotangents(shape, w, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape[:-1] + (w,), generator=g, device=device),
+            torch.randn(shape[:-1] + (w,), generator=g, device=device) * 1e-2)
+
+
+def _hold_pullback(sprite, ep, ed, tp, th, cfg, albedo=None, texture=None, winner=None,
+                   seed=2):
+    """The backward kernel's gradients (one launch) against its plain
+    version, from the forward's winner index or the one given (the
+    wireframe's pullback is defined for any winner: it re-evaluates the
+    given sprite at each pixel). Returns the winner index used."""
+    us, ud = _cotangents(ep.shape, cfg.width, ep.device, seed)
+    if sprite == "disc":
+        _, _, win = raycast.disc_eye_with_winner(ep, ed, tp, cfg)
+        common.reset_launch_counts()
+        got = raycast.render_rows_vjp_cross(ep, ed, win, us, ud, cfg, targets=tp)
+        assert common.launch_counts()["disc_eye_bwd"] == 1
+        want = raycast.render_rows_vjp_cross_plain(ep, ed, us, ud, cfg, targets=tp)
+    else:
+        win = winner
+        if win is None:
+            _, _, win = wireframe.wireframe_eye_with_winner(ep, ed, tp, th, cfg, albedo, texture)
+        common.reset_launch_counts()
+        got = wireframe.wireframe_eye_vjp(ep, ed, tp, th, win, us, ud, cfg, albedo, texture)
+        assert common.launch_counts()["wireframe_eye_bwd"] == 1
+        want = wireframe.winner_pullback(ep, ed, tp, th, win, us, ud, cfg, albedo, texture)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, x in zip(got, want):
+        assert torch.isfinite(g).all() and x.abs().max() > 0
+        torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
+    return win
+
+
+def _near_sprites(b, w, device, seed, dist=(4.0,)):
+    """Eyes at random places and headings, each with sprites of radius 4
+    `dist` ahead of it turned away from it (their two front edges, clipped
+    by the near plane, span u in about [-3.5, 3.5]: each covers the whole
+    row), behind them spread targets they occlude. Returns (eye_pos,
+    eye_dir, tgt, hdg [b, m, 2]), eyes the first entry of each env."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=device)
+    eye = rand(b, 1, 2) * 100 - 50
+    d = camera.unit_heading(rand(b, 1, 2) * 2 - 1)
+    near = torch.stack([eye + k * d for k in dist], dim=1)[:, :, 0]
+    far = eye + (rand(b, 30, 1) * 40 + 20) * d + (rand(b, 30, 1) * 20 - 10) * torch.stack(
+        [d[..., 1], -d[..., 0]], dim=-1)
+    tgt = torch.cat([eye, near, far], dim=1).contiguous()
+    hdg = torch.cat([d, d.expand(-1, len(dist), -1), camera.unit_heading(rand(b, 30, 2) - 0.5)],
+                    dim=1).contiguous()
+    return eye.contiguous(), d.contiguous(), tgt, hdg
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_bwd_one_sprite_wins_a_whole_row(cuda, aa):
+    eye, d, tgt, hdg = _near_sprites(3, 1024, cuda, seed=5)
+    cfg = VisionConfig(width=1024, antialias=aa, sprite_mode="wireframe", sprite_radius=4.0)
+    win = _hold_pullback("wireframe", eye, d, tgt, hdg, cfg)
+    assert (win == 1).all()  # the near sprite wins all 1,024 pixels of each row
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_bwd_alternating_winners(cuda, aa):
+    # two near sprites that each cover the whole row, credited with every
+    # other pixel: runs of one lane
+    eye, d, tgt, hdg = _near_sprites(3, 256, cuda, seed=6, dist=(4.0, 4.5))
+    cfg = VisionConfig(width=256, antialias=aa, sprite_mode="wireframe", sprite_radius=4.0)
+    p = torch.arange(256, device=cuda)
+    win = torch.where(p % 2 == 0, 1, 2).to(torch.int32).expand(3, 1, 256).contiguous()
+    _hold_pullback("wireframe", eye, d, tgt, hdg, cfg, winner=win)
+
+
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+@pytest.mark.parametrize("aa", [False, True])
+def test_eye_bwd_ring_hop_with_background(cuda, sprite, aa):
+    # a hop's eyes against another block's targets: -1 where none covers
+    pos = _uniform((4, 128, 2), -40, 40, 7, cuda)
+    dirs = camera.unit_heading(_uniform((4, 128, 2), -1, 1, 8, cuda))
+    cfg = VisionConfig(width=64, antialias=aa, sprite_mode=sprite, far=200.0)
+    blk = lambda x, k: x[:, 32 * k:32 * (k + 1)].contiguous()
+    win = _hold_pullback(sprite, blk(pos, 0), blk(dirs, 0), blk(pos, 2), blk(dirs, 2), cfg)
+    assert (win < 0).any() and (win >= 0).any()
+
+
+@pytest.mark.parametrize("w", [17, 50, 1000])
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+@pytest.mark.parametrize("aa", [False, True])
+def test_eye_bwd_widths_off_the_warp(cuda, w, sprite, aa):
+    # widths that are no multiple of 4 (the disc's 4-byte tail) or of 32
+    # (rounds and chunks that straddle rows)
+    b, n = (3, 40) if w < 1000 else (1, 60)
+    pos = _uniform((b, n, 2), -40, 40, w, cuda)
+    dirs = camera.unit_heading(_uniform((b, n, 2), -1, 1, w + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, sprite_mode=sprite, far=200.0)
+    _hold_pullback(sprite, pos, dirs, pos, dirs, cfg)
+
+
+@pytest.mark.parametrize("w", [17, 64])
+@pytest.mark.parametrize("aa", [False, True])
+def test_disc_eye_bwd_unaligned_arrays(cuda, w, aa):
+    # the winner and cotangents one element into their storage: not 16-byte
+    # aligned, so every lane reads its 4 pixels with 4-byte loads
+    pos = _uniform((3, 40, 2), -40, 40, w, cuda)
+    dirs = camera.unit_heading(_uniform((3, 40, 2), -1, 1, w + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, far=200.0)
+    us, ud = _cotangents(pos.shape, w, cuda, 2)
+    _, _, win = raycast.disc_eye_with_winner(pos, dirs, pos, cfg)
+    shifted = lambda x: torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+    us_s, ud_s, win_s = shifted(us), shifted(ud), shifted(win)
+    assert all(x.data_ptr() % 16 != 0 and x.is_contiguous() for x in (us_s, ud_s, win_s))
+    common.reset_launch_counts()
+    got = raycast.render_rows_vjp_cross(pos, dirs, win_s, us_s, ud_s, cfg)
+    assert common.launch_counts()["disc_eye_bwd"] == 1
+    want = raycast.render_rows_vjp_cross_plain(pos, dirs, us, ud, cfg)
+    for g, x in zip(got, want):
+        assert torch.isfinite(g).all() and x.abs().max() > 0
+        torch.testing.assert_close(g, x, rtol=2e-4, atol=2e-4 * x.abs().max().item())
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 1024, 64), (4, 256, 64), (1, 100, 1024)])
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+@pytest.mark.parametrize("aa", [False, True])
+def test_eye_bwd_clustered_swarm(cuda, b, n, w, sprite, aa):
+    # U(-8, 8): near sprites over many pixels, long runs of one winner
+    shape = (b, n, 2) if b > 1 else (n, 2)
+    pos = _uniform(shape, -8, 8, n + w, cuda)
+    dirs = camera.unit_heading(_uniform(shape, -1, 1, n + w + 1, cuda))
+    cfg = VisionConfig(width=w, antialias=aa, sprite_mode=sprite)
+    _hold_pullback(sprite, pos, dirs, pos, dirs, cfg)
+
+
+@pytest.mark.parametrize("form,tex", [("albedo", None), ("texture", "staged"),
+                                      ("albedo+texture", "global")])
+@pytest.mark.parametrize("aa", [False, True])
+def test_wireframe_eye_bwd_appearance_in_runs(cuda, form, tex, aa):
+    # the near sprite over whole rows and a clustered swarm: long runs of
+    # one winner, and of lanes that read the same texels
+    eye, d, tgt, hdg = _near_sprites(3, 256, cuda, seed=9)
+    near = VisionConfig(width=256, antialias=aa, sprite_mode="wireframe", sprite_radius=4.0)
+    albedo, texture = _appearance(form, tex, (3,), tgt.shape[1], cuda)
+    _hold_pullback("wireframe", eye, d, tgt, hdg, near, albedo, texture)
+    pos = _uniform((2, 200, 2), -8, 8, 10, cuda)
+    dirs = camera.unit_heading(_uniform((2, 200, 2), -1, 1, 11, cuda))
+    albedo, texture = _appearance(form, tex, (2,), 200, cuda)
+    cfg = VisionConfig(width=128, antialias=aa, sprite_mode="wireframe")
+    _hold_pullback("wireframe", pos, dirs, pos, dirs, cfg, albedo, texture)
