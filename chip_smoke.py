@@ -5,9 +5,11 @@
 
 Phases, one line each (any failure raises and the exit code is non-zero):
   1. device   — the card's name and power limit; TF32 off.
-  2. build    — nvcc builds the eleven kernels from nenbody_tpu_torch/csrc
-                into build/nenbody_tpu_torch/ (one nvcc per source, all at
-                once); ptxas reports registers, shared memory and spills.
+  2. build    — nvcc builds the eleven kernels from the eight sources in
+                nenbody_tpu_torch/csrc (boids.cu holds the fused rules and
+                the ring's partials) into build/nenbody_tpu_torch/ (one
+                nvcc per source, all at once); ptxas reports registers,
+                shared memory and spills.
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes (the backward kernels and the
                 wireframe eye also at the trainers'), with the tolerance
@@ -21,7 +23,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 against plain autograd; the ring's kernels (the boids
                 partials at 16,384 x 16,384, the gravity VJP's cross form
                 against float64, the wireframe backward at the eye's shapes
-                and split into 4 ring hops).
+                and split into 4 ring hops); the gravity VJP's and the
+                partials' plans (nbt_gravity_vjp_plan,
+                nbt_boids_partials_plan) equal to their twins at the path
+                shapes, and each form of both 20 more times bit-identical.
   4. slice    — the serving path through the user's entry points (Scene
                 rollouts at BASELINE configs 2, 3, 4, 5 and reference-100,
                 and the port's entry()), launch counts read before and after.
@@ -80,7 +85,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 disc eye, the wireframe eye and boids at each shape of the
                 main paths with its bound (GRAVITY_TIME_SHAPES,
                 DISC_TIME_SHAPES, WF_TIME_SHAPES, BOIDS_TIME_SHAPES: spread
-                and clustered, AA off and on), the two eye backward
+                and clustered, AA off and on), the gravity VJP (self and
+                cross forms) and the boids partials at VJP_TIME_SHAPES and
+                PARTIALS_TIME_SHAPES, the two eye backward
                 kernels' device times (graph_ms) at DISC_BWD_TIME_SHAPES
                 and WF_BWD_TIME_SHAPES (AA off and on, the wireframe's
                 also with a texture), the share of pairs the
@@ -88,7 +95,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 per kept sprite, the eyes with and
                 without their winner index, steps/s of the config-2 rollout
                 (both sprites), reference-100 (wireframe) and entry(), ms
-                per Scene step + observe at configs 2-5 and reference-100, the
+                per Scene step + observe at configs 2-5 and reference-100
+                and of Scene(backend="ring") at config 3 on default_mesh(), the
                 ring's kernels and the ring path against one device, the
                 RDMA kernels' device time (torch.profiler) beside the RDMA
                 call, the per-hop ring and one device, each eye kernel's
@@ -103,14 +111,15 @@ for the inputs timed; `library_ms` is null: no single PyTorch call computes
 any of these functions; the three eye kernels carry their appearance
 forms' times and bounds under `forms`, gravity and the disc eye their
 per-shape ms, plain_ms and bound_ms under `shapes`, as do the wireframe
-eye, boids and the two eye backward kernels, whose `ms` is a host loop
-of 10 calls, wrapper time included, while `shapes` holds device times);
+eye, boids, the gravity VJP, the boids partials and the two eye backward
+kernels, whose `ms` is a host loop of 10 calls, wrapper time included,
+while `shapes` holds device times);
 the last line is {"ok": true, "device": {...}}.
 `python3 chip_smoke.py --rdma-cards N` runs the RDMA phases alone with one
-shard on each of N cards; `--kernel-times` the gravity, disc eye,
-wireframe eye, boids and eye backward timings and the serving steps alone
-(with another checkout first on sys.path, its kernels under the same
-harness). Imports no jax.
+shard on each of N cards; `--kernel-times [GROUP ...]` the device timings
+of phase 5 and the serving steps alone, or only the GROUPs named (of
+TIME_GROUPS), with another checkout first on sys.path its kernels under
+the same harness. Imports no jax.
 """
 
 from __future__ import annotations
@@ -159,7 +168,7 @@ KERNEL_INFO = {
                           also_replaces=["nenbody_tpu/ops/wireframe.py:877",
                                          "nenbody_tpu/ops/wireframe.py:545",
                                          "nenbody_tpu/ops/wireframe.py:288"]),
-    "boids_partials": dict(source="nenbody_tpu_torch/csrc/boids_partials.cu",
+    "boids_partials": dict(source="nenbody_tpu_torch/csrc/boids.cu",
                            replaces="nenbody_tpu/ops/boids.py:119"),
     "wireframe_eye_bwd": dict(source="nenbody_tpu_torch/csrc/wireframe_eye_bwd.cu",
                               replaces="nenbody_tpu/ops/wireframe.py:2424",
@@ -196,6 +205,20 @@ WF_TIME_SHAPES = [(label, b, n, w, half)
 BOIDS_TIME_SHAPES = [("reference-100", 1, 100, 100), ("config 3", 1, 4096, 100),
                      ("config 3 clustered", 1, 4096, 8), ("config 4", 1, 65536, 100),
                      ("64 envs", 64, 256, 100)]
+# phase 5's shapes of the gravity VJP (label, envs, N, M; M None for the self
+# form) and of the boids partials (label, envs, N, M, the hop-0 form: the
+# shard against its own block, the diagonal masked)
+VJP_TIME_SHAPES = [("config 4", 1, 65536, None), ("APG at config-5 width", 4096, 256, None),
+                   ("2 x 2 mesh shard", 2048, 128, None),
+                   ("ring hop at config 4 on 4 shards", 1, 16384, 16384),
+                   ("2 x 2 mesh hop", 2048, 128, 128)]
+PARTIALS_TIME_SHAPES = [("ring hop at N=65,536 on 4 shards", 1, 16384, 16384, True),
+                        ("the same, another block", 1, 16384, 16384, False),
+                        ("ring Scene at config 3 on one card", 1, 4096, 4096, True),
+                        ("config 3 on 4 shards", 1, 1024, 1024, True)]
+# what `--kernel-times GROUP ...` may name
+TIME_GROUPS = ("gravity", "disc_eye", "wireframe_eye", "boids", "gravity_vjp", "boids_partials",
+               "backward", "serving")
 # phase 5's shapes of the backward kernels (label, envs, N, W): each AA off
 # and on, the wireframe's trainers' shape also with a texture; reference-100
 # is the wide row, where the grid's segments of a row (GRID_WARPS) bind
@@ -205,6 +228,7 @@ DISC_BWD_TIME_SHAPES = [("config 2", 1, 1024, 64), ("reference-100", 1, 100, 102
                         ("64 envs", 64, 256, 64), ("config-5 width", 4096, 256, 64)]
 SERVING_STEPS = [("config 2", "gravity-vision-1024", 50, None, "disc"),
                  ("config 3", "boids-4096", 20, None, "disc"),
+                 ("config 3 ring (default_mesh())", "boids-4096", 20, None, "ring"),
                  ("config 4", "gravity-65536", 10, None, "disc"),
                  ("config 5", "envs-4096x256", 5, 4096, "disc"),
                  ("reference-100", "reference-100", 50, None, "disc"),
@@ -1113,6 +1137,90 @@ def phase_ring_kernels(errors: Errors, gen) -> None:
                                      (ep, ed, tp, th), winner, cs, cd, vcfg, i, 2e-4, atol))
 
 
+def vjp_plan_of_card(batch: int, n: int, m: int, sms: int) -> tuple:
+    out = (ctypes.c_int * 5)()
+    common.kernel_library().call("nbt_gravity_vjp_plan", batch, n, m, sms, ctypes.addressof(out))
+    return tuple(out)
+
+
+def partials_plan_of_card(batch: int, n: int, m: int, sms: int) -> tuple:
+    out = (ctypes.c_int * 5)()
+    common.kernel_library().call("nbt_boids_partials_plan", batch, n, m, sms,
+                                 ctypes.addressof(out))
+    return tuple(out)
+
+
+def phase_vjp_partials_plans(errors: Errors) -> None:
+    """The gravity VJP's and the boids partials' launch plans on this card
+    (and at 132 and 16 SMs) equal to their plain twins at the path shapes
+    (VJP_TIME_SHAPES, PARTIALS_TIME_SHAPES, and a batch of 64 envs, 512
+    agents against 1,536); the 2 x 2 mesh's shapes (128-thread blocks)
+    against their plain versions (the self form at the scaled bound of
+    phase_backward_kernels, the cross form against float64 at the VJP's
+    3e-5); then each form of both kernels 20 more times, each launch giving
+    the first one's bits (the cluster's leader adds the partials in rank
+    order). Inputs from a generator of their own."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = {(b, n, m or n) for _, b, n, m in VJP_TIME_SHAPES}
+    shapes |= {(b, n, m) for _, b, n, m, _ in PARTIALS_TIME_SHAPES} | {(64, 512, 1536)}
+    for count in sorted({sms, 132, 16}):
+        for b, n, m in sorted(shapes):
+            for twin, card_plan, name in (
+                    (pairwise.gravity_vjp_plan, vjp_plan_of_card, "nbt_gravity_vjp_plan"),
+                    (boids_ops.boids_partials_plan, partials_plan_of_card,
+                     "nbt_boids_partials_plan")):
+                for n_, m_ in {(n, m), (m, n)}:  # both launches of a cross form
+                    plan = twin(b, n_, m_, count)
+                    expect(card_plan(b, n_, m_, count) == plan,
+                           f"{name}({b}, {n_}, {m_}, {count}) == {plan}")
+    log("kernels", f"nbt_gravity_vjp_plan and nbt_boids_partials_plan equal their twins at "
+        f"{len(shapes)} shapes, both launches, on {sorted({sms, 132, 16})} SMs")
+    for b, n, m in sorted(shapes):
+        log("kernels", f"plans on this card ({sms} SMs) at {b} x {n} x {m}: VJP "
+            f"{pairwise.gravity_vjp_plan(b, n, m, sms)}, partials "
+            f"{boids_ops.boids_partials_plan(b, n, m, sms)} (T, R, S, chunk, i-blocks)")
+
+    gcfg, bcfg = GravityConfig(), BoidsConfig()
+    pos = uniform(gen, (2048, 128, 2), -100, 100)
+    pos_j = uniform(gen, (2048, 128, 2), -100, 100)
+    u = torch.randn((2048, 128, 2), generator=gen, device="cuda")
+    errors.check_scaled("gravity_vjp", "gravity_vjp 2048 x 128",
+                        pairwise.gravity_vjp_tiled(pos, u, gcfg),
+                        pairwise.gravity_vjp_plain(pos, u, gcfg), 3e-5)
+    got = pairwise.gravity_vjp_cross_tiled(pos, pos_j, u, gcfg)
+    want64 = pairwise.gravity_vjp_cross_plain(pos.double(), pos_j.double(), u.double(), gcfg)
+    for name, g, w in zip(("d pos_i", "d pos_j"), got, want64):
+        errors.check_scaled("gravity_vjp", f"gravity_vjp cross 2048 x 128 x 128 {name} vs "
+                            "float64", g, w, 3e-5)
+
+    runs = {}
+    for b, n in ((1, 65536), (TRAIN_ENVS, TRAIN_AGENTS), (2048, 128)):
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        p, c = uniform(gen, shape, -100, 100), torch.randn(shape, generator=gen, device="cuda")
+        runs[f"gravity_vjp {b} x {n}"] = lambda p=p, c=c: (
+            pairwise.gravity_vjp_tiled(p, c, gcfg),)
+    for b, n in ((1, RING_PAIRS), (2048, 128)):
+        shape = (b, n, 2) if b > 1 else (n, 2)
+        p, q = uniform(gen, shape, -100, 100), uniform(gen, shape, -100, 100)
+        c = torch.randn(shape, generator=gen, device="cuda")
+        runs[f"gravity_vjp cross {b} x {n} x {n}"] = (
+            lambda p=p, q=q, c=c: pairwise.gravity_vjp_cross_tiled(p, q, c, gcfg))
+    for _, b, n, m, excl in PARTIALS_TIME_SHAPES:
+        pi, vi = uniform(gen, (n, 2), -100, 100), uniform(gen, (n, 2), -1, 1)
+        pj, vj = (pi, vi) if excl else (uniform(gen, (m, 2), -100, 100),
+                                        uniform(gen, (m, 2), -1, 1))
+        runs[f"boids_partials {n} x {m} exclude_diagonal={excl}"] = (
+            lambda pi=pi, vi=vi, pj=pj, vj=vj, excl=excl:
+            boids_ops.boids_partials_tiled(pi, vi, pj, vj, bcfg, excl))
+    for label, run in runs.items():
+        first = run()
+        same = all(all(torch.equal(a, b) for a, b in zip(run(), first))
+                   for _ in range(RDMA_REPEATS))
+        log("kernels", f"{label}: {RDMA_REPEATS} more launches bit-identical: {same}")
+        expect(same, f"{label}: repeated launches to give the same bits")
+
+
 def hold_scaled(label: str, got, want, bound: float) -> float:
     """|got - want| / max|want| < bound for one path against another."""
     torch.cuda.synchronize()
@@ -1843,16 +1951,20 @@ def shape_entry(shape: str, k_ms: float, p_ms: float, b_ms: float) -> dict:
     return {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
 
 
-def phase_kernel_times(gen, card: str):
-    """The serving path's gravity, disc eye, wireframe eye and boids at the
-    main paths' shapes, each kernel's device time (graph_ms) alternated with
-    its plain version (not timed for the wireframe eye at config-5 width,
-    where it takes minutes), each with its bound: (times of the `kernels`
-    line's shapes, {kernel: per-shape entries})."""
+def phase_kernel_times(gen, card: str, groups=TIME_GROUPS):
+    """The serving path's gravity, disc eye, wireframe eye and boids, the
+    gravity VJP and the boids partials at the main paths' shapes, each
+    kernel's device time (graph_ms) alternated with its plain version (not
+    timed for the wireframe eye at config-5 width, where it takes minutes),
+    each with its bound, then the eye backward kernels', for the TIME_GROUPS
+    in `groups`: (times of the `kernels` line's shapes, {kernel: per-shape
+    entries})."""
     times, shapes = {}, {"gravity": [], "disc_eye": [], "wireframe_eye": [], "boids": [],
-                         "disc_eye_bwd": [], "wireframe_eye_bwd": []}
+                         "gravity_vjp": [], "boids_partials": [], "disc_eye_bwd": [],
+                         "wireframe_eye_bwd": []}
+    timed = lambda group, table: table if group in groups else []
     gcfg = GravityConfig()
-    for b, n in GRAVITY_TIME_SHAPES:
+    for b, n in timed("gravity", GRAVITY_TIME_SHAPES):
         pos = uniform(gen, (b, n, 2) if b > 1 else (n, 2), -100, 100)
         p_ms, k_ms = alternate_graph(lambda: pairwise.gravity_forces_plain(pos, gcfg),
                                      lambda: pairwise.gravity_forces_tiled(pos, gcfg), 2, 20)
@@ -1864,7 +1976,7 @@ def phase_kernel_times(gen, card: str):
         log("times", f"gravity {label}: kernel {k_ms:.4f} ms = {b * n * n / k_ms * 1e3:.4e} pair "
             f"evals/s; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}) [{card}]")
 
-    for label, b, n_e, w, half in DISC_TIME_SHAPES:
+    for label, b, n_e, w, half in timed("disc_eye", DISC_TIME_SHAPES):
         shape = (b, n_e, 2) if b > 1 else (n_e, 2)
         epos = uniform(gen, shape, -half, half)
         dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
@@ -1886,7 +1998,7 @@ def phase_kernel_times(gen, card: str):
                 f"{p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}; {covered} covered pixels) "
                 f"[{card}]")
 
-    for label, b, n_e, w, half in WF_TIME_SHAPES:
+    for label, b, n_e, w, half in timed("wireframe_eye", WF_TIME_SHAPES):
         shape = (b, n_e, 2) if b > 1 else (n_e, 2)
         epos = uniform(gen, shape, -half, half)
         dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
@@ -1913,7 +2025,7 @@ def phase_kernel_times(gen, card: str):
                 f"({b_by}) [{card}]")
 
     bcfg = BoidsConfig()
-    for label, b, n, half in BOIDS_TIME_SHAPES:
+    for label, b, n, half in timed("boids", BOIDS_TIME_SHAPES):
         shape = (b, n, 2) if b > 1 else (n, 2)
         pos = uniform(gen, shape, -half, half)
         vel = uniform(gen, shape, -1, 1)
@@ -1929,8 +2041,71 @@ def phase_kernel_times(gen, card: str):
         log("times", f"boids {label} B={b} N={n} U(-{half}, {half}): kernel {k_ms:.4f} ms = "
             f"{b * n * n / k_ms * 1e3:.4e} pair evals/s; plain {p_ms:.4f} ms; bound "
             f"{b_ms:.5f} ms ({b_by}) [{card}]")
-    backward_kernel_times(gen, card, times, shapes)
+    vjp_and_partials_times(card, shapes, timed("gravity_vjp", VJP_TIME_SHAPES),
+                      timed("boids_partials", PARTIALS_TIME_SHAPES))
+    if "backward" in groups:
+        backward_kernel_times(gen, card, times, shapes)
     return times, shapes
+
+
+def vjp_and_partials_times(card: str, shapes: dict, vjp_shapes, partials_shapes) -> None:
+    """The gravity VJP (self form; the cross form's two launches where M is
+    given) at `vjp_shapes` and the boids partials at `partials_shapes`: each
+    call's device time (graph_ms) alternated with its plain version, with
+    the bound (the cross form counts both launches' pair terms), appended to
+    shapes["gravity_vjp"] and shapes["boids_partials"]; then, with the
+    partials, the ring boids step at N=65,536 on 4 shards of one card
+    against one device (`alternate`). Inputs from a generator of their
+    own."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    gcfg, bcfg = GravityConfig(), BoidsConfig()
+    for label, b, n, m in vjp_shapes:
+        lead = (b,) if b > 1 else ()
+        pos = uniform(gen, lead + (n, 2), -100, 100)
+        u = torch.randn(lead + (n, 2), generator=gen, device="cuda")
+        if m is None:
+            plain = lambda: pairwise.gravity_vjp_plain(pos, u, gcfg)
+            kernel = lambda: pairwise.gravity_vjp_tiled(pos, u, gcfg)
+            pairs, moved, where = b * n * n, nbytes(pos, u, u), f"{label} {b} x {n}"
+        else:
+            pos_j = uniform(gen, lead + (m, 2), -100, 100)
+            plain = lambda: pairwise.gravity_vjp_cross_plain(pos, pos_j, u, gcfg)
+            kernel = lambda: pairwise.gravity_vjp_cross_tiled(pos, pos_j, u, gcfg)
+            pairs, moved = 2 * b * n * m, nbytes(pos, pos_j, u, pos, pos_j)
+            where = f"{label} {b} x {n} x {m} cross (two launches)"
+        big = pairs > 1 << 28
+        p_ms, k_ms = alternate_graph(plain, kernel, 1 if big else 2, 5 if big else 20)
+        b_ms, b_by = bound(pairs * GRAVITY_VJP_OPS, moved)
+        shapes["gravity_vjp"].append(shape_entry(where, k_ms, p_ms, b_ms))
+        log("times", f"gravity_vjp {where}: kernel {k_ms:.4f} ms = {pairs / k_ms * 1e3:.4e} pair "
+            f"terms/s; plain {p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}), kernel/bound "
+            f"{k_ms / b_ms:.2f} [{card}]")
+    for label, b, n, m, excl in partials_shapes:
+        lead = (b,) if b > 1 else ()
+        pi, vi = uniform(gen, lead + (n, 2), -100, 100), uniform(gen, lead + (n, 2), -1, 1)
+        pj, vj = ((pi, vi) if excl else
+                  (uniform(gen, lead + (m, 2), -100, 100), uniform(gen, lead + (m, 2), -1, 1)))
+        p_ms, k_ms = alternate_graph(
+            lambda: boids_ops.boids_partials_plain(pi, vi, pj, vj, bcfg, excl),
+            lambda: boids_ops.boids_partials_tiled(pi, vi, pj, vj, bcfg, excl),
+            1 if b * n * m > 1 << 26 else 3, 20)
+        moved = nbytes(pi, vi) + (0 if excl else nbytes(pj, vj)) + 4 * b * n * 8
+        b_ms, b_by = bound(b * n * m * BOIDS_OPS, moved)
+        where = f"{label} {b} x {n} x {m} exclude_diagonal={excl} U(-100, 100)"
+        shapes["boids_partials"].append(shape_entry(where, k_ms, p_ms, b_ms))
+        log("times", f"boids_partials {where}: kernel {k_ms:.4f} ms = "
+            f"{b * n * m / k_ms * 1e3:.4e} pair evals/s; plain {p_ms:.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}), kernel/bound {k_ms / b_ms:.2f} [{card}]")
+    if partials_shapes:
+        # the ring boids step the partials serve: N=65,536 on 4 shards of one
+        # card (16 launches), against one device's fused kernel
+        mesh4 = make_mesh({"agents": 4}, devices=[torch.device("cuda", 0)] * 4)
+        cfg = SimConfig(n=65536, controller="boids")
+        pos, vel = uniform(gen, (cfg.n, 2), -100, 100), uniform(gen, (cfg.n, 2), -1, 1)
+        o_ms, r_ms = alternate(lambda: boids_ops.boids_velocity_tiled(pos, vel, cfg.boids),
+                               lambda: ring.ring_boids_velocity(pos, vel, cfg, mesh=mesh4), 2, 5)
+        log("times", f"ring boids N=65536 on 4 shards of one card: {r_ms:.3f} ms; one device "
+            f"{o_ms:.3f} ms [{card}]")
 
 
 def backward_kernel_times(gen, card: str, times: dict, shapes: dict) -> None:
@@ -2026,12 +2201,18 @@ def log_wireframe_culls(gen, card: str) -> None:
                 f"pixel range per kept sprite {mean:.3f} px [{card}]")
 
 
-def serving_ms(preset: str, steps: int, envs: int | None = None, sprite: str = "disc") -> float:
-    """ms per Scene step + observe (step alone without an eye): the host
-    clock around `steps` steps ending in a synchronize, the median of 5 runs
-    after one of warm-up."""
+def serving_ms(preset: str, steps: int, envs: int | None = None, variant: str = "disc") -> float:
+    """ms per Scene step + observe (step alone without an eye) of `preset`
+    with the disc or the wireframe sprite, or (variant "ring") with the disc
+    on backend "ring" over default_mesh(): the host clock around `steps`
+    steps ending in a synchronize, the median of 5 runs after one of
+    warm-up."""
     cfg = PRESETS[preset]()
-    scene = Scene(cfg if sprite == "disc" else wf_cfg(cfg), device="cuda")
+    if variant == "wireframe":
+        cfg = wf_cfg(cfg)
+    elif variant == "ring":
+        cfg = dataclasses.replace(cfg, backend="ring")
+    scene = Scene(cfg, device="cuda")
     state = scene.spawn(0) if envs is None else scene.spawn_envs(envs, seed=0)
 
     def run() -> float:
@@ -2051,9 +2232,9 @@ def serving_ms(preset: str, steps: int, envs: int | None = None, sprite: str = "
 
 
 def log_serving(card: str) -> None:
-    for label, preset, steps, envs, sprite in SERVING_STEPS:
-        log("times", f"serving {label}: {serving_ms(preset, steps, envs, sprite):.4f} ms per step + "
-            f"observe, median of 5 runs of {steps} steps [{card}]")
+    for label, preset, steps, envs, variant in SERVING_STEPS:
+        log("times", f"serving {label}: {serving_ms(preset, steps, envs, variant):.4f} ms per step "
+            f"+ observe, median of 5 runs of {steps} steps [{card}]")
 
 
 def phase_times(gen, card: str) -> dict:
@@ -2234,16 +2415,20 @@ def registers_of(report: str, source: str) -> list:
 
 
 def main_kernel_times(gen, smi: str) -> None:
-    """`chip_smoke.py --kernel-times`: the gravity, disc eye, wireframe eye,
-    boids and eye backward timings of phase 5 and the serving steps alone,
-    on whichever nenbody_tpu_torch is first on sys.path (an older
-    checkout's, to compare two trees' kernels in one call with one
-    harness)."""
+    """`chip_smoke.py --kernel-times [GROUP ...]`: phase 5's device timings
+    and the serving steps alone, or only the TIME_GROUPS named, on whichever
+    nenbody_tpu_torch is first on sys.path (an older checkout's, to compare
+    two trees' kernels in one call with one harness)."""
     import nenbody_tpu_torch
-    log("times", f"package {nenbody_tpu_torch.__file__}")
+    groups = sys.argv[2:] or TIME_GROUPS
+    unknown = set(groups) - set(TIME_GROUPS)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown groups {sorted(unknown)}; of {TIME_GROUPS}")
+    log("times", f"package {nenbody_tpu_torch.__file__}; groups {list(groups)}")
     with torch.no_grad():
-        phase_kernel_times(gen, smi)
-        log_serving(smi)
+        phase_kernel_times(gen, smi, groups)
+        if "serving" in groups:
+            log_serving(smi)
 
 
 def main() -> None:
@@ -2266,13 +2451,13 @@ def main() -> None:
         if line.startswith("==") or any(k in line for k in ("registers", "spill",
                                                              "Function properties")):
             log("build", line.strip())
-    for source in ("disc_eye_bwd.cu", "wireframe_eye_bwd.cu"):
+    for source in ("gravity_vjp.cu", "boids.cu", "disc_eye_bwd.cu", "wireframe_eye_bwd.cu"):
         log("build", f"{source}: registers per thread of each entry "
             f"{registers_of(lib.ptxas_log, source)} (nvcc -Xptxas -v)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors = Errors()
-    if sys.argv[1:] == ["--kernel-times"]:
+    if sys.argv[1:2] == ["--kernel-times"]:
         return main_kernel_times(gen, smi)
     if len(sys.argv) > 1:
         return main_rdma_cards(errors, gen, smi, kind, t_start)
@@ -2281,6 +2466,7 @@ def main() -> None:
         phase_backward_kernels(errors, gen)
         phase_wireframe_kernel(errors, gen)
         phase_ring_kernels(errors, gen)
+        phase_vjp_partials_plans(errors)
         phase_small_reference()
     phase_grad_reference()
     phase_wireframe_grads()

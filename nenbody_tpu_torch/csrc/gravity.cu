@@ -42,6 +42,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "pair_math.cuh"
 #include "pair_plan.cuh"
 
 namespace cg = cooperative_groups;
@@ -51,14 +52,6 @@ namespace {
 // the grid the plan aims for: enough warps on each SM to hide the MUFU and
 // shared-memory latencies
 constexpr int MIN_WARPS_PER_SM = 8;
-
-template <bool APPROX>
-__device__ __forceinline__ float reciprocal(float d2) {
-  if (APPROX) return __fdividef(1.0f, d2);
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2));
-  return __fmaf_rn(r, __fmaf_rn(-d2, r, 1.0f), r);
-}
 
 // (gx, gy) += (x_j - x_i) / (|x_j - x_i|^2 + bias), in the order of
 // pair_math.cuh::gravity_pair

@@ -1,17 +1,30 @@
 // The pair arithmetic of the physics and disc-eye kernels, shared by the
-// single-device kernels (boids.cu, boids_partials.cu, disc_eye.cu) and the
-// RDMA ring (rdma_ring.cu), so that a ring hop's partial rounds exactly as
-// the single-device kernel's. gravity.cu makes gravity_pair's products and
-// sums in the same order with its own reciprocal (rcp.approx and a Newton
-// step, within an ulp of this IEEE divide). Every function makes its
-// products and sums in the plain PyTorch versions' order; the kernels are
-// built with -fmad=false, so none is contracted.
+// single-device kernels (boids.cu, disc_eye.cu) and the RDMA ring
+// (rdma_ring.cu), so that a ring hop's partial rounds exactly as the
+// single-device kernel's. gravity.cu makes gravity_pair's products and sums
+// in the same order with `reciprocal` (rcp.approx and a Newton step, within
+// an ulp of this IEEE divide), as gravity_vjp.cu does its pullback's. Every
+// function makes its products and sums in the plain PyTorch versions' order;
+// the kernels are built with -fmad=false, so none is contracted.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
+
+// 1 / d2 for d2 > 0: with APPROX the fast divide; else rcp.approx (MUFU,
+// within 1 ulp) plus one Newton step in explicit fma, which -fmad=false
+// leaves alone: as accurate as the IEEE divide's reciprocal within an ulp,
+// without its slow-path branch (d2 >= bias > 0 never takes it). A d2 of
+// 1e34 (the ring's far sentinels) gives 1e-34, a normal number.
+template <bool APPROX>
+__device__ __forceinline__ float reciprocal(float d2) {
+  if (APPROX) return __fdividef(1.0f, d2);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2));
+  return __fmaf_rn(r, __fmaf_rn(-d2, r, 1.0f), r);
+}
 
 // Gravity of x_j on x_i, unscaled: (gx, gy) += (x_j - x_i) / (|x_j - x_i|^2 + bias).
 __device__ __forceinline__ void gravity_pair(float2 xi, float2 xj, float bias, int approx,

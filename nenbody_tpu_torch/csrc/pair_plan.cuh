@@ -1,4 +1,5 @@
-// The launch plan of the all-pairs physics kernels (gravity.cu, boids.cu):
+// The launch plan of the all-pairs physics kernels (gravity.cu, boids.cu and
+// its ring partials, gravity_vjp.cu):
 // T threads per block, R bodies per thread (register blocking: each j read
 // from shared memory feeds R pairs) and S blocks of a thread-block cluster
 // that split one i-block's j range, so that a small N still fills the card.
@@ -6,7 +7,8 @@
 // or none, and the cluster's leader adds the S partials through distributed
 // shared memory in rank order: one launch, deterministic.
 // ops/pairwise.py::pair_plan is its plain twin; the two must agree
-// (nbt_gravity_plan and nbt_boids_plan expose this one to the tests).
+// (nbt_gravity_plan, nbt_gravity_vjp_plan, nbt_boids_plan and
+// nbt_boids_partials_plan expose this one to the tests).
 
 #pragma once
 
@@ -27,13 +29,16 @@ struct PairPlan {
 // The first (T, R) of T in 256, 128, 64, 32 and R in 2, 1 that leaves no
 // thread idle beyond the ragged tail and, with the split, gives each SM
 // min_warps warps; S doubled up to max_split while the grid is smaller than
-// that and each rank keeps a whole tile. Without such a (T, R): one-warp
-// blocks of one body a thread, split as far as m allows.
+// that and each rank keeps a whole tile. A block of more than 32 threads
+// that n fills to half or less is passed over (a batch of 128-body shards
+// takes 128-thread blocks, not 256-thread blocks half idle). Without such a
+// (T, R): one-warp blocks of one body a thread, split as far as m allows.
 inline PairPlan pair_plan(int batch, int n, int m, int sms, int min_warps, int max_split) {
   const long long target = (long long)min_warps * sms;
   PairPlan plan{32, 1, 1, m, 1};
   bool filled = false;
   for (int t = 256; t >= 32 && !filled; t /= 2) {
+    if (t > 32 && 2 * n <= t) continue;
     for (int r = 2; r >= 1 && !filled; --r) {
       if (r > 1 && n < t * r) continue;
       const int bi = (n + t * r - 1) / (t * r);

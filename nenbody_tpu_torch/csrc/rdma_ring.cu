@@ -45,8 +45,9 @@
 // non-coherent L1.
 //
 // The pair arithmetic is the single-device kernels' (pair_math.cuh), so a
-// hop rounds as boids_partials.cu does, and as gravity.cu does up to its
-// reciprocal (within an ulp of this IEEE divide); the disc eye follows
+// hop's pairs round as boids.cu's partials round them (summed in another
+// order where boids.cu splits j across a cluster), and as gravity.cu's up to
+// its reciprocal (within an ulp of this IEEE divide); the disc eye follows
 // the JAX RDMA kernel (rdma.py:535-561): off = (u_p - u_c) * f t / r,
 // covered iff in depth and off^2 < 1; within a hop the least depth wins and
 // the least off^2 among its targets; across hops a strict <, so an earlier

@@ -1,8 +1,8 @@
 """Flocking rules on hand-written CUDA kernels (counterpart of
 nenbody_tpu/ops/boids.py): the fused rules (csrc/boids.cu replaces its
 Pallas `_boids_kernel`) and the raw cross-block rule sums of a ring hop
-(`boids_partials_tiled`; csrc/boids_partials.cu replaces
-`_boids_partials_kernel`).
+(`boids_partials_tiled`; a second instantiation of the same kernel in
+csrc/boids.cu replaces `_boids_partials_kernel`).
 
 Reference semantics preserved exactly (see config.BoidsConfig): squared
 cohesion threshold, unsquared separation threshold, alignment measured in
@@ -13,10 +13,11 @@ With `global_alignment` the kernel skips the alignment fold and the exact
 O(N) global mean sum_{j != i} v_j / (n - 1) is added here, in torch
 (nenbody_tpu/ops/boids.py:296-302).
 
-The fused kernel's launch (`boids_plan`: T threads a block, R bodies a
-thread, the j range split S ways across a thread-block cluster when the
-bodies alone would not fill the card) is ops.pairwise.pair_plan, whose C
-twin csrc/pair_plan.cuh boids.cu launches from.
+The kernels' launch (`boids_plan` for the fused rules, `boids_partials_plan`
+for the partials: T threads a block, R bodies a thread, the j range split S
+ways across a thread-block cluster when the bodies alone would not fill the
+card) is ops.pairwise.pair_plan, whose C twin csrc/pair_plan.cuh boids.cu
+launches from.
 """
 
 from __future__ import annotations
@@ -32,9 +33,10 @@ from .pairwise import pair_plan
 
 # Elements of one [..., chunk, N] pair tensor the plain version materializes.
 PLAIN_PAIR_BUDGET = 1 << 24
-# the warps per SM the fused kernel's plan aims for, and its largest
-# cluster (16: a non-portable size, which csrc/boids.cu asks for)
-BOIDS_MIN_WARPS_PER_SM, BOIDS_MAX_SPLIT = 8, 16
+# the warps per SM the kernels' plans aim for, and their largest cluster
+# (16: a non-portable size, which csrc/boids.cu asks for); the partials aim
+# for PARTIALS_MIN_WARPS_PER_SM first
+BOIDS_MIN_WARPS_PER_SM, BOIDS_MAX_SPLIT, PARTIALS_MIN_WARPS_PER_SM = 8, 16, 16
 
 
 def boids_plan(batch: int, n: int, sms: int):
@@ -43,6 +45,22 @@ def boids_plan(batch: int, n: int, sms: int):
     of the same n agents, aiming at BOIDS_MIN_WARPS_PER_SM warps per SM
     with clusters of up to BOIDS_MAX_SPLIT blocks (nbt_boids_plan returns
     the kernel's own)."""
+    return pair_plan(batch, n, n, sms, BOIDS_MIN_WARPS_PER_SM, BOIDS_MAX_SPLIT)
+
+
+def boids_partials_plan(batch: int, n: int, m: int, sms: int):
+    """(T, R, S, chunk, i-blocks) of the partials' launch for `batch` envs
+    of an i-block of n agents against a j-block of m: the i-block's own,
+    pair_plan(batch, n, n) aiming at PARTIALS_MIN_WARPS_PER_SM warps per SM
+    where some plan gives them, else boids_plan's; rank s sums j in
+    [s chunk, (s + 1) chunk) and the last rank every j from (S - 1) chunk
+    to m, so a j-block padded with far sentinels keeps its ranks'
+    boundaries and its sums' bits (nbt_boids_partials_plan returns the
+    kernel's own). m does not enter it: a ring hop's blocks are all of n."""
+    wide = pair_plan(batch, n, n, sms, PARTIALS_MIN_WARPS_PER_SM, BOIDS_MAX_SPLIT)
+    t, _, s, _, bi = wide
+    if batch * bi * s * t // 32 >= PARTIALS_MIN_WARPS_PER_SM * sms:
+        return wide
     return pair_plan(batch, n, n, sms, BOIDS_MIN_WARPS_PER_SM, BOIDS_MAX_SPLIT)
 
 
@@ -162,7 +180,8 @@ def boids_partials_tiled(
     [..., N, 2]: (sum1 [..., N, 2], cnt1 [..., N], repel [..., N, 2],
     sum3 [..., N, 2], cnt3 [..., N]), additive across j-blocks; finish with
     physics.dense.boids_finalize. `exclude_diagonal` masks the pairs i == j
-    by index (the ring's hop 0, where the blocks alias). The CUDA kernel for
+    by index (the ring's hop 0, where the blocks alias). The CUDA kernel
+    (csrc/boids.cu's partials, launched as boids_partials_plan says) for
     CUDA tensors, the plain version for CPU tensors."""
     if use_kernel(pos_i, vel_i, pos_j, vel_j):
         return _boids_partials_cuda(pos_i, vel_i, pos_j, vel_j, cfg, exclude_diagonal)

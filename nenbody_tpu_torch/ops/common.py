@@ -67,6 +67,8 @@ SIGNATURES = {
     "nbt_boids_partials": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _F, _F, _F, _I, _P],
     "nbt_gravity_vjp_cross": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "nbt_gravity_vjp_plan": [_I, _I, _I, _I, _P],  # the launch shape it picks (no launch)
+    "nbt_boids_partials_plan": [_I, _I, _I, _I, _P],
     "nbt_wireframe_eye_bwd": [_P] * 15 + [_I, _I, _I, _I, _I, _I,
                                           _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     # the RDMA ring (csrc/rdma_ring.cu): shard table, local shards, their
@@ -176,8 +178,10 @@ def kernel_library() -> KernelLibrary:
 
 class Kernel:
     """One hand-written kernel: its C entry point and its launch count. A
-    source may have a second entry point (gravity_vjp.cu's cross form), which
-    counts as a launch of the same kernel."""
+    kernel may have a second entry point (gravity_vjp.cu's cross form), which
+    counts as a launch of the same kernel; a source may hold two kernels
+    (boids.cu: the fused rules and the ring's partials, each counted on its
+    own)."""
 
     def __init__(self, name: str, symbol: str):
         self.name = name

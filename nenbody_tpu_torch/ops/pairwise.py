@@ -8,10 +8,11 @@ Self-pair included exactly as in the reference. `pos_j` gives the force of
 another position set (the cross-block form a ring hop needs). Leading batch
 dims go to the kernel as one grid dimension.
 
-The kernel's launch shape (R bodies per thread, the j range split S ways
+The kernels' launch shape (R bodies per thread, the j range split S ways
 across a thread-block cluster when the grid would not fill the card) is
-`gravity_plan`, from `pair_plan`, whose C twin in csrc/pair_plan.cuh must
-agree with it (the boids kernel takes its launch from it too).
+`gravity_plan` for the forces and `gravity_vjp_plan` for their pullback,
+both from `pair_plan`, whose C twin in csrc/pair_plan.cuh must agree with
+it (the boids kernels take their launch from it too).
 
 `gravity_forces_diff` is the differentiable form (the JAX custom VJP
 `gravity_forces_diff`): a torch.autograd.Function whose backward is the VJP
@@ -36,8 +37,9 @@ from .common import (
 # Elements of one [..., chunk, M] pair tensor the plain version materializes.
 PLAIN_PAIR_BUDGET = 1 << 24
 # csrc/pair_plan.cuh's launch plan: the largest portable cluster (gravity's
-# split of the j range), and the warps per SM gravity's plan aims for
-PAIR_MAX_SPLIT, GRAVITY_MIN_WARPS_PER_SM = 8, 8
+# split of the j range), and the warps per SM the plans of gravity and of
+# its pullback aim for
+PAIR_MAX_SPLIT, GRAVITY_MIN_WARPS_PER_SM, GRAVITY_VJP_MIN_WARPS_PER_SM = 8, 8, 8
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -51,15 +53,19 @@ def pair_plan(batch: int, n: int, m: int, sms: int, min_warps: int,
     csrc/pair_plan.cuh's pair_plan, which must agree. T threads per block
     and R bodies per thread: the first of T in 256, 128, 64, 32 and R in 2,
     1 that leaves no thread idle beyond the ragged tail and, with the split,
-    gives each SM `min_warps` warps. S, the blocks of a cluster that share
-    one i-block's j range: doubled up to `max_split` while the grid is
-    smaller than that and each rank keeps a whole tile of T. Rank s sums j
+    gives each SM `min_warps` warps; a T above 32 that n fills to half or
+    less is passed over (a batch of 128-body shards takes 128-thread
+    blocks, not 256-thread blocks half idle). S, the blocks of a cluster
+    that share one i-block's j range: doubled up to `max_split` while the
+    grid is smaller than that and each rank keeps a whole tile of T. Rank s sums j
     in [s chunk, (s + 1) chunk), the last rank fewer or none; the leader
     adds the S partials in rank order. Without such a (T, R): one-warp
     blocks of one body a thread, split as far as m allows."""
     target = min_warps * sms
     plan = (32, 1, 1, m, 1)
     for t in (256, 128, 64, 32):
+        if t > 32 and 2 * n <= t:
+            continue
         for r in (2, 1):
             if r > 1 and n < t * r:
                 continue
@@ -84,6 +90,15 @@ def gravity_plan(batch: int, n: int, m: int, sms: int) -> Tuple[int, int, int, i
     returns the kernel's own): `pair_plan` aiming at
     GRAVITY_MIN_WARPS_PER_SM warps per SM."""
     return pair_plan(batch, n, m, sms, GRAVITY_MIN_WARPS_PER_SM)
+
+
+def gravity_vjp_plan(batch: int, n: int, m: int, sms: int) -> Tuple[int, int, int, int, int]:
+    """The VJP kernel's launch (csrc/gravity_vjp.cu; nbt_gravity_vjp_plan
+    returns the kernel's own): `pair_plan` aiming at
+    GRAVITY_VJP_MIN_WARPS_PER_SM warps per SM, for (batch, n, n) in the self
+    form, and in the cross form (batch, n, m) for the rows and (batch, m, n)
+    for the columns."""
+    return pair_plan(batch, n, m, sms, GRAVITY_VJP_MIN_WARPS_PER_SM)
 
 
 def gravity_forces_plain(
@@ -161,7 +176,8 @@ def _gravity_vjp_rows(pos, u, k0: int, k1: int, cfg: GravityConfig) -> torch.Ten
 
 def gravity_vjp_plain(pos: torch.Tensor, u: torch.Tensor, cfg: GravityConfig) -> torch.Tensor:
     """The VJP kernel's plain PyTorch version: the closed form chunked over
-    k so that large N fits in memory. Any float dtype."""
+    k so that large N fits in memory, with the IEEE divide. Any float
+    dtype."""
     n = pos.shape[-2]
     batch = pos[..., 0, 0].numel()
     chunk = max(1, PLAIN_PAIR_BUDGET // max(1, batch * n))
@@ -189,7 +205,9 @@ def _gravity_vjp_cuda(pos, u, cfg: GravityConfig) -> torch.Tensor:
 def gravity_vjp_tiled(pos: torch.Tensor, u: torch.Tensor, cfg: GravityConfig) -> torch.Tensor:
     """Pullback of the forces: cotangent u [..., N, 2] -> dL/dpos [..., N, 2].
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    Always the exact divide, whatever cfg.approx_reciprocal says."""
+    The kernel's reciprocal is rcp.approx plus a Newton step (within an ulp
+    of the divide) whatever cfg.approx_reciprocal says, as the JAX VJP
+    ignores it too."""
     if use_kernel(pos, u):
         return _gravity_vjp_cuda(pos, u, cfg)
     return gravity_vjp_plain(pos, u, cfg)
@@ -262,8 +280,9 @@ def gravity_vjp_cross_tiled(
 ):
     """Pullback of the forces by pos_j [..., M, 2] on pos_i [..., N, 2]:
     cotangent u [..., N, 2] -> (d pos_i [..., N, 2], d pos_j [..., M, 2]).
-    The VJP source's cross entry point for CUDA tensors, the plain version
-    for CPU tensors. Always the exact divide."""
+    The VJP source's cross entry point for CUDA tensors (two launches, the
+    rows' and the columns', each with its gravity_vjp_plan), the plain
+    version for CPU tensors. The reciprocal as gravity_vjp_tiled's."""
     if use_kernel(pos_i, pos_j, u):
         return _gravity_vjp_cross_cuda(pos_i, pos_j, u, cfg)
     return gravity_vjp_cross_plain(pos_i, pos_j, u, cfg)

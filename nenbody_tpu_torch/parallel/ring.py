@@ -8,7 +8,7 @@ block (i - k) mod D, the JAX package's ppermute i -> i + 1, here a peer copy
 to the next shard's device (mesh.send). Each hop adds the cross-block
 partial of the single-device kernels: gravity forces (hop 0, a shard's own
 block, on the self form; later hops on the cross form `pos_j`), the boids
-rule sums (csrc/boids_partials.cu; the diagonal masked on hop 0 only), or a
+rule sums (csrc/boids.cu's partials; the diagonal masked on hop 0 only), or a
 depth-merged eye render (`targets=`; vision.render.merge_rows keeps the
 earlier hop's fragment on an exact depth tie, so the hop order is part of
 the result). Self-pairs need nothing more: gravity's self-pair has a zero
@@ -143,7 +143,7 @@ def ring_boids_velocity(
 ) -> torch.Tensor:
     """Replacement velocity (before the speed clamp) for pos, vel
     [(B,) N, 2]: each hop adds the raw rule sums of the circulating (pos,
-    vel) block (csrc/boids_partials.cu, the diagonal masked by index on hop 0
+    vel) block (csrc/boids.cu's partials, the diagonal masked by index on hop 0
     only), and dense.boids_finalize takes the guarded means once. Rule 3 is
     the full masked fold: global_alignment is the single-device kernel's."""
     mesh = mesh or default_mesh()

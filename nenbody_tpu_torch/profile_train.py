@@ -39,7 +39,7 @@ from .rl.env import VisionEnv
 
 # (category, substrings of a device event's name), first match wins
 CATEGORIES = (
-    ("gravity_vjp_kernel", ("gravity_vjp_kernel", "gravity_vjp_cross_kernel")),
+    ("gravity_vjp_kernel", ("gravity_vjp_kernel",)),  # the self form and both cross launches
     ("gravity_kernel", ("gravity_kernel",)),
     ("disc_eye_bwd_kernel", ("disc_eye_bwd_kernel",)),
     ("disc_eye_kernel", ("disc_eye_kernel",)),

@@ -941,6 +941,148 @@ def test_boids_kernel_repeats_bit_for_bit(cuda, shape):
         assert torch.equal(boids_ops.boids_velocity_tiled(pos, vel, cfg), first)
 
 
+# -- the gravity VJP's and the boids partials' plans and split sums ----------
+
+
+def _vjp_plan_of_card(batch, n, m, sms):
+    out = (ctypes.c_int * 5)()
+    common.kernel_library().call("nbt_gravity_vjp_plan", batch, n, m, sms, ctypes.addressof(out))
+    return tuple(out)
+
+
+def _partials_plan_of_card(batch, n, m, sms):
+    out = (ctypes.c_int * 5)()
+    common.kernel_library().call("nbt_boids_partials_plan", batch, n, m, sms,
+                                 ctypes.addressof(out))
+    return tuple(out)
+
+
+def test_vjp_and_partials_plans_match_the_kernels(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for count in (sms, 132, 16):
+        for batch in (1, 3, 2048, 4096):
+            for n, m in ((1, 1), (2, 2), (77, 300), (128, 128), (300, 77), (1024, 1024),
+                         (4097, 4097), (16384, 16384), (65537, 65537)):
+                assert _vjp_plan_of_card(batch, n, m, count) == pairwise.gravity_vjp_plan(
+                    batch, n, m, count)
+                assert _partials_plan_of_card(batch, n, m, count) == (
+                    boids_ops.boids_partials_plan(batch, n, m, count))
+
+
+# each N where the VJP's plan (batch 1, self form) changes T, R or S on an
+# H100, and the N before it; and config 4's N=65,536
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 127, 128, 255, 256, 4096, 4097, 8192, 8193, 16384,
+                               16385, 33280, 33281, 65536])
+def test_gravity_vjp_kernel_at_the_plan_boundaries(cuda, n):
+    # up to N=4,097 the scaled bound of test_gravity_vjp_kernel_matches_plain;
+    # beyond, against float64 with chip_smoke.py phase 3's N * 2^-24 (a
+    # worst-case sequential fp32 sum of N terms)
+    pos = _uniform((n, 2), -100, 100, n + 12, cuda)
+    u = torch.randn((n, 2), generator=torch.Generator(device=cuda).manual_seed(n), device=cuda)
+    cfg = GravityConfig()
+    got = pairwise.gravity_vjp_tiled(pos, u, cfg)
+    if n == 1:
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.zeros_like(got))
+    elif n <= 4097:
+        _scaled_close(got, pairwise.gravity_vjp_plain(pos, u, cfg), 3e-5)
+    else:
+        _scaled_close(got.double(), pairwise.gravity_vjp_plain(pos.double(), u.double(), cfg),
+                      n * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("b,n", [(4096, 1), (2048, 128), (2048, 33), (4096, 256)])
+def test_gravity_vjp_kernel_batched_shards(cuda, b, n):
+    """The trainers' width, the 2 x 2 mesh's shards (128-thread blocks now)
+    and a batch of single bodies, whose self-pairs give exactly 0."""
+    pos = _uniform((b, n, 2), -100, 100, n + 13, cuda)
+    u = torch.randn((b, n, 2), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    cfg = GravityConfig()
+    got = pairwise.gravity_vjp_tiled(pos, u, cfg)
+    if n == 1:
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        _scaled_close(got, pairwise.gravity_vjp_plain(pos, u, cfg), 3e-5)
+
+
+@pytest.mark.parametrize("b,n,m", [(2048, 128, 128), (1, 16384, 16384), (1, 4097, 33),
+                                   (1, 33, 4097)])
+def test_gravity_vjp_cross_kernel_at_the_path_shapes(cuda, b, n, m):
+    # the 2 x 2 mesh's hop, a ring hop at config 4 on 4 shards, and a split
+    # launch beside an unsplit one; both outputs against float64 under
+    # test_gravity_vjp_cross_kernel_matches_float64's bound
+    lead = (b,) if b > 1 else ()
+    pos_i = _uniform(lead + (n, 2), -100, 100, n + 1, cuda)
+    pos_j = _uniform(lead + (m, 2), -100, 100, m + 2, cuda)
+    u = torch.randn(lead + (n, 2), generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda)
+    cfg = GravityConfig()
+    got = pairwise.gravity_vjp_cross_tiled(pos_i, pos_j, u, cfg)
+    want = pairwise.gravity_vjp_cross_plain(pos_i.double(), pos_j.double(), u.double(), cfg)
+    for g, x in zip(got, want):
+        _scaled_close(g.double(), x, 3e-5)
+
+
+def test_gravity_vjp_cross_kernel_far_sentinels(cuda):
+    """A j block padded with the ring's far sentinels (1e17): 1/d2 = 1e-34,
+    its square underflows to 0, so the rows move by no more than the bound
+    and the sentinels' own column gradients are finite and below 1e-30."""
+    pos = _uniform((100, 2), -100, 100, 14, cuda)
+    u = torch.randn((100, 2), generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    pad = torch.full((28, 2), 1e17, device=cuda)
+    cfg = GravityConfig()
+    d_i, d_j = pairwise.gravity_vjp_cross_tiled(pos, torch.cat([pos, pad]), u, cfg)
+    want_i, _ = pairwise.gravity_vjp_cross_tiled(pos, pos, u, cfg)
+    _scaled_close(d_i, want_i, 3e-5)
+    assert torch.isfinite(d_j).all() and d_j[100:].abs().max().item() < 1e-30
+
+
+# each N where the partials' plan (batch 1, n = m) changes T, R or S on an
+# H100, and the N before it
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 127, 128, 255, 256, 511, 512, 2048, 2049, 4095, 4096,
+                               8192, 8193, 16384, 16385])
+@pytest.mark.parametrize("exclude_diagonal", [True, False])
+def test_boids_partials_kernel_at_the_plan_boundaries(cuda, n, exclude_diagonal):
+    # counts exact; the sums (the alignment sum runs over every agent and
+    # cancels) normalised by their largest under chip_smoke.py phase 3's
+    # N * 2^-24 (a worst-case sequential fp32 sum of N terms)
+    half = 20 if n < 1024 else 100
+    pos = _uniform((n, 2), -half, half, n + 15, cuda)
+    vel = _uniform((n, 2), -1, 1, n + 16, cuda)
+    cfg = BoidsConfig()
+    got = boids_ops.boids_partials_tiled(pos, vel, pos, vel, cfg, exclude_diagonal)
+    want = boids_ops.boids_partials_plain(pos, vel, pos, vel, cfg, exclude_diagonal)
+    torch.cuda.synchronize()
+    for k, (g, x) in enumerate(zip(got, want)):
+        if k in (1, 4) or not x.any():  # the counts; the sums of one agent with itself masked
+            assert torch.equal(g, x)
+        else:
+            _scaled_close(g, x, n * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("shape_i,shape_j", [((1024, 2), (1024, 2)), ((16384, 2), (16384, 2)),
+                                             ((64, 512, 2), (64, 1536, 2))])
+def test_vjp_and_partials_repeat_bit_for_bit(cuda, shape_i, shape_j):
+    # the cluster's leader adds the partials in rank order: 20 more launches
+    # of each kernel (the VJP's self and cross forms) give the first one's bits
+    pos_i = _uniform(shape_i, -20, 20, 16, cuda)
+    vel_i = _uniform(shape_i, -1, 1, 17, cuda)
+    pos_j = _uniform(shape_j, -20, 20, 18, cuda)
+    vel_j = _uniform(shape_j, -1, 1, 19, cuda)
+    u = torch.randn(shape_i, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    gcfg, bcfg = GravityConfig(), BoidsConfig()
+    runs = (lambda: (pairwise.gravity_vjp_tiled(pos_i, u, gcfg),),
+            lambda: pairwise.gravity_vjp_cross_tiled(pos_i, pos_j, u, gcfg),
+            lambda: boids_ops.boids_partials_tiled(pos_i, vel_i, pos_j, vel_j, bcfg, False),
+            lambda: boids_ops.boids_partials_tiled(pos_i, vel_i, pos_i, vel_i, bcfg, True))
+    for run in runs:
+        first = run()
+        for _ in range(20):
+            assert all(torch.equal(a, b) for a, b in zip(run(), first))
+
+
 # -- the eye backward kernels' winner runs ------------------------------------
 # Each case against the plain version at the backward kernels' tolerances
 # (per-pixel terms round apart; target sums in atomic, run-to-run order:
