@@ -61,6 +61,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 per card walking every hop) on the same 4-shard mesh:
                 gravity at config 4 and at config-5 width, boids at
                 N=65,536, disc rows at config 2 and at config-5 width, each
+                spread and clustered (U(-8, 8)), each
                 against its plain version, the per-hop ring and one device,
                 then 20 more launches bit-identical; the launch counts set
                 to 0 just before each call and read just after (one launch
@@ -99,7 +100,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 and of Scene(backend="ring") at config 3 on default_mesh(), the
                 ring's kernels and the ring path against one device, the
                 RDMA kernels' device time (torch.profiler) beside the RDMA
-                call, the per-hop ring and one device, each eye kernel's
+                call, the per-hop ring and one device (the eye's rows also
+                clustered, with the row bytes its hops move), each eye kernel's
                 appearance forms against their plain versions,
                 Scene.observe_textured against observe at config-5 width,
                 and seconds per training iteration and agent-frames/s of
@@ -218,7 +220,7 @@ PARTIALS_TIME_SHAPES = [("ring hop at N=65,536 on 4 shards", 1, 16384, 16384, Tr
                         ("config 3 on 4 shards", 1, 1024, 1024, True)]
 # what `--kernel-times GROUP ...` may name
 TIME_GROUPS = ("gravity", "disc_eye", "wireframe_eye", "boids", "gravity_vjp", "boids_partials",
-               "backward", "serving")
+               "backward", "serving", "rdma")
 # phase 5's shapes of the backward kernels (label, envs, N, W): each AA off
 # and on, the wireframe's trainers' shape also with a texture; reference-100
 # is the wide row, where the grid's segments of a row (GRID_WARPS) bind
@@ -259,6 +261,7 @@ RING_LOSS_RTOL, RING_GRAD_BOUND = 1e-5, 1e-3
 # The RDMA ring: each call one launch per card, of its own kernel alone
 RDMA_KERNEL = {"gravity": "rdma_gravity", "boids": "rdma_boids", "rows": "rdma_vision"}
 RDMA_REPEATS = 20  # launches that must give the same bits as the first
+PROFILE_TRACES = 3  # torch.profiler traces kernel_device_ms may take for one timing
 # the wireframe APG diff_vision iteration with the plain pullback (PERF.md
 # section 5, profile_train: NVIDIA H100 80GB HBM3, 700.00 W)
 WF_DIFF_PLAIN_SEC = 2.6347
@@ -1245,6 +1248,64 @@ def hold_rows(label: str, got, want, vcfg: VisionConfig) -> None:
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=shade_atol)
 
 
+# |off| within this of 1 in float64: a footprint's edge within rounding of
+# the pixel centre, where the RDMA eye's off = (u_p - u_c) f t / r and the
+# single-device eye's (u_p - u_c) / du may decide its coverage apart
+EDGE_OFF = 1e-5
+# that target's off^2 (float64) against the winning row's, decoded from its
+# shade: within twice EDGE_OFF of each other, and the decode's rounding
+EDGE_O2 = 2 * EDGE_OFF + 1e-6
+EDGE_SHARE = 1e-5  # the most pixels a comparison may leave to edge_witness
+
+
+def edge_witness(got, want, pos, vel, vcfg: VisionConfig):
+    """(pixels beyond the eye's tolerances, how many of them edge-decided):
+    got and want are (shade, depth) rows [(B,) N, W] of the agents pos, vel
+    rendered by the two disc arithmetics. A pixel is edge-decided where a
+    target with |off| within EDGE_OFF of 1 (float64) lies at the nearer of
+    the two depths and is the one that row chose, its off^2 within EDGE_O2
+    of the row's (shade = albedo (1 - off^2 / 4)): its coverage is a matter
+    of rounding, and the rows differ only in whether it won."""
+    bad = ~(torch.isclose(got[1], want[1], rtol=1e-5, atol=1e-4)
+            & torch.isclose(got[0], want[0], rtol=1e-5, atol=1e-5))
+    if pos.dim() == 2:
+        bad, pos, vel = bad[None], pos[None], vel[None]
+        got, want = tuple(x[None] for x in got), tuple(x[None] for x in want)
+    b, e, px = bad.nonzero(as_tuple=True)
+    if len(b) == 0:
+        return 0, 0
+    t = camera.tan_half_fov(vcfg)
+    d = camera.unit_heading(vel)[b, e].double()[:, None, :]  # [K, 1, 2]
+    rel = (pos[b].double() - pos[b, e].double()[:, None, :])  # [K, N, 2]
+    f = (rel * d).sum(-1)
+    lat = rel[..., 0] * d[..., 1] - rel[..., 1] * d[..., 0]
+    u_p = 2.0 * (px.double() + 0.5) / vcfg.width - 1.0
+    off = (u_p[:, None] - lat / (f * t)) * f * t / vcfg.sprite_radius
+    near = torch.minimum(got[1][b, e, px], want[1][b, e, px]).double()
+    chosen = torch.zeros_like(f, dtype=torch.bool)  # [K, N]: the nearer row's winner
+    for shade, depth in (got, want):
+        d_row = depth[b, e, px].double()
+        o2_row = 4.0 * (1.0 - shade[b, e, px].double() / vcfg.sprite_albedo)
+        nearer = (d_row < vcfg.far) & ((d_row - near).abs() <= 1e-5 * near)
+        chosen |= nearer[:, None] & ((off * off - o2_row[:, None]).abs() <= EDGE_O2)
+    edge = ((f > vcfg.near) & (f < vcfg.far) & ((off.abs() - 1.0).abs() < EDGE_OFF)
+            & ((f - near[:, None]).abs() <= 1e-5 * near[:, None]) & chosen)
+    return len(b), int(edge.any(dim=-1).sum())
+
+
+def hold_rows_edges(label: str, got, want, vcfg: VisionConfig, pos, vel) -> None:
+    """hold_rows for rows of the two disc arithmetics: every pixel within
+    the eye's tolerances except edge-decided ones (edge_witness), at most
+    EDGE_SHARE of the pixels."""
+    torch.cuda.synchronize()
+    beyond, witnessed = edge_witness(got, want, pos, vel, vcfg)
+    share = beyond / got[1].numel()
+    log("ring", f"{label}: {beyond} of {got[1].numel()} pixels beyond the eye's tolerances, "
+        f"{witnessed} of them edge-decided (|off| within {EDGE_OFF} of 1 in float64)")
+    expect(witnessed == beyond and share <= EDGE_SHARE,
+           f"{label}: every differing pixel edge-decided, at most {EDGE_SHARE} of them")
+
+
 def phase_ring(card: str):
     """The agent-axis ring's path at full width (module docstring), each
     part against the one-device result, launch counts read before and
@@ -1403,11 +1464,49 @@ def rdma_mesh(cards: int):
     return make_mesh({"agents": len(devs)}, devices=devs)
 
 
+def rdma_rows_cases(gen, s2, cfg2, s5, cfg5):
+    """(label, state, vision config, clustered) of the RDMA eye's shapes:
+    config 2 and config-5 width as spawned, then each clustered, positions
+    U(-8, 8) (the cull's worst case: every target reaches many pixels) and
+    headings from U(-1, 1) velocities drawn from `gen`."""
+    def clustered(st):
+        return dataclasses.replace(st, pos=uniform(gen, st.pos.shape, -8, 8),
+                                   vel=uniform(gen, st.vel.shape, -1, 1))
+    c5 = f"config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH})"
+    return [("config 2", s2, cfg2.vision, False), (c5, s5, cfg5.vision, False),
+            ("config 2 clustered U(-8, 8)", clustered(s2), cfg2.vision, True),
+            (f"{c5} clustered U(-8, 8)", clustered(s5), cfg5.vision, True)]
+
+
+def rdma_row_bytes(pos, vel, vcfg: VisionConfig, shards: int) -> tuple:
+    """(bytes, pixels a later hop wins): the row traffic of the RDMA eye on
+    `shards` shards. Hop 0 writes both rows of every pixel (8 bytes); each
+    later hop reads every pixel's depth (4 bytes, its keys' seeds) and
+    writes both rows where one of its targets is strictly nearer (8 bytes).
+    From the plain hop (rdma._disc_hop_plain) over chunks of 128 envs."""
+    p_b, d_b = pos.chunk(shards, dim=-2), camera.unit_heading(vel).chunk(shards, dim=-2)
+    envs = pos.shape[0] if pos.dim() == 3 else 1
+    wins = 0
+    for s in range(shards):
+        for i in range(0, envs, 128):
+            part = slice(i, i + 128) if pos.dim() == 3 else slice(None)
+            best = None
+            for k in range(shards):
+                depth, _ = rdma._disc_hop_plain(p_b[s][part], d_b[s][part],
+                                                p_b[(s - k) % shards][part], vcfg)
+                if best is not None:
+                    wins += int((depth < best).sum())
+                best = depth if best is None else torch.minimum(best, depth)
+    pixels = pos[..., 0].numel() * vcfg.width
+    return 8 * pixels + 4 * pixels * (shards - 1) + 8 * wins, wins
+
+
 def phase_rdma(errors: Errors, card: str, mesh4):
     """The RDMA ring (nenbody_tpu_torch.parallel.rdma) at full width on
     `mesh4` (rdma_mesh): gravity at config 4 (N=65,536), boids at N=65,536,
     disc rows at config 2 (N=1,024, W=64), and gravity and rows at config-5
-    width (4,096 envs x 256 agents x 64 px), the inputs on cuda:0. The
+    width (4,096 envs x 256 agents x 64 px), the rows also on clustered
+    U(-8, 8) spawns (rdma_rows_cases), the inputs on cuda:0. The
     launch counts are set to 0 just before each call and read just after:
     one launch of the call's own kernel per card and nothing else. Each
     result is held against the kernel's plain version on the card (Errors,
@@ -1475,9 +1574,7 @@ def phase_rdma(errors: Errors, card: str, mesh4):
 
         cfg2 = PRESETS["gravity-vision-1024"]()
         s2 = Scene(cfg2, device="cuda").spawn(0)
-        for label, st, vcfg in (("config 2", s2, cfg2.vision),
-                                (f"config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS} x "
-                                 f"{TRAIN_WIDTH})", s5, cfg5.vision)):
+        for label, st, vcfg, clustered in rdma_rows_cases(gen, s2, cfg2, s5, cfg5):
             run = lambda: rdma.rdma_ring_render_rows(st.pos, st.vel, vcfg, mesh=mesh4)
             got = counted("rows", run)
             want = rdma.rdma_ring_render_rows_plain(st.pos, st.vel, vcfg, mesh=mesh4)
@@ -1486,10 +1583,14 @@ def phase_rdma(errors: Errors, card: str, mesh4):
             errors.check("rdma_vision", f"rdma rows {label} shade vs its plain version", got[0],
                          want[0], 1e-5, 1e-5)
             expect(bool((got[1] < vcfg.far).any()), f"rdma rows {label}: sprites in view")
-            hold_rows(f"rdma rows {label} vs the per-hop ring", got,
-                      ring.ring_render_rows(st.pos, st.vel, vcfg, mesh=mesh4), vcfg)
-            hold_rows(f"rdma rows {label} vs one device", got,
-                      raycast.render_rows_tiled(st.pos, st.vel, vcfg), vcfg)
+            # the clustered swarms put footprint edges on pixel centres, where
+            # the RDMA arithmetic and the eye's may round apart (edge_witness)
+            hold = (lambda lbl, g, w: hold_rows_edges(lbl, g, w, vcfg, st.pos, st.vel)
+                    if clustered else hold_rows(lbl, g, w, vcfg))
+            hold(f"rdma rows {label} vs the per-hop ring", got,
+                 ring.ring_render_rows(st.pos, st.vel, vcfg, mesh=mesh4))
+            hold(f"rdma rows {label} vs one device", got,
+                 raycast.render_rows_tiled(st.pos, st.vel, vcfg))
             repeats(f"rdma rows {label}", run, got)
     log("rdma", f"the RDMA ring ran in {time.perf_counter() - t0:.2f} s; launches "
         f"{ {k: v for k, v in counts.items() if v} } [{card}]")
@@ -1499,18 +1600,23 @@ def phase_rdma(errors: Errors, card: str, mesh4):
 def kernel_device_ms(fn, name: str, iters: int, per_call: int = 1) -> float:
     """Mean device time per launch of the kernel whose name holds `name`
     over `iters` calls of fn, `per_call` launches each, after one warm-up
-    call (torch.profiler)."""
+    call (torch.profiler). A trace that misses launches (the profiler has
+    dropped kernel events on the card) is taken again, PROFILE_TRACES
+    times in all."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name]
-    expect(len(times) == iters * per_call,
-           f"{iters * per_call} traced launches of {name}, got {len(times)}")
-    return sum(times) / len(times) / 1e3
+    for attempt in range(PROFILE_TRACES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(times) == iters * per_call:
+            return sum(times) / len(times) / 1e3
+        log("times", f"the trace holds {len(times)} of {iters * per_call} launches of {name}; "
+            f"tracing again ({attempt + 1} of {PROFILE_TRACES})")
+    expect(False, f"{iters * per_call} traced launches of {name} in one of {PROFILE_TRACES} traces")
 
 
 def phase_rdma_times(gen, card: str, mesh4) -> dict:
@@ -1550,35 +1656,37 @@ def phase_rdma_times(gen, card: str, mesh4) -> dict:
          lambda: ring.ring_boids_velocity(pos, vel, bcfg, mesh=mesh4),
          lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg.boids),
          bound(n * n * BOIDS_OPS, nbytes(pos, vel, vel)), 5),
-        ("rdma_vision", "disc rows config 2 (N=1,024, W=64)",
-         lambda: rdma.rdma_ring_render_rows(s2.pos, s2.vel, cfg2.vision, mesh=mesh4),
-         lambda: rdma.rdma_ring_render_rows_plain(s2.pos, s2.vel, cfg2.vision, mesh=mesh4),
-         lambda: ring.ring_render_rows(s2.pos, s2.vel, cfg2.vision, mesh=mesh4),
-         lambda: raycast.render_rows_tiled(s2.pos, s2.vel, cfg2.vision),
-         None, 20),
-        ("rdma_vision", f"disc rows config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS} x "
-                        f"{TRAIN_WIDTH})",
-         lambda: rdma.rdma_ring_render_rows(s5.pos, s5.vel, cfg5.vision, mesh=mesh4),
-         lambda: rdma.rdma_ring_render_rows_plain(s5.pos, s5.vel, cfg5.vision, mesh=mesh4),
-         lambda: ring.ring_render_rows(s5.pos, s5.vel, cfg5.vision, mesh=mesh4),
-         lambda: raycast.render_rows_tiled(s5.pos, s5.vel, cfg5.vision),
-         None, 3),
     ]
-    for name, label, fn, plain, ring_fn, one_fn, b, iters in cases:
-        if b is None:  # the disc eye's pixel work where a footprint covers the pixel
-            st, vcfg = (s2, cfg2.vision) if "config 2" in label else (s5, cfg5.vision)
-            dirs = camera.unit_heading(st.vel)
-            n_e = st.pos.shape[-2]
-            b = bound(st.pos[..., 0, 0].numel() * n_e * n_e * DISC_PAIR_OPS
-                      + disc_covered(st.pos, dirs, vcfg) * DISC_PIXEL_OPS,
-                      nbytes(st.pos, dirs) + 2 * st.pos[..., 0].numel() * vcfg.width * 4)
+    cases = [case + ("",) for case in cases]
+    for label, st, vcfg, _ in rdma_rows_cases(gen, s2, cfg2, s5, cfg5):
+        # the eye's pixel work where a footprint covers the pixel, and the
+        # bytes its hops move in the rows
+        dirs = camera.unit_heading(st.vel)
+        n_e = st.pos.shape[-2]
+        moved, wins = rdma_row_bytes(st.pos, st.vel, vcfg, len(mesh4.devices))
+        cases.append(
+            ("rdma_vision", f"disc rows {label}",
+             lambda st=st, vcfg=vcfg: rdma.rdma_ring_render_rows(st.pos, st.vel, vcfg,
+                                                                  mesh=mesh4),
+             lambda st=st, vcfg=vcfg: rdma.rdma_ring_render_rows_plain(st.pos, st.vel, vcfg,
+                                                                        mesh=mesh4),
+             lambda st=st, vcfg=vcfg: ring.ring_render_rows(st.pos, st.vel, vcfg, mesh=mesh4),
+             lambda st=st, vcfg=vcfg: raycast.render_rows_tiled(st.pos, st.vel, vcfg),
+             bound(st.pos[..., 0, 0].numel() * n_e * n_e * DISC_PAIR_OPS
+                   + disc_covered(st.pos, dirs, vcfg) * DISC_PIXEL_OPS,
+                   nbytes(st.pos, dirs) + 2 * st.pos[..., 0].numel() * vcfg.width * 4),
+             20 if st.pos.dim() == 2 else 3,
+             f"; row traffic {moved} bytes ({wins} pixels won at hops "
+             f"1-{len(mesh4.devices) - 1}), {moved / PEAK_BYTES * 1e3:.4g} ms at the memory "
+             f"rate"))
+    for name, label, fn, plain, ring_fn, one_fn, b, iters, rows in cases:
         k_ms = kernel_device_ms(fn, name + "_kernel", iters, cards)
         p_ms, call_ms = alternate(plain, fn, 1, iters)
         one_ms, ring_ms = alternate(one_fn, ring_fn, iters, iters)
-        log("times", f"{name} {label} on {where}: kernel {k_ms:.3f} ms (device time per "
-            f"launch, {cards} per call), bound {b[0]:.4g} ms ({b[1]}); the RDMA call "
-            f"{call_ms:.3f} ms; plain {p_ms:.3f} ms; the per-hop ring {ring_ms:.3f} ms; one "
-            f"device {one_ms:.3f} ms [{card}]")
+        log("times", f"{name} {label} on {where}: kernel {k_ms:.4f} ms (device time per "
+            f"launch, {cards} per call), bound {b[0]:.4g} ms ({b[1]}){rows}; the RDMA call "
+            f"{call_ms:.4f} ms; plain {p_ms:.3f} ms; the per-hop ring {ring_ms:.4f} ms; one "
+            f"device {one_ms:.4f} ms [{card}]")
         times.setdefault(name, (k_ms, p_ms, *b))
     return times
 
@@ -2429,6 +2537,8 @@ def main_kernel_times(gen, smi: str) -> None:
         phase_kernel_times(gen, smi, groups)
         if "serving" in groups:
             log_serving(smi)
+        if "rdma" in groups:
+            phase_rdma_times(gen, smi, rdma_mesh(1))
 
 
 def main() -> None:

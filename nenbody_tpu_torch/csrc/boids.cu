@@ -34,7 +34,8 @@
 //   so they are exact); each (x_j, v_j) read from shared memory feeds R
 //   bodies.
 // - The block stages j-tiles of T positions and velocities in shared memory,
-//   the next tile prefetched into registers while the current one is summed.
+//   the next tile prefetched into registers while the current one is summed
+//   (boids_tile.cuh, whose loop the RDMA ring's boids hop runs too).
 // - Where the bodies alone would give an SM fewer than MIN_WARPS_PER_SM
 //   warps, the j range is split S ways (S <= MAX_CLUSTER = 16, a cluster
 //   size beyond the portable 8 that Hopper allows on request) across the
@@ -59,6 +60,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "boids_tile.cuh"
 #include "pair_math.cuh"
 #include "pair_plan.cuh"
 
@@ -90,19 +92,6 @@ struct BoidsOut {
   float2* sum3;
   float* cnt3;
 };
-
-template <int R>
-__device__ __forceinline__ void pair_all(const float2 (&xi)[R], const float2 (&vi)[R],
-                                         const int (&skip)[R], int j, float4 xv,
-                                         const BoidsArgs& a, BoidsSums (&s)[R]) {
-  const float2 xj = make_float2(xv.x, xv.y);
-  const float2 vj = make_float2(xv.z, xv.w);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (j != skip[r]) boids_pair(xi[r], vi[r], xj, vj, a.coh_sq, a.sep_sq, a.ali_sq,
-                                 a.alignment != 0, s[r]);
-  }
-}
 
 // pos_i, vel_i [B, n]; pos_j, vel_j [B, m] (the same arrays for the fused
 // rules). RAW writes the partials, else the replacement velocity.
@@ -141,19 +130,7 @@ __device__ __forceinline__ void boids_body(const float2* __restrict__ pos_i,
     const float2 x = pbj[j], v = vbj[j];
     return make_float4(x.x, x.y, v.x, v.y);
   };
-  float4 next = j_begin + t < j_end ? load(j_begin + t) : make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j0 = j_begin; j0 < j_end; j0 += T) {
-    __syncthreads();
-    tile[t] = next;
-    __syncthreads();
-    if (j0 + T + t < j_end) next = load(j0 + T + t);
-    if (j0 + T <= j_end) {
-#pragma unroll 8
-      for (int k = 0; k < T; ++k) pair_all<R>(xi, vi, skip, j0 + k, tile[k], a, s);
-    } else {
-      for (int k = 0; k < j_end - j0; ++k) pair_all<R>(xi, vi, skip, j0 + k, tile[k], a, s);
-    }
-  }
+  sum_j_range<R, true>(tile, T, load, j_begin, j_end, xi, vi, skip, a, s);
 
   if (split > 1) {
     cg::cluster_group cluster = cg::this_cluster();

@@ -83,13 +83,6 @@ constexpr int KEY_PIXELS = 2048;  // keys a block holds: EB eyes x SEG pixels
 constexpr int NARROW = 16;        // the widest range a lane walks alone
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned long long NO_KEY = ~0ull;
-// slack of the range, relative to |uc| + thr du + 1: far above the few
-// roundings of the exact test, of the pixel centres and of the range's own
-// arithmetic, each a few ulps of those magnitudes (ops/raycast.py::
-// RANGE_SLACK)
-constexpr float RANGE_SLACK = 1.0f / 65536.0f;
-// relative slack of the frustum test without a divide (may_be_visible)
-constexpr float FRUSTUM_SLACK = 1.0f / 1048576.0f;
 
 struct EyeParams {
   float tan_half_fov;
@@ -123,20 +116,13 @@ __device__ __forceinline__ bool project_target(float2 pe, float2 de, float2 xj,
 }
 
 // Pixels [lo, hi] of a w-pixel line that a footprint can cover, and the
-// distance reach_plus from uc within which a covered centre lies: thr du
-// and RANGE_SLACK of |uc| + thr du + 1; the range is widened by an eighth
-// of a pixel (0.25/W) more. ops/raycast.py::disc_pixel_ranges computes the
-// same expressions.
+// distance reach_plus from uc within which a covered centre lies: the
+// pixel span (pair_math.cuh) of a reach of thr du. ops/raycast.py::
+// disc_pixel_ranges computes the same expressions.
 __device__ __forceinline__ void disc_pixel_range(float uc, float du, float thr,
                                                  const EyeParams& q, int w, int& lo, int& hi,
                                                  float& reach_plus) {
-  const float reach = thr * du;
-  reach_plus = reach + (fabsf(uc) + reach + 1.0f) * RANGE_SLACK;
-  const float r = reach_plus + 0.25f * q.inv_width;
-  const float lo_f = (uc - r + 1.0f) * q.half_width - 0.5f;
-  const float hi_f = (uc + r + 1.0f) * q.half_width - 0.5f;
-  lo = max(0, (int)ceilf(fmaxf(lo_f, -1.0f)));
-  hi = min(w - 1, (int)floorf(fminf(hi_f, (float)w)));
+  pixel_span(uc, thr * du, q.inv_width, q.half_width, w, lo, hi, reach_plus);
 }
 
 // The plain version's per-pixel test of one target (key k) at segment pixel
@@ -152,18 +138,12 @@ __device__ __forceinline__ void cover_pixel(unsigned long long* key, const float
 }
 
 // Whether the target at xj may be visible from the eye at (pe, de), without
-// a divide: f and l as disc_project makes them, near < f < far, and |l|
-// within (f t + r)(1 + FRUSTUM_SLACK), which project_target's |l/(f t)| <=
-// 1 + r/(f t) implies whatever their roundings (a few ulps against 2^-20).
+// a divide (pair_math.cuh::disc_may_be_visible): project_target's |l/(f t)|
+// <= 1 + r/(f t) implies it whatever their roundings.
 // ops/raycast.py::disc_maybe_visible computes the same expressions.
 __device__ __forceinline__ bool may_be_visible(float2 pe, float2 de, float2 xj,
                                                const EyeParams& q) {
-  const float rx = xj.x - pe.x;
-  const float ry = xj.y - pe.y;
-  const float f = rx * de.x + ry * de.y;
-  const float l = rx * de.y - ry * de.x;
-  return f > q.near_plane && f < q.far_plane &&
-         fabsf(l) <= (f * q.tan_half_fov + q.radius) * (1.0f + FRUSTUM_SLACK);
+  return disc_may_be_visible(pe, de, xj, q.near_plane, q.far_plane, q.tan_half_fov, q.radius);
 }
 
 // One target per lane (j < 0: none), all 32 lanes together: project it, and

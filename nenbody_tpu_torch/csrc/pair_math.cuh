@@ -1,7 +1,9 @@
 // The pair arithmetic of the physics and disc-eye kernels, shared by the
 // single-device kernels (boids.cu, disc_eye.cu) and the RDMA ring
 // (rdma_ring.cu), so that a ring hop's partial rounds exactly as the
-// single-device kernel's. gravity.cu makes gravity_pair's products and sums
+// single-device kernel's; and the disc eyes' two culls (the frustum test
+// without a divide and the pixel span of a footprint), which disc_eye.cu
+// and the RDMA ring's eye share. gravity.cu makes gravity_pair's products and sums
 // in the same order with `reciprocal` (rcp.approx and a Newton step, within
 // an ulp of this IEEE divide), as gravity_vjp.cu does its pullback's. Every
 // function makes its products and sums in the plain PyTorch versions' order;
@@ -10,6 +12,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
@@ -89,6 +92,48 @@ __device__ __forceinline__ bool disc_project(float2 pe, float2 de, float2 xj, fl
   ft = (in_depth ? f : 1.0f) * tan_half_fov;
   uc = l / ft;
   return in_depth;
+}
+
+// Slack of the pixel span, relative to |uc| + reach + 1: far above the few
+// roundings of either eye's exact test, of the pixel centres and of the
+// span's own arithmetic, each a few ulps of those magnitudes
+// (ops/raycast.py::RANGE_SLACK); and the relative slack of the frustum test
+// without a divide (ops/raycast.py::FRUSTUM_SLACK).
+constexpr float DISC_RANGE_SLACK = 1.0f / 65536.0f;
+constexpr float DISC_FRUSTUM_SLACK = 1.0f / 1048576.0f;
+
+// Whether the disc at xj may be visible from the eye at (pe, de), without a
+// divide: f and l as disc_project makes them, near < f < far, and |l| within
+// (f t + r)(1 + DISC_FRUSTUM_SLACK), which a footprint reaching a pixel
+// centre of (-1, 1) implies whatever the roundings of either eye's exact
+// test (a few ulps against 2^-20). ops/raycast.py::disc_maybe_visible
+// computes the same expressions.
+__device__ __forceinline__ bool disc_may_be_visible(float2 pe, float2 de, float2 xj,
+                                                    float near_plane, float far_plane,
+                                                    float tan_half_fov, float radius) {
+  const float rx = xj.x - pe.x;
+  const float ry = xj.y - pe.y;
+  const float f = rx * de.x + ry * de.y;
+  const float l = rx * de.y - ry * de.x;
+  return f > near_plane && f < far_plane &&
+         fabsf(l) <= (f * tan_half_fov + radius) * (1.0f + DISC_FRUSTUM_SLACK);
+}
+
+// Pixels [lo, hi] of a w-pixel line whose centres may lie within `reach` of
+// a footprint centred at uc, and the distance reach_plus from uc within
+// which such a centre lies: reach plus DISC_RANGE_SLACK of |uc| + reach + 1;
+// the span is widened by an eighth of a pixel (0.25/W) more. inv_width is
+// 1/W, half_width W/2. ops/raycast.py::pixel_span computes the same
+// expressions.
+__device__ __forceinline__ void pixel_span(float uc, float reach, float inv_width,
+                                           float half_width, int w, int& lo, int& hi,
+                                           float& reach_plus) {
+  reach_plus = reach + (fabsf(uc) + reach + 1.0f) * DISC_RANGE_SLACK;
+  const float r = reach_plus + 0.25f * inv_width;
+  const float lo_f = (uc - r + 1.0f) * half_width - 0.5f;
+  const float hi_f = (uc + r + 1.0f) * half_width - 0.5f;
+  lo = max(0, (int)ceilf(fmaxf(lo_f, -1.0f)));
+  hi = min(w - 1, (int)floorf(fminf(hi_f, (float)w)));
 }
 
 }  // namespace

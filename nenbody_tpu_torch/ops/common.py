@@ -75,7 +75,7 @@ SIGNATURES = {
     # count, shards, blocks per shard, envs, rows per env, then each kernel's own
     "nbt_rdma_gravity": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "nbt_rdma_boids": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
-    "nbt_rdma_vision": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "nbt_rdma_vision": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
     "nbt_rdma_capacity": [_I, _I, _I, _P],
     "nbt_enable_peer": [_I],
 }

@@ -51,18 +51,20 @@ from .common import (
 )
 
 
-# csrc/disc_eye.cu's pixel ranges widen a footprint by an eighth of a pixel
-# and by RANGE_SLACK of |u_c| + thr du + 1: far above the roundings of the
-# exact test, of the pixel centres and of the range's own arithmetic; its
-# frustum test without a divide widens the frustum by FRUSTUM_SLACK of f t + r
+# csrc/pair_math.cuh's pixel spans (both disc eyes' ranges) widen a
+# footprint by an eighth of a pixel and by RANGE_SLACK of |u_c| + reach + 1:
+# far above the roundings of the exact test, of the pixel centres and of the
+# span's own arithmetic; its frustum test without a divide widens the
+# frustum by FRUSTUM_SLACK of f t + r
 RANGE_SLACK, FRUSTUM_SLACK = 2.0 ** -16, 2.0 ** -20
 
 
 def disc_maybe_visible(eye_pos, eye_dir, tgt, cfg: VisionConfig) -> torch.Tensor:
-    """[..., E, M] bool: csrc/disc_eye.cu's may_be_visible, with the same
-    float32 expressions (which must agree): near < f < far and |l| <= (f t +
-    r)(1 + FRUSTUM_SLACK), with f and l as camera.project makes them. Every
-    target camera.project calls visible passes it."""
+    """[..., E, M] bool: csrc/pair_math.cuh's disc_may_be_visible (both disc
+    eyes' frustum test), with the same float32 expressions (which must
+    agree): near < f < far and |l| <= (f t + r)(1 + FRUSTUM_SLACK), with f
+    and l as camera.project makes them. Every target camera.project calls
+    visible passes it."""
     rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
     dx, dy = eye_dir[..., None, 0], eye_dir[..., None, 1]
     rx, ry = rel[..., 0], rel[..., 1]
@@ -72,27 +74,39 @@ def disc_maybe_visible(eye_pos, eye_dir, tgt, cfg: VisionConfig) -> torch.Tensor
     return (f > cfg.near) & (f < cfg.far) & (l.abs() <= bound)
 
 
-def disc_pixel_ranges(eye_pos, eye_dir, tgt, cfg: VisionConfig):
-    """(lo, hi, reach_plus) [..., E, M]: the pixels [lo, hi] (int64) of eye
-    e's line that csrc/disc_eye.cu tests target m on (lo > hi: none, an
-    invisible target), and the distance from the footprint centre u_c
-    within which it runs the exact test on a pixel centre: its
-    disc_pixel_range with the same float32 expressions, which must agree.
-    reach_plus is thr du plus RANGE_SLACK of |u_c| + thr du + 1, and the
-    range holds the centres within reach_plus + 0.25/W (an eighth of a
-    pixel more), so that no pixel the exact test covers is left out."""
-    w = cfg.width
-    rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
-    u_c, du, _, visible = camera.project(rel, eye_dir, cfg)
-    du = du.clamp(min=1e-30)
-    inv_w = torch.tensor(1.0 / w, dtype=torch.float32, device=du.device)
-    thr = 1.0 + inv_w / du if cfg.antialias else torch.ones_like(du)
-    reach = thr * du
+def pixel_span(u_c: torch.Tensor, reach: torch.Tensor, width: int):
+    """(lo, hi, reach_plus): the pixels [lo, hi] (int64) of a `width`-pixel
+    line whose centres may lie within `reach` of u_c, and the distance
+    reach_plus from u_c within which such a centre lies: csrc/pair_math.cuh's
+    pixel_span with the same float32 expressions, which must agree.
+    reach_plus is reach plus RANGE_SLACK of |u_c| + reach + 1, and the span
+    holds the centres within reach_plus + 0.25/W (an eighth of a pixel
+    more)."""
+    w = width
+    inv_w = torch.tensor(1.0 / w, dtype=torch.float32, device=u_c.device)
     reach_plus = reach + (u_c.abs() + reach + 1.0) * RANGE_SLACK
     r = reach_plus + 0.25 * inv_w
     half_w = 0.5 * w
     lo = ((u_c - r + 1.0) * half_w - 0.5).clamp(min=-1.0).ceil().long().clamp(min=0)
     hi = ((u_c + r + 1.0) * half_w - 0.5).clamp(max=float(w)).floor().long().clamp(max=w - 1)
+    return lo, hi, reach_plus
+
+
+def disc_pixel_ranges(eye_pos, eye_dir, tgt, cfg: VisionConfig):
+    """(lo, hi, reach_plus) [..., E, M]: the pixels [lo, hi] (int64) of eye
+    e's line that csrc/disc_eye.cu tests target m on (lo > hi: none, an
+    invisible target), and the distance from the footprint centre u_c
+    within which it runs the exact test on a pixel centre: its
+    disc_pixel_range, the pixel_span of a reach of thr du, with the same
+    float32 expressions, which must agree. So that no pixel the exact test
+    covers is left out, reach_plus exceeds thr du by RANGE_SLACK of |u_c| +
+    thr du + 1, and the range holds the centres within reach_plus + 0.25/W."""
+    rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
+    u_c, du, _, visible = camera.project(rel, eye_dir, cfg)
+    du = du.clamp(min=1e-30)
+    inv_w = torch.tensor(1.0 / cfg.width, dtype=torch.float32, device=du.device)
+    thr = 1.0 + inv_w / du if cfg.antialias else torch.ones_like(du)
+    lo, hi, reach_plus = pixel_span(u_c, thr * du, cfg.width)
     return torch.where(visible, lo, 1), torch.where(visible, hi, 0), reach_plus
 
 

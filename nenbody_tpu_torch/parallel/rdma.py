@@ -14,14 +14,17 @@ shard's rows against the circulating block:
 
 - gravity: the unscaled force sums, times G after;
 - boids: the eight raw rule sums of physics.dense.boids_partials_cross,
-  self excluded by the global agent index that circulates with the block,
+  the pair i == j excluded on hop 0 (where a shard meets its own block),
   then dense.boids_finalize;
 - the disc eye: the JAX RDMA kernel's raycast (off = (u_p - u_c) f t / r,
   covered iff in depth and off^2 < 1), merged into (best depth, winner
   off^2): within a hop the least depth, then the least off^2 among its
   targets; across hops a strict <, so an earlier hop keeps an exact tie;
   then the decode of rdma.py:641-647. Plain disc sprites only: antialias
-  and the wireframe sprite raise, as in the JAX package.
+  and the wireframe sprite raise, as in the JAX package. The kernel culls
+  as csrc/disc_eye.cu does: rdma_disc_maybe_visible and
+  rdma_disc_pixel_ranges are its two culls in plain PyTorch, with its
+  float32 expressions, and rdma_disc_cover the exact test they must keep.
 
 The functions take GLOBAL tensors [(B,) N, 2] and return them on the
 inputs' device; a leading env batch folds into each shard's block env-major,
@@ -45,16 +48,20 @@ import torch
 
 from ..config import BoidsConfig, GravityConfig, SimConfig, VisionConfig
 from ..ops import boids as boids_ops
-from ..ops import common, pairwise
+from ..ops import common, pairwise, raycast
 from ..physics import dense
 from ..vision import camera, render
 from .mesh import AGENT_AXIS, Mesh, default_mesh, gather_blocks, on_device, send, split_blocks
 from .ring import _pad_agents
 
 MAX_SHARDS = 16  # rdma_ring.cu's
-TABLE_COLS = 11  # pointers per shard in the kernel's table: in[3], eye_dir, out[5], slots, flags
-MAX_ROW_THREADS = 128  # threads (rows) per block of the gravity and boids kernels
-EYE_THREADS = 256  # (eye, pixel) threads per block of the eye kernel
+TABLE_COLS = 10  # pointers per shard in the kernel's table: in[2], eye_dir, out[5], slots, flags
+MAX_ROW_THREADS = 128  # threads per block of the gravity kernel
+# the boids kernel: at most BOIDS_THREADS threads a block, BOIDS_R rows a thread
+BOIDS_THREADS, BOIDS_R = 256, 2
+# the eye kernel: threads per block, and a unit's most eyes, row segment and
+# (eye, pixel) keys
+EYE_THREADS, EYE_MAX, SEG_MAX, KEY_PIXELS = 256, 64, 256, 2048
 
 
 def _check_rank(pos: torch.Tensor) -> None:
@@ -147,7 +154,7 @@ def _launch_ring(name: str, planes: Sequence[Sequence[torch.Tensor]],
     _join(cards)  # every card's flags are zero before any card's launch
     table = (ctypes.c_uint64 * (d * TABLE_COLS))()
     for s in range(d):
-        ptrs = [t.data_ptr() for t in planes[s]] + [0] * (3 - len(planes[s]))
+        ptrs = [t.data_ptr() for t in planes[s]] + [0] * (2 - len(planes[s]))
         ptrs.append(0 if eye_dirs is None else eye_dirs[s].data_ptr())
         ptrs += [t.data_ptr() for t in outs[s]] + [0] * (5 - len(outs[s]))
         ptrs += [slots[s].data_ptr(), flags[s].data_ptr()]
@@ -161,8 +168,8 @@ def _launch_ring(name: str, planes: Sequence[Sequence[torch.Tensor]],
     _join(cards)  # the slots and flags outlive every card's kernel
 
 
-def _row_threads(nl: int) -> int:
-    return min(MAX_ROW_THREADS, -(-nl // 32) * 32)
+def _row_threads(rows: int, most: int = MAX_ROW_THREADS) -> int:
+    return min(most, -(-rows // 32) * 32)
 
 
 def _lead(block: torch.Tensor) -> int:
@@ -239,7 +246,7 @@ def _plain_rdma_boids(pos_b: Sequence[torch.Tensor], vel_b: Sequence[torch.Tenso
     """The kernel's plain version: per shard, the raw rule sums of each
     hop's circulating (pos, vel) block (ops.boids.boids_partials_plain),
     added in hop order; the diagonal is masked where the circulating block
-    is the shard's own (global index i == j happens there only)."""
+    is the shard's own (hop 0: the only hop where i == j happens)."""
     d = len(pos_b)
     sums = []
     for s in range(d):
@@ -253,13 +260,16 @@ def _plain_rdma_boids(pos_b: Sequence[torch.Tensor], vel_b: Sequence[torch.Tenso
     return sums
 
 
-def _rdma_boids_cuda(pos_b, vel_b, idx_b, cfg: BoidsConfig) -> List[tuple]:
+def _rdma_boids_cuda(pos_b, vel_b, cfg: BoidsConfig) -> List[tuple]:
+    """The kernel: T threads a block (a multiple of 32, at most
+    BOIDS_THREADS), BOIDS_R rows a thread, one unit per T BOIDS_R rows of
+    an env (N=65,536 on 4 shards: T=256, 32 units a shard)."""
     nb, nl = _lead(pos_b[0]), pos_b[0].shape[-2]
     outs = [tuple(torch.empty(p.shape[:-1] + shape, dtype=torch.float32, device=p.device)
                   for shape in ((2,), (), (2,), (2,), ())) for p in pos_b]
-    threads = _row_threads(nl)
-    _launch_ring("rdma_boids", list(zip(pos_b, vel_b, idx_b)), outs, nb, nl, threads,
-                 nb * -(-nl // threads),
+    threads = _row_threads(-(-nl // BOIDS_R), BOIDS_THREADS)
+    _launch_ring("rdma_boids", list(zip(pos_b, vel_b)), outs, nb, nl, threads,
+                 nb * -(-nl // (threads * BOIDS_R)),
                  (threads, cfg.cohesion_dist_sq, cfg.separation_dist * cfg.separation_dist,
                   cfg.alignment_dist * cfg.alignment_dist))
     return outs
@@ -273,12 +283,10 @@ def _boids(pos, vel, cfg: SimConfig, mesh, axis, plain: bool) -> torch.Tensor:
     (pos_p, vel_p), n_pad = _pad_agents([pos, vel], n, len(devs))
     pos_b, vel_b = _split(pos_p, devs), _split(vel_p, devs)
     if on_cuda and not plain:
-        if n_pad > 1 << 24:
-            raise ValueError(f"rdma_boids: the float32 agent index is exact up to 2^24, "
-                             f"got {n_pad} agents")
-        idx = torch.arange(n_pad, dtype=torch.float32, device=pos.device)
-        idx_b = _split(idx.expand(pos_p.shape[:-1]), devs, agent_dim=-1)
-        sums = _rdma_boids_cuda(pos_b, vel_b, idx_b, cfg.boids)
+        if n_pad > 1 << 24:  # the JAX kernel's float32 agent index is exact up to 2^24
+            raise ValueError(f"rdma_boids: at most 2^24 agents, as the JAX RDMA kernel, got "
+                             f"{n_pad}")
+        sums = _rdma_boids_cuda(pos_b, vel_b, cfg.boids)
     else:
         sums = _plain_rdma_boids(pos_b, vel_b, cfg.boids)
     return _gather([dense.boids_finalize(s, cfg.boids) for s in sums], pos.device)[..., :n, :]
@@ -293,9 +301,8 @@ def rdma_ring_boids_velocity(
 ) -> torch.Tensor:
     """The replacement velocity (before the speed clamp) for pos, vel
     [(B,) N, 2] through the RDMA ring: the semantics of
-    ring.ring_boids_velocity and dense.boids_accels. The (pos, vel, global
-    index) payload circulates; far sentinels stay inert in all three
-    thresholded rules."""
+    ring.ring_boids_velocity and dense.boids_accels. The (pos, vel) payload
+    circulates; far sentinels stay inert in all three thresholded rules."""
     return _boids(pos, vel, cfg, mesh, axis, plain=False)
 
 
@@ -314,11 +321,11 @@ def rdma_ring_boids_velocity_plain(
 # -- the disc eye (#16) -------------------------------------------------------
 
 
-def _disc_hop_plain(eye_pos, eye_dir, tgt, cfg: VisionConfig):
-    """One hop's (depth, off^2) [..., E, W] of the eyes against the target
-    block, in the JAX RDMA kernel's arithmetic (rdma.py:540-557): the least
-    covered depth, and the least off^2 among the targets at it (depth far
-    where nothing covers the pixel)."""
+def _rdma_disc_project(eye_pos, eye_dir, tgt, cfg: VisionConfig):
+    """(f, valid, u_c, inv_du) [..., E, M], the JAX RDMA kernel's
+    projection (rdma.py:540-549): forward depth f, near < f < far, the
+    footprint centre u_c = l / (f t) and f t / r (f taken as 1 out of
+    depth)."""
     t = camera.tan_half_fov(cfg)
     rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]  # [..., E, M, 2]
     relx, rely = rel[..., 0], rel[..., 1]
@@ -327,11 +334,46 @@ def _disc_hop_plain(eye_pos, eye_dir, tgt, cfg: VisionConfig):
     lat = relx * hy - rely * hx
     valid = (f > cfg.near) & (f < cfg.far)
     fs = torch.where(valid, f, torch.ones_like(f))
-    u_c = lat / (fs * t)
-    inv_du = fs * (t / cfg.sprite_radius)
+    return f, valid, lat / (fs * t), fs * (t / cfg.sprite_radius)
+
+
+def rdma_disc_cover(eye_pos, eye_dir, tgt, cfg: VisionConfig):
+    """(f, o2, covered): the exact test of the JAX RDMA kernel
+    (rdma.py:540-557) for the eyes [..., E, 2] against the targets
+    [..., M, 2]: forward depth f [..., E, M], off^2 = ((u_p - u_c) f t /
+    r)^2 at each pixel centre u_p, and covered = near < f < far and off^2 <
+    1 ([..., E, M, W])."""
+    f, valid, u_c, inv_du = _rdma_disc_project(eye_pos, eye_dir, tgt, cfg)
     off = (camera.pixel_centers(cfg, device=f.device) - u_c[..., None]) * inv_du[..., None]
-    o2 = off * off  # [..., E, M, W]
-    covered = valid[..., None] & (o2 < 1.0)
+    o2 = off * off
+    return f, o2, valid[..., None] & (o2 < 1.0)
+
+
+# The RDMA eye kernel's frustum test without a divide is csrc/pair_math.cuh's
+# disc_may_be_visible, the single-device disc eye's; the CPU tests prove it
+# keeps every target that rdma_disc_cover covers a pixel with.
+rdma_disc_maybe_visible = raycast.disc_maybe_visible
+
+
+def rdma_disc_pixel_ranges(eye_pos, eye_dir, tgt, cfg: VisionConfig):
+    """(lo, hi, reach_plus) [..., E, M]: the pixels [lo, hi] (int64) of eye
+    e's line that the RDMA eye kernel tests target m on (lo > hi: none, a
+    target out of depth), and the distance from u_c within which it runs
+    the exact test on a pixel centre, with the kernel's float32 expressions
+    (draw_targets): the pixel span (ops.raycast.pixel_span) of a reach of
+    1 / (f t / r). off^2 < 1 needs |fl(u_p - u_c)| fl(f t / r) < 1 and so
+    |fl(u_p - u_c)| < r / (f t), within the span's slack."""
+    _, valid, u_c, inv_du = _rdma_disc_project(eye_pos, eye_dir, tgt, cfg)
+    lo, hi, reach_plus = raycast.pixel_span(u_c, torch.reciprocal(inv_du), cfg.width)
+    return torch.where(valid, lo, 1), torch.where(valid, hi, 0), reach_plus
+
+
+def _disc_hop_plain(eye_pos, eye_dir, tgt, cfg: VisionConfig):
+    """One hop's (depth, off^2) [..., E, W] of the eyes against the target
+    block, in the JAX RDMA kernel's arithmetic (rdma_disc_cover): the least
+    covered depth, and the least off^2 among the targets at it (depth far
+    where nothing covers the pixel)."""
+    f, o2, covered = rdma_disc_cover(eye_pos, eye_dir, tgt, cfg)
     field = torch.where(covered, f[..., None], torch.full_like(o2, cfg.far))
     depth = field.amin(dim=-2)
     o2_win = torch.where(field == depth[..., None, :], o2, torch.ones_like(o2)).amin(dim=-2)
@@ -363,16 +405,34 @@ def _plain_rdma_vision(pos_b, dir_b, cfg: VisionConfig) -> List[tuple]:
     return rows
 
 
+def rdma_eye_plan(nb: int, nl: int, w: int, shards_per_card: int, sms: int):
+    """(eyes, units): the RDMA eye kernel's unit of `eyes` eyes by a segment
+    of min(w, SEG_MAX) pixels of their rows, and the units of one shard.
+    eyes is the largest power of two up to EYE_MAX whose keys fit
+    KEY_PIXELS, halved while the card's shards would give an SM fewer than
+    two units (each eye's targets then spread over more warps)."""
+    seg = min(w, SEG_MAX)
+    segments = -(-w // seg)
+    units = lambda e: nb * -(-nl // e) * segments
+    eyes = EYE_MAX
+    while eyes > 1 and eyes * seg > KEY_PIXELS:
+        eyes //= 2
+    while eyes > 1 and shards_per_card * units(eyes) < 2 * sms:
+        eyes //= 2
+    return eyes, units(eyes)
+
+
 def _rdma_vision_cuda(pos_b, dir_b, cfg: VisionConfig) -> List[tuple]:
     nb, nl, w = _lead(pos_b[0]), pos_b[0].shape[-2], cfg.width
-    pixels = 32 if w <= 32 else (64 if w <= 64 else 128)
-    eyes = EYE_THREADS // pixels
+    devs = [p.device for p in pos_b]
+    sms = torch.cuda.get_device_properties(devs[0]).multi_processor_count
+    eyes, units = rdma_eye_plan(nb, nl, w, max(devs.count(d) for d in devs), sms)
     outs = [tuple(torch.empty(p.shape[:-1] + (w,), dtype=torch.float32, device=p.device)
                   for _ in range(2)) for p in pos_b]
     t = camera.tan_half_fov(cfg)
-    _launch_ring("rdma_vision", [[p] for p in pos_b], outs, nb, nl, EYE_THREADS,
-                 nb * -(-nl // eyes) * -(-w // pixels),
-                 (pixels, eyes, w, t, t / cfg.sprite_radius, cfg.near, cfg.far), eye_dirs=dir_b)
+    _launch_ring("rdma_vision", [[p] for p in pos_b], outs, nb, nl, EYE_THREADS, units,
+                 (eyes, w, t, t / cfg.sprite_radius, cfg.near, cfg.far, cfg.sprite_radius),
+                 eye_dirs=dir_b)
     return outs
 
 

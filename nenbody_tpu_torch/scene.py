@@ -214,7 +214,9 @@ class Scene:
 
         record: subset of ("pos", "vel", "obs") to stack along a leading
         time axis (the obs of each step is taken after its physics update,
-        as in the JAX package). Empty tuple records nothing.
+        as in the JAX package). Empty tuple records nothing. With zero
+        steps each recorded key is an empty stack of its shape, as the JAX
+        scan of length 0 returns it.
         """
         record = tuple(record)
         unknown = set(record) - {"pos", "vel", "obs"}
@@ -231,4 +233,12 @@ class Scene:
                 out["vel"].append(state.vel)
             if "obs" in record:
                 out["obs"].append(self.observe(state))
-        return state, {k: torch.stack(v) for k, v in out.items() if v}
+        if num_steps > 0:
+            return state, {k: torch.stack(v) for k, v in out.items()}
+
+        def empty_stack(k: str) -> torch.Tensor:
+            shape = (state.pos.shape[:-1] + (self.cfg.vision.width,) if k == "obs"
+                     else getattr(state, k).shape)
+            return state.pos.new_empty((0,) + shape)
+
+        return state, {k: empty_stack(k) for k in record}

@@ -501,6 +501,49 @@ def test_rdma_ring_kernel_matches_plain_and_repeats(cuda, kind, d, shape):
         assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
+def _rdma_tie_scene(device):
+    """tests/test_torch_rdma.py's tie scene: 512 agents on 2 shards, all at
+    x = -50 behind the two eyes except eye 300 at (0, 0) looking along +x,
+    which sees agent 400 (hop 0) at (10, 0.5) and agent 100 (hop 1) at
+    (10, 0) at one depth on the centre pixel of 17, and eye 301 at (0, 100),
+    which sees agents 150 at (10, 100.5) and 200 at (10, 100), both on hop 1."""
+    pos = torch.stack([torch.full((512,), -50.0), torch.linspace(-300.0, 300.0, 512)], -1)
+    vel = torch.tensor([0.0, 1.0]).repeat(512, 1)
+    for i, (x, y) in {300: (0, 0), 400: (10, 0.5), 100: (10, 0),
+                      301: (0, 100), 150: (10, 100.5), 200: (10, 100)}.items():
+        pos[i] = torch.tensor([x, y], dtype=torch.float32)
+    vel[300] = vel[301] = torch.tensor([1.0, 0.0])
+    return pos.to(device), vel.to(device)
+
+
+def test_rdma_vision_kernel_tie_rule(cuda):
+    """The eye kernel's keys keep the JAX RDMA kernel's tie rules: across
+    hops the earlier hop keeps an exact depth tie (eye 300 keeps agent 400,
+    off^2 = 0.25, shade 0.9375), within a hop the least off^2 wins (eye 301
+    gets agent 200, shade 1.0); one launch, the rest of the rows within the
+    rows' tolerance of the plain version, and 20 more launches bit-identical."""
+    from nenbody_tpu_torch.parallel import make_mesh, rdma
+
+    pos, vel = _rdma_tie_scene(cuda)
+    mesh = make_mesh({"agents": 2}, devices=[cuda] * 2)
+    vcfg = VisionConfig(width=17)
+    common.reset_launch_counts()
+    got = rdma.rdma_ring_render_rows(pos, vel, vcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    assert counts["rdma_vision"] == 1 and sum(counts.values()) == 1
+    want = rdma.rdma_ring_render_rows_plain(pos, vel, vcfg, mesh=mesh)
+    _close(got[1], want[1], 1e-5, 1e-4)
+    _close(got[0], want[0], 1e-5, 1e-5)
+    assert got[1][300, 8].item() == got[1][301, 8].item() == 10.0
+    assert got[0][300, 8].item() == pytest.approx(0.9375)
+    assert got[0][301, 8].item() == pytest.approx(1.0)
+    for _ in range(20):
+        again = rdma.rdma_ring_render_rows(pos, vel, vcfg, mesh=mesh)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 # -- appearance: per-target albedo and skin textures -------------------------
 
 # a texture staged in shared memory (32 x 32), and one read from device

@@ -98,10 +98,20 @@ def test_entry_defaults_to_config_2():
     assert tuple(out[2].shape) == (2, 16, 10)
 
 
-@pytest.mark.parametrize("controller", ["gravity", "boids"])
-@pytest.mark.parametrize("num_envs", [None, 2])
-def test_scene_rollout_matches_jax(controller, num_envs):
-    n, w, steps = 48, 32, 3
+# Rollouts (controller, envs, steps, record): three steps recording every
+# key, under the ids these cases had before zero-step rollouts joined them;
+# then zero steps for each record set, where the JAX scan of length 0
+# returns each recorded key as an empty stack of its shape
+ROLLOUT_RECORDS = [(), ("pos",), ("vel", "obs"), ("pos", "vel", "obs")]
+ROLLOUT_CASES = [pytest.param(c, e, 3, ("pos", "vel", "obs"), id=f"{e}-{c}")
+                 for c in ("gravity", "boids") for e in (None, 2)]
+ROLLOUT_CASES += [pytest.param(c, e, 0, rec, id=f"{e}-{c}-0steps-{'+'.join(rec) or 'none'}")
+                  for c in ("gravity", "boids") for e in (None, 2) for rec in ROLLOUT_RECORDS]
+
+
+@pytest.mark.parametrize("controller,num_envs,steps,record", ROLLOUT_CASES)
+def test_scene_rollout_matches_jax(controller, num_envs, steps, record):
+    n, w = 48, 32
     kw = dict(n=n, controller=controller)
     jscene = JScene(JSimConfig(**kw, backend="pallas", vision=JVisionConfig(width=w)))
     scene = Scene(SimConfig(**kw, vision=VisionConfig(width=w)), device="cpu")
@@ -114,13 +124,17 @@ def test_scene_rollout_matches_jax(controller, num_envs):
         pos=jnp.asarray(pos), vel=jnp.asarray(vel))
     st = SceneState(pos=torch.tensor(pos), vel=torch.tensor(vel),
                     t=torch.zeros(batch, dtype=torch.int32))
-    jfinal, jtraj = jscene.rollout(jst, steps, record=("pos", "vel", "obs"))
-    final, traj = scene.rollout(st, steps, record=("pos", "vel", "obs"))
+    jfinal, jtraj = jscene.rollout(jst, steps, record=record)
+    final, traj = scene.rollout(st, steps, record=record)
     np.testing.assert_array_equal(final.t.numpy(), np.asarray(jfinal.t))
-    np.testing.assert_allclose(traj["pos"].numpy(), np.asarray(jtraj["pos"]), **POS_TOL)
-    np.testing.assert_allclose(traj["vel"].numpy(), np.asarray(jtraj["vel"]), **VEL_TOL)
-    np.testing.assert_allclose(traj["obs"].numpy(), np.asarray(jtraj["obs"]), **OBS_TOL)
-    assert traj["obs"].shape == (steps,) + batch + (n, w)
+    np.testing.assert_allclose(final.pos.numpy(), np.asarray(jfinal.pos), **POS_TOL)
+    assert sorted(traj) == sorted(jtraj) == sorted(record)
+    tols = {"pos": POS_TOL, "vel": VEL_TOL, "obs": OBS_TOL}
+    for k in record:
+        assert tuple(traj[k].shape) == jtraj[k].shape and traj[k].dtype == torch.float32
+        np.testing.assert_allclose(traj[k].numpy(), np.asarray(jtraj[k]), **tols[k])
+    if "obs" in record:
+        assert traj["obs"].shape == (steps,) + batch + (n, w)
 
 
 def test_random_controller_and_unported_backends():
