@@ -101,7 +101,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 ring's kernels and the ring path against one device, the
                 RDMA kernels' device time (torch.profiler) beside the RDMA
                 call, the per-hop ring and one device (the eye's rows also
-                clustered, with the row bytes its hops move), each eye kernel's
+                clustered, with the row bytes its hops move; gravity with
+                its launch plan T, R, P and units, checked against the
+                kernel's nbt_rdma_gravity_plan, and its registers), each eye kernel's
                 appearance forms against their plain versions,
                 Scene.observe_textured against observe at config-5 width,
                 and seconds per training iteration and agent-frames/s of
@@ -1619,6 +1621,30 @@ def kernel_device_ms(fn, name: str, iters: int, per_call: int = 1) -> float:
     expect(False, f"{iters * per_call} traced launches of {name} in one of {PROFILE_TRACES} traces")
 
 
+def rdma_gravity_launch(pos, mesh) -> str:
+    """The RDMA gravity kernel's launch for pos [(B,) N, 2] on `mesh`: its
+    plan (T threads, R rows a thread, units of one shard; rdma_gravity_plan,
+    which the kernel's nbt_rdma_gravity_plan must equal), the blocks P of a
+    shard that the launch sizes from the occupancy of that instantiation,
+    and its registers a thread (nvcc -Xptxas -v). Empty for an older
+    package (--kernel-times with another checkout first) that has no plan."""
+    if not hasattr(rdma, "rdma_gravity_plan"):
+        return ""
+    devs = list(mesh.devices)
+    nb, nl = pos[..., 0, 0].numel(), -(-pos.shape[-2] // len(devs))
+    shards, sms = rdma._card_shape(devs)
+    t, r, units = rdma.rdma_gravity_plan(nb, nl, shards, sms)
+    out = (ctypes.c_int * 3)()
+    lib = common.kernel_library()
+    lib.call("nbt_rdma_gravity_plan", nb, nl, shards, sms, ctypes.addressof(out))
+    expect(tuple(out) == (t, r, units), f"nbt_rdma_gravity_plan {tuple(out)} equals "
+           f"rdma_gravity_plan {(t, r, units)} at {nb} x {nl} on {shards} shards a card")
+    p = min(min(common.resident_blocks("rdma_gravity", t, c, r) for c in set(devs)) // shards,
+            units)
+    regs = registers_of(lib.ptxas_log, "rdma_ring.cu", f"rdma_gravity_kernelILi{t}ELi{r}E")
+    return f"; plan T={t}, R={r}, P={p}, {units} units a shard; {regs} registers a thread"
+
+
 def phase_rdma_times(gen, card: str, mesh4) -> dict:
     """The RDMA kernels on `mesh4` (rdma_mesh): each kernel's device time
     (torch.profiler, per launch) and its bound (one device's work), the
@@ -1643,21 +1669,21 @@ def phase_rdma_times(gen, card: str, mesh4) -> dict:
          lambda: rdma.rdma_ring_gravity_forces_plain(pos, cfg4, mesh=mesh4),
          lambda: ring.ring_gravity_forces(pos, cfg4, mesh=mesh4),
          lambda: pairwise.gravity_forces_tiled(pos, cfg4.gravity),
-         bound(n * n * GRAVITY_OPS, 2 * nbytes(pos)), 5),
+         bound(n * n * GRAVITY_OPS, 2 * nbytes(pos)), 5, rdma_gravity_launch(pos, mesh4)),
         ("rdma_gravity", f"gravity config-5 width ({TRAIN_ENVS} x {TRAIN_AGENTS})",
          lambda: rdma.rdma_ring_gravity_forces(s5.pos, cfg5, mesh=mesh4),
          lambda: rdma.rdma_ring_gravity_forces_plain(s5.pos, cfg5, mesh=mesh4),
          lambda: ring.ring_gravity_forces(s5.pos, cfg5, mesh=mesh4),
          lambda: pairwise.gravity_forces_tiled(s5.pos, cfg5.gravity),
-         bound(TRAIN_ENVS * TRAIN_AGENTS ** 2 * GRAVITY_OPS, 2 * nbytes(s5.pos)), 20),
+         bound(TRAIN_ENVS * TRAIN_AGENTS ** 2 * GRAVITY_OPS, 2 * nbytes(s5.pos)), 20,
+         rdma_gravity_launch(s5.pos, mesh4)),
         ("rdma_boids", "boids N=65,536",
          lambda: rdma.rdma_ring_boids_velocity(pos, vel, bcfg, mesh=mesh4),
          lambda: rdma.rdma_ring_boids_velocity_plain(pos, vel, bcfg, mesh=mesh4),
          lambda: ring.ring_boids_velocity(pos, vel, bcfg, mesh=mesh4),
          lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg.boids),
-         bound(n * n * BOIDS_OPS, nbytes(pos, vel, vel)), 5),
+         bound(n * n * BOIDS_OPS, nbytes(pos, vel, vel)), 5, ""),
     ]
-    cases = [case + ("",) for case in cases]
     for label, st, vcfg, _ in rdma_rows_cases(gen, s2, cfg2, s5, cfg5):
         # the eye's pixel work where a footprint covers the pixel, and the
         # bytes its hops move in the rows
@@ -2510,14 +2536,17 @@ def main_rdma_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) ->
                   for name in RDMA_KERNEL.values()], smi, kind)
 
 
-def registers_of(report: str, source: str) -> list:
-    """The registers per thread of each kernel nvcc built from `source`,
-    read off the library's -Xptxas -v report."""
-    regs, inside = [], False
+def registers_of(report: str, source: str, entry: str = "") -> list:
+    """The registers per thread of each kernel nvcc built from `source`
+    (those whose mangled name holds `entry`), read off the library's
+    -Xptxas -v report."""
+    regs, inside, name = [], False, ""
     for line in report.splitlines():
         if line.startswith("=="):
             inside = line[2:].strip() == source
-        elif inside and "Used" in line and "registers" in line:
+        elif "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif inside and entry in name and "Used" in line and "registers" in line:
             regs.append(int(line.split("Used")[1].split("registers")[0]))
     return regs
 

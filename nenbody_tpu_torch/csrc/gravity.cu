@@ -21,7 +21,9 @@
 // - The block stages j-tiles of T positions in shared memory, one coalesced
 //   load per thread, the next tile prefetched into a register while the
 //   current one is summed; a full tile runs an unrolled loop of constant
-//   trip count, the ragged tail a masked one.
+//   trip count, the ragged tail a masked one. That loop is
+//   gravity_tile.cuh's, which the RDMA ring's gravity (rdma_ring.cu) runs
+//   too.
 // - The reciprocal is rcp.approx (MUFU, within 1 ulp) plus one Newton step
 //   in explicit fma, which -fmad=false leaves alone: as accurate as the IEEE
 //   divide's reciprocal within an ulp, without its per-pair slow-path
@@ -42,7 +44,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "pair_math.cuh"
+#include "gravity_tile.cuh"
 #include "pair_plan.cuh"
 
 namespace cg = cooperative_groups;
@@ -52,18 +54,6 @@ namespace {
 // the grid the plan aims for: enough warps on each SM to hide the MUFU and
 // shared-memory latencies
 constexpr int MIN_WARPS_PER_SM = 8;
-
-// (gx, gy) += (x_j - x_i) / (|x_j - x_i|^2 + bias), in the order of
-// pair_math.cuh::gravity_pair
-template <bool APPROX>
-__device__ __forceinline__ void pair(float2 xi, float2 xj, float bias, float& gx, float& gy) {
-  const float dx = xj.x - xi.x;
-  const float dy = xj.y - xi.y;
-  const float d2 = dx * dx + dy * dy + bias;
-  const float w = reciprocal<APPROX>(d2);
-  gx += dx * w;
-  gy += dy * w;
-}
 
 template <int T, int R, bool APPROX>
 __global__ void gravity_kernel(const float2* __restrict__ pos_i,
@@ -87,27 +77,8 @@ __global__ void gravity_kernel(const float2* __restrict__ pos_i,
   }
   const int j_begin = rank * chunk;
   const int j_end = min(m, j_begin + chunk);
-  float2 next = j_begin + t < j_end ? pj[j_begin + t] : make_float2(0.f, 0.f);
-  for (int j0 = j_begin; j0 < j_end; j0 += T) {
-    __syncthreads();
-    tile[t] = next;
-    __syncthreads();
-    if (j0 + T + t < j_end) next = pj[j0 + T + t];
-    if (j0 + T <= j_end) {
-#pragma unroll 32
-      for (int k = 0; k < T; ++k) {
-        const float2 xj = tile[k];
-#pragma unroll
-        for (int r = 0; r < R; ++r) pair<APPROX>(xi[r], xj, bias, gx[r], gy[r]);
-      }
-    } else {
-      for (int k = 0; k < j_end - j0; ++k) {
-        const float2 xj = tile[k];
-#pragma unroll
-        for (int r = 0; r < R; ++r) pair<APPROX>(xi[r], xj, bias, gx[r], gy[r]);
-      }
-    }
-  }
+  gravity_j_range<T, R, APPROX, false>(tile, [pj](int j) { return pj[j]; }, j_begin, j_end, xi,
+                                       bias, gx, gy);
 
   if (split > 1) {
     cg::cluster_group cluster = cg::this_cluster();

@@ -3,11 +3,11 @@
 // (rdma_ring.cu), so that a ring hop's partial rounds exactly as the
 // single-device kernel's; and the disc eyes' two culls (the frustum test
 // without a divide and the pixel span of a footprint), which disc_eye.cu
-// and the RDMA ring's eye share. gravity.cu makes gravity_pair's products and sums
-// in the same order with `reciprocal` (rcp.approx and a Newton step, within
-// an ulp of this IEEE divide), as gravity_vjp.cu does its pullback's. Every
-// function makes its products and sums in the plain PyTorch versions' order;
-// the kernels are built with -fmad=false, so none is contracted.
+// and the RDMA ring's eye share. The gravity pair is gravity_tile.cuh's,
+// with `reciprocal` (rcp.approx and a Newton step, within an ulp of the
+// IEEE divide), which gravity_vjp.cu's pullback takes too. Every function
+// makes its products and sums in the plain PyTorch versions' order; the
+// kernels are built with -fmad=false, so none is contracted.
 
 #pragma once
 
@@ -27,17 +27,6 @@ __device__ __forceinline__ float reciprocal(float d2) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2));
   return __fmaf_rn(r, __fmaf_rn(-d2, r, 1.0f), r);
-}
-
-// Gravity of x_j on x_i, unscaled: (gx, gy) += (x_j - x_i) / (|x_j - x_i|^2 + bias).
-__device__ __forceinline__ void gravity_pair(float2 xi, float2 xj, float bias, int approx,
-                                             float& gx, float& gy) {
-  const float dx = xj.x - xi.x;
-  const float dy = xj.y - xi.y;
-  const float d2 = dx * dx + dy * dy + bias;
-  const float w = approx ? __fdividef(1.0f, d2) : 1.0f / d2;
-  gx += dx * w;
-  gy += dy * w;
 }
 
 // The raw flocking-rule sums of agent i (physics.dense.boids_partials_cross);

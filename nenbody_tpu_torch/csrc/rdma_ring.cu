@@ -44,10 +44,11 @@
 // holding the card. Slots are read through L2 (__ldcg), never through the
 // non-coherent L1.
 //
-// The pair arithmetic is the single-device kernels' (pair_math.cuh), so a
-// hop's pairs round as boids.cu's partials round them (summed in another
-// order where boids.cu splits j across a cluster), and as gravity.cu's up to
-// its reciprocal (within an ulp of this IEEE divide); the disc eye follows
+// The pair arithmetic and loops are the single-device kernels'
+// (pair_math.cuh, boids_tile.cuh, gravity_tile.cuh), so a hop's boids pairs
+// round as boids.cu's partials round them (summed in another order where
+// boids.cu splits j across a cluster) and its gravity pairs as gravity.cu's
+// but for the explicit fma (below); the disc eye follows
 // the JAX RDMA kernel (rdma.py:535-561): off = (u_p - u_c) * f t / r,
 // covered iff in depth and off^2 < 1; within a hop the least depth wins and
 // the least off^2 among its targets; across hops a strict <, so an earlier
@@ -56,12 +57,20 @@
 // result is the same from run to run.
 //
 // What bounds it: the pair work, as the single-device kernels (the fp32
-// pipe: gravity 11 operations and an exact divide per pair, boids about 22,
-// the eye a divide per (eye, target) and about 6 operations per covered
+// pipe: gravity 8 instructions and a MUFU reciprocal per pair, boids about
+// 22, the eye a divide per (eye, target) and about 6 operations per covered
 // (eye, target, pixel)), plus the waits: a hop's block count is 1/D of one
 // device's, so the blocks of one card are split between its shards. Design:
-// - gravity: one thread per row, the circulating block staged through
-//   shared memory in tiles of the block width;
+// - gravity: gravity.cu's pair loop (gravity_tile.cuh): T threads a block,
+//   R rows a thread, each x_j read from shared memory feeding R pairs, the
+//   next tile prefetched, full tiles unrolled, rcp.approx and a Newton step
+//   (within an ulp of the IEEE divide, no slow-path branch), the squared
+//   distance and the two sums in explicit fma, as gravity_vjp.cu's pair
+//   (8 fp32 instructions a pair, not 12: 1.78 against 2.38 ms at config 4
+//   on an H100, PERF.md; gravity.cu keeps the plain version's roundings);
+//   (T, R) from rdma_gravity_plan, pair_plan.cuh's rule without a split of
+//   j, the card's shards' envs counted together (N=65,536 on 4 shards: 32
+//   units of 512 rows a shard, 256 threads x 2 rows);
 // - boids: boids.cu's pair loop (boids_tile.cuh): BOIDS_R rows a thread,
 //   each (x_j, v_j) read from shared memory feeding both, the next tile
 //   prefetched, full tiles unrolled; the index compare only on hop 0; no
@@ -86,7 +95,9 @@
 #include <math.h>
 
 #include "boids_tile.cuh"
+#include "gravity_tile.cuh"
 #include "pair_math.cuh"
+#include "pair_plan.cuh"
 
 namespace {
 
@@ -242,38 +253,67 @@ struct GravityParams {
   float bias;
 };
 
+// the warps an SM the plan aims for (parallel/rdma.py's
+// RDMA_GRAVITY_MIN_WARPS_PER_SM, where the measurement behind it is): 7, not
+// gravity.cu's 8, so that config 4 on 4 shards takes R = 2 on 128 of the
+// H100's 132 SMs
+constexpr int GRAVITY_MIN_WARPS_PER_SM = 7;
+
+// The gravity kernel's launch plan for nb envs of nl rows a shard and
+// `shards` shards on a card of `sms` SMs: pair_plan's (T, R) without a
+// split of j (S = 1), the envs of the card's shards counted together;
+// blocks_i is the units of one env. parallel/rdma.py::rdma_gravity_plan is
+// its plain twin, which the wrapper launches from; the two must agree
+// (nbt_rdma_gravity_plan exposes this one to the tests).
+inline PairPlan rdma_gravity_plan(int nb, int nl, int shards, int sms) {
+  return pair_plan(nb * shards, nl, nl, sms, GRAVITY_MIN_WARPS_PER_SM, 1);
+}
+
+// A unit is (env, T x R rows of the shard); its thread t holds rows t + r T
+// and sums the circulating block's env segment through gravity_tile.cuh's
+// loop, from zero in j order; the hop's partial is then added to the rows'
+// total in hop order (accumulate). A block takes the same units at every
+// hop, so the total's rows need no atomics.
+template <int T, int R>
 struct GravityHop {
   const Ring& r;
   GravityParams q;
   float2* tile;
 
   __device__ void operator()(int s, int k, const Payload& cur) {
-    const int t = blockDim.x, tiles = (r.nl + t - 1) / t;
-    const float2* own = reinterpret_cast<const float2*>(r.shard[s].in[0]);
-    const float2* blk = reinterpret_cast<const float2*>(cur.plane[0]);
-    float2* out = reinterpret_cast<float2*>(r.shard[s].out[0]);
-    for (int u = blockIdx.x % r.p; u < r.nb * tiles; u += r.p) {
-      const int b = u / tiles;
-      const int i = (u - b * tiles) * t + threadIdx.x;
-      const long long row = (long long)b * r.nl + i;
-      const float2* xj = blk + (long long)b * r.nl;
-      const float2 xi = i < r.nl ? own[row] : make_float2(0.f, 0.f);
-      float gx = 0.f, gy = 0.f;
-      for (int j0 = 0; j0 < r.nl; j0 += t) {
-        if (j0 + threadIdx.x < r.nl) tile[threadIdx.x] = __ldcg(xj + j0 + threadIdx.x);
-        __syncthreads();
-        const int cnt = min(t, r.nl - j0);
-        for (int j = 0; j < cnt; ++j) gravity_pair(xi, tile[j], q.bias, 0, gx, gy);
-        __syncthreads();
+    const Shard& sh = r.shard[s];
+    const int units_per_env = (r.nl + T * R - 1) / (T * R);
+    const float2* own = reinterpret_cast<const float2*>(sh.in[0]);
+    float2* out = reinterpret_cast<float2*>(sh.out[0]);
+    for (int u = blockIdx.x % r.p; u < r.nb * units_per_env; u += r.p) {
+      const int b = u / units_per_env;
+      const int i0 = (u - b * units_per_env) * T * R + threadIdx.x;
+      const long long seg = (long long)b * r.nl;
+      const float2* blk = reinterpret_cast<const float2*>(cur.plane[0]) + seg;
+      float2 xi[R];
+      float gx[R], gy[R];
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int i = i0 + m * T;
+        xi[m] = i < r.nl ? own[seg + i] : make_float2(0.f, 0.f);
+        gx[m] = 0.f;
+        gy[m] = 0.f;
       }
-      if (i < r.nl) accumulate(out, row, k, gx, gy);
+      gravity_j_range<T, R, false, true>(tile, [blk](int j) { return __ldcg(blk + j); }, 0, r.nl,
+                                         xi, q.bias, gx, gy);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int i = i0 + m * T;
+        if (i < r.nl) accumulate(out, seg + i, k, gx[m], gy[m]);
+      }
     }
   }
 };
 
+template <int T, int R>
 __global__ void rdma_gravity_kernel(const __grid_constant__ Ring r, const GravityParams q) {
-  __shared__ float2 tile[MAX_THREADS];
-  GravityHop hop{r, q, tile};
+  __shared__ float2 tile[T];
+  GravityHop<T, R> hop{r, q, tile};
   walk_ring(r, hop);
 }
 
@@ -577,9 +617,33 @@ __global__ void __launch_bounds__(EYE_THREADS, EYE_MIN_BLOCKS)
 
 // -- launch -------------------------------------------------------------------
 
-const void* const KERNEL_FNS[3] = {reinterpret_cast<const void*>(rdma_gravity_kernel),
-                                   reinterpret_cast<const void*>(rdma_boids_kernel),
-                                   reinterpret_cast<const void*>(rdma_vision_kernel)};
+template <int T>
+const void* gravity_fn(int rows) {
+  return rows == 2   ? reinterpret_cast<const void*>(rdma_gravity_kernel<T, 2>)
+         : rows == 1 ? reinterpret_cast<const void*>(rdma_gravity_kernel<T, 1>)
+                     : nullptr;
+}
+
+// The kernel of `kind` (0 gravity, 1 boids, 2 the disc eye) for blocks of
+// `threads` threads; gravity's instantiation is (threads, rows), the others
+// have one. nbt_rdma_capacity sizes the grid for the function this returns
+// and the launch sends that same function, so the grid always fits the
+// kernel that runs. Null where no kernel has that shape.
+const void* kernel_fn(int kind, int threads, int rows) {
+  switch (kind) {
+    case 0:
+      switch (threads) {
+        case 256: return gravity_fn<256>(rows);
+        case 128: return gravity_fn<128>(rows);
+        case 64: return gravity_fn<64>(rows);
+        case 32: return gravity_fn<32>(rows);
+        default: return nullptr;
+      }
+    case 1: return reinterpret_cast<const void*>(rdma_boids_kernel);
+    case 2: return reinterpret_cast<const void*>(rdma_vision_kernel);
+    default: return nullptr;
+  }
+}
 
 // The Ring from the wrapper's host table: `table` holds TABLE_COLS pointers
 // per shard (in[2], eye_dir, out[5], slots, flags), `local` the n_local
@@ -614,10 +678,10 @@ int make_ring(const void* table, const int* local, int n_local, int d, int p, in
 // A cooperative launch: all n_local * p blocks resident at once, or an
 // error (cudaErrorCooperativeLaunchTooLarge) and no launch.
 template <class Params>
-int launch(int kind, Ring& r, Params& q, int n_local, dim3 block, void* stream) {
+int launch(const void* fn, Ring& r, Params& q, int n_local, dim3 block, void* stream) {
   void* args[] = {&r, &q};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      KERNEL_FNS[kind], dim3(n_local * r.p), block, args, 0, static_cast<cudaStream_t>(stream));
+      fn, dim3(n_local * r.p), block, args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(err);
@@ -628,15 +692,16 @@ int launch(int kind, Ring& r, Params& q, int n_local, dim3 block, void* stream) 
 }  // namespace
 
 // Blocks of `threads` threads of kernel `kind` (0 gravity, 1 boids, 2 the
-// disc eye) that fit on the current device at once, all its SMs together,
-// into *blocks (0 where the device has no cooperative launch).
-extern "C" int nbt_rdma_capacity(int kind, int threads, int device, int* blocks) {
+// disc eye; `rows` the gravity kernel's R, 1 for the others: kernel_fn)
+// that fit on the current device at once, all its SMs together, into
+// *blocks (0 where the device has no cooperative launch).
+extern "C" int nbt_rdma_capacity(int kind, int threads, int rows, int device, int* blocks) {
   *blocks = 0;
-  if (kind < 0 || kind > 2 || threads < 1 || threads > MAX_THREADS)
+  const void* fn = kernel_fn(kind, threads, rows);
+  if (fn == nullptr || threads < 1 || threads > MAX_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   int per_sm = 0, sms = 0, coop = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL_FNS[kind],
-                                                                  threads, 0);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, 0);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -656,16 +721,31 @@ extern "C" int nbt_enable_peer(int peer) {
 }
 
 // Gravity (#14): planes pos [nb, nl, 2]; out[0] the unscaled force sums
-// [nb, nl, 2]. `threads` (<= 256) rows per block.
+// [nb, nl, 2]. `threads` (T: 256, 128, 64 or 32) per block, each thread
+// `rows` (R: 1 or 2) rows of a unit: rdma_gravity_plan's.
 extern "C" int nbt_rdma_gravity(const void* table, const int* local, int n_local, int d, int p,
-                                int nb, int nl, int threads, float bias, void* stream) {
+                                int nb, int nl, int threads, int rows, float bias,
+                                void* stream) {
   Ring r;
   const int width[1] = {2};
   int err = make_ring(table, local, n_local, d, p, nb, nl, 1, width, r);
   if (err) return err;
-  if (threads < 1 || threads > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = kernel_fn(0, threads, rows);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   GravityParams q{bias};
-  return launch(0, r, q, n_local, dim3(threads), stream);
+  return launch(fn, r, q, n_local, dim3(threads), stream);
+}
+
+// The plan nbt_rdma_gravity is launched with for nb envs of nl rows a
+// shard, `shards` shards on a card of `sms` SMs: out[0..2] = T, R, units of
+// one shard.
+extern "C" int nbt_rdma_gravity_plan(int nb, int nl, int shards, int sms, void* out) {
+  const PairPlan plan = rdma_gravity_plan(nb, nl, shards, sms);
+  int* o = static_cast<int*>(out);
+  o[0] = plan.threads;
+  o[1] = plan.r;
+  o[2] = nb * plan.blocks_i;
+  return 0;
 }
 
 // Boids (#15): planes pos, vel [nb, nl, 2]; out sum1, cnt1, repel, sum3,
@@ -681,7 +761,7 @@ extern "C" int nbt_rdma_boids(const void* table, const int* local, int n_local, 
   if (threads < 32 || threads > MAX_THREADS || threads % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   BoidsParams q{coh_sq, sep_sq, ali_sq};
-  return launch(1, r, q, n_local, dim3(threads), stream);
+  return launch(kernel_fn(1, threads, 1), r, q, n_local, dim3(threads), stream);
 }
 
 // The disc eye (#16): planes pos [nb, nl, 2], eye_dir the unit headings;
@@ -701,5 +781,5 @@ extern "C" int nbt_rdma_vision(const void* table, const int* local, int n_local,
     return static_cast<int>(cudaErrorInvalidValue);
   VisionParams q{w, seg, eyes, tan_half_fov, tan_over_radius, near_plane, far_plane, radius,
                  1.0f / (float)w, 0.5f * (float)w};
-  return launch(2, r, q, n_local, dim3(EYE_THREADS), stream);
+  return launch(kernel_fn(2, EYE_THREADS, 1), r, q, n_local, dim3(EYE_THREADS), stream);
 }

@@ -73,10 +73,11 @@ SIGNATURES = {
                                           _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     # the RDMA ring (csrc/rdma_ring.cu): shard table, local shards, their
     # count, shards, blocks per shard, envs, rows per env, then each kernel's own
-    "nbt_rdma_gravity": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "nbt_rdma_gravity": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "nbt_rdma_gravity_plan": [_I, _I, _I, _I, _P],  # the launch shape of a plan (no launch)
     "nbt_rdma_boids": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "nbt_rdma_vision": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
-    "nbt_rdma_capacity": [_I, _I, _I, _P],
+    "nbt_rdma_capacity": [_I, _I, _I, _I, _P],
     "nbt_enable_peer": [_I],
 }
 
@@ -211,15 +212,16 @@ RDMA_KINDS = {"rdma_gravity": 0, "rdma_boids": 1, "rdma_vision": 2}
 
 
 @functools.lru_cache(maxsize=None)
-def resident_blocks(kernel: str, threads: int, device: torch.device) -> int:
-    """Blocks of `threads` threads of the RDMA ring kernel `kernel` that the
-    CUDA `device` holds at once on all its SMs (the occupancy calculator's
-    count; 0 where the device has no cooperative launch): the most a
-    persistent grid whose blocks wait on each other may launch."""
+def resident_blocks(kernel: str, threads: int, device: torch.device, rows: int = 1) -> int:
+    """Blocks of `threads` threads of the RDMA ring kernel `kernel` (for
+    rdma_gravity, its instantiation of `rows` rows a thread) that the CUDA
+    `device` holds at once on all its SMs (the occupancy calculator's count;
+    0 where the device has no cooperative launch): the most a persistent
+    grid whose blocks wait on each other may launch."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        kernel_library().call("nbt_rdma_capacity", RDMA_KINDS[kernel], threads, device.index,
-                              ctypes.addressof(out))
+        kernel_library().call("nbt_rdma_capacity", RDMA_KINDS[kernel], threads, rows,
+                              device.index, ctypes.addressof(out))
     return out.value
 
 

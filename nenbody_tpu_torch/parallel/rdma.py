@@ -56,9 +56,13 @@ from .ring import _pad_agents
 
 MAX_SHARDS = 16  # rdma_ring.cu's
 TABLE_COLS = 10  # pointers per shard in the kernel's table: in[2], eye_dir, out[5], slots, flags
-MAX_ROW_THREADS = 128  # threads per block of the gravity kernel
 # the boids kernel: at most BOIDS_THREADS threads a block, BOIDS_R rows a thread
 BOIDS_THREADS, BOIDS_R = 256, 2
+# the gravity kernel's plan aims at this many warps an SM: its grid cannot
+# split j, and on an H100 at config 4 (N=65,536 on 4 shards) 128 blocks of
+# 256 threads x 2 rows, 1,024 warps for 132 SMs, beat 256 blocks of 1 row
+# (1.78 against 1.95 ms, PERF.md), which an aim of 8 picks
+RDMA_GRAVITY_MIN_WARPS_PER_SM = 7
 # the eye kernel: threads per block, and a unit's most eyes, row segment and
 # (eye, pixel) keys
 EYE_THREADS, EYE_MAX, SEG_MAX, KEY_PIXELS = 256, 64, 256, 2048
@@ -123,13 +127,15 @@ def _join(cards: Sequence[torch.device]) -> None:
 
 def _launch_ring(name: str, planes: Sequence[Sequence[torch.Tensor]],
                  outs: Sequence[Sequence[torch.Tensor]], nb: int, nl: int, threads: int,
-                 units: int, args: tuple, eye_dirs: Optional[Sequence[torch.Tensor]] = None):
+                 units: int, args: tuple, eye_dirs: Optional[Sequence[torch.Tensor]] = None,
+                 rows: int = 1):
     """One launch of kernel `name` per card over the D shards whose payload
     planes (float32, contiguous, on the shard's device) are planes[s] and
     whose outputs are outs[s]: the comm slots and the flags on each shard's
     device, a persistent grid of P blocks per shard sized so that every
-    block of a card is resident (P <= `units`, the row tiles of a shard),
-    peer access between neighbours on different cards."""
+    block of a card is resident (P <= `units`, the units of a shard; `rows`
+    names the gravity kernel's instantiation, as its launch does), peer
+    access between neighbours on different cards."""
     devs = [p[0].device for p in planes]
     d = len(devs)
     if d > MAX_SHARDS:
@@ -143,7 +149,7 @@ def _launch_ring(name: str, planes: Sequence[Sequence[torch.Tensor]],
             common.enable_peer_access(devs[s], devs[(s + 1) % d])
     cards = list(dict.fromkeys(devs))
     local = {c: [s for s in range(d) if devs[s] == c] for c in cards}
-    fit = min(common.resident_blocks(name, threads, c) // len(local[c]) for c in cards)
+    fit = min(common.resident_blocks(name, threads, c, rows) // len(local[c]) for c in cards)
     if fit < 1:
         raise RuntimeError(f"{name}: the grid of {d} shards cannot be resident on "
                            f"{[str(c) for c in cards]}")
@@ -168,7 +174,14 @@ def _launch_ring(name: str, planes: Sequence[Sequence[torch.Tensor]],
     _join(cards)  # the slots and flags outlive every card's kernel
 
 
-def _row_threads(rows: int, most: int = MAX_ROW_THREADS) -> int:
+def _card_shape(devs: Sequence[torch.device]) -> Tuple[int, int]:
+    """(shards on the most crowded card, SMs of a card): what the RDMA
+    kernels' unit plans count, the shards of a card sharing its grid."""
+    sms = torch.cuda.get_device_properties(devs[0]).multi_processor_count
+    return max(devs.count(d) for d in devs), sms
+
+
+def _row_threads(rows: int, most: int) -> int:
     return min(most, -(-rows // 32) * 32)
 
 
@@ -177,6 +190,20 @@ def _lead(block: torch.Tensor) -> int:
 
 
 # -- gravity (#14) ------------------------------------------------------------
+
+
+def rdma_gravity_plan(nb: int, nl: int, shards_per_card: int, sms: int) -> Tuple[int, int, int]:
+    """(T, R, units): the RDMA gravity kernel's blocks of T threads, R rows
+    a thread, and the units (env, T R rows) of one shard, for nb envs of nl
+    rows a shard with `shards_per_card` shards on a card of `sms` SMs:
+    pairwise.pair_plan without a split of j (S = 1) over the envs of the
+    card's shards together, aiming at RDMA_GRAVITY_MIN_WARPS_PER_SM warps an
+    SM.
+    The plain twin of csrc/rdma_ring.cu's rdma_gravity_plan, which must
+    agree (nbt_rdma_gravity_plan); the wrapper launches from this one."""
+    t, r, _, _, bi = pairwise.pair_plan(nb * shards_per_card, nl, nl, sms,
+                                        RDMA_GRAVITY_MIN_WARPS_PER_SM, max_split=1)
+    return t, r, nb * bi
 
 
 def _plain_rdma_gravity(blocks: Sequence[torch.Tensor], cfg: GravityConfig) -> List[torch.Tensor]:
@@ -195,11 +222,13 @@ def _plain_rdma_gravity(blocks: Sequence[torch.Tensor], cfg: GravityConfig) -> L
 
 
 def _rdma_gravity_cuda(blocks: Sequence[torch.Tensor], cfg: GravityConfig) -> List[torch.Tensor]:
+    """The kernel, launched from rdma_gravity_plan (N=65,536 on 4 shards of
+    an H100: T=256, R=2, 32 units a shard)."""
     nb, nl = _lead(blocks[0]), blocks[0].shape[-2]
+    t, r, units = rdma_gravity_plan(nb, nl, *_card_shape([b.device for b in blocks]))
     outs = [torch.empty_like(b) for b in blocks]
-    threads = _row_threads(nl)
-    _launch_ring("rdma_gravity", [[b] for b in blocks], [[o] for o in outs], nb, nl, threads,
-                 nb * -(-nl // threads), (threads, cfg.bias))
+    _launch_ring("rdma_gravity", [[b] for b in blocks], [[o] for o in outs], nb, nl, t, units,
+                 (t, r, cfg.bias), rows=r)
     return outs
 
 
@@ -222,8 +251,11 @@ def rdma_ring_gravity_forces(
 ) -> torch.Tensor:
     """Gravity forces for pos [(B,) N, 2] through the RDMA ring: the
     semantics of ring.ring_gravity_forces and the dense oracle (the
-    self-pair included with the bias-softened denominator; the exact
-    divide, whatever cfg.gravity.approx_reciprocal says, as the JAX kernel)."""
+    self-pair included with the bias-softened denominator). On CUDA tensors
+    the reciprocal is within an ulp of the exact divide, as csrc/gravity.cu's,
+    whatever cfg.gravity.approx_reciprocal says, and the squared distance
+    and the sums are fused multiply-adds; the plain version divides and
+    rounds each product."""
     return _gravity(pos, cfg, mesh, axis, plain=False)
 
 
@@ -424,9 +456,7 @@ def rdma_eye_plan(nb: int, nl: int, w: int, shards_per_card: int, sms: int):
 
 def _rdma_vision_cuda(pos_b, dir_b, cfg: VisionConfig) -> List[tuple]:
     nb, nl, w = _lead(pos_b[0]), pos_b[0].shape[-2], cfg.width
-    devs = [p.device for p in pos_b]
-    sms = torch.cuda.get_device_properties(devs[0]).multi_processor_count
-    eyes, units = rdma_eye_plan(nb, nl, w, max(devs.count(d) for d in devs), sms)
+    eyes, units = rdma_eye_plan(nb, nl, w, *_card_shape([p.device for p in pos_b]))
     outs = [tuple(torch.empty(p.shape[:-1] + (w,), dtype=torch.float32, device=p.device)
                   for _ in range(2)) for p in pos_b]
     t = camera.tan_half_fov(cfg)

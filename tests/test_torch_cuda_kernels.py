@@ -467,9 +467,17 @@ def _rdma_case(kind, d, shape, cuda):
     return (lambda: call(fns[0])), call(fns[1])
 
 
-@pytest.mark.parametrize("shape", [(203,), (3, 70)])
-@pytest.mark.parametrize("d", [2, 3, 4, 8])
-@pytest.mark.parametrize("kind", ["gravity", "boids", "rows"])
+RDMA_CASES = [(kind, d, shape) for kind in ("gravity", "boids", "rows") for d in (2, 3, 4, 8)
+              for shape in ((203,), (3, 70))]
+# gravity at its plan's edges on an H100 (132 SMs): T R - 1, T R and T R + 1
+# rows a shard, for T R = 32 (one env on 2 shards) and T R = 512 (33 envs on
+# 4 shards: T = 256, R = 1 then 2; tests/test_torch_rdma_gravity_plan.py
+# pins these plans)
+RDMA_GRAVITY_EDGES = [("gravity", d, (nb, d * nl)) for d, nb, tr in ((2, 1, 32), (4, 33, 512))
+                      for nl in (tr - 1, tr, tr + 1)]
+
+
+@pytest.mark.parametrize("kind,d,shape", RDMA_CASES + RDMA_GRAVITY_EDGES)
 def test_rdma_ring_kernel_matches_plain_and_repeats(cuda, kind, d, shape):
     """Each RDMA kernel (one launch walking every hop) against its plain
     version on the card: gravity normalised by its largest force (sums in
@@ -499,6 +507,23 @@ def test_rdma_ring_kernel_matches_plain_and_repeats(cuda, kind, d, shape):
         again = again if kind == "rows" else (again,)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_rdma_gravity_plan_matches_the_kernels(cuda):
+    """nbt_rdma_gravity_plan (the kernel's) equals rdma_gravity_plan (the
+    wrapper's, which the launch takes) over envs, rows a shard, shards on
+    the card and SM counts."""
+    from nenbody_tpu_torch.parallel import rdma
+
+    out = (ctypes.c_int * 3)()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for count in (sms, 132, 16):
+        for nb in (1, 3, 33, 4096):
+            for nl in (1, 31, 32, 33, 64, 203, 300, 511, 512, 513, 16384, 16385):
+                for shards in (1, 2, 3, 4, 8):
+                    common.kernel_library().call("nbt_rdma_gravity_plan", nb, nl, shards, count,
+                                                 ctypes.addressof(out))
+                    assert tuple(out) == rdma.rdma_gravity_plan(nb, nl, shards, count)
 
 
 def _rdma_tie_scene(device):
