@@ -37,7 +37,14 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 `--algo apg` of the CLI, then APG with diff_vision
                 (antialias, visibility reward); metrics finite,
                 grad_norm > 0, parameters moved, launch counts read before
-                and after. Runs with autograd on.
+                and after. Runs with autograd on. Then the other trainers
+                through the CLI at config-5 width, 3 iterations each:
+                `--algo ppo`, `--algo ppo --critic central`, `--algo ac`,
+                `--algo es --population 8`, `--algo reinforce-gru` and
+                `--algo reinforce --net conv` (all at the full 4,096 envs:
+                the conv run's peak is about 53 GiB, PERF.md), each with
+                its peak device memory and its launch counts read just
+                before and after (gravity and disc_eye each launched).
      wireframe — the exact wireframe eye's paths, each with its launch
                 counts read before and after: Scene rollouts with
                 sprite_mode='wireframe' at config 2 and reference-100, then
@@ -239,6 +246,11 @@ SERVING_STEPS = [("config 2", "gravity-vision-1024", 50, None, "disc"),
                  ("config 2 wireframe", "gravity-vision-1024", 50, None, "wireframe"),
                  ("reference-100 wireframe", "reference-100", 50, None, "wireframe")]
 TRAINING = ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd")
+# the other trainers' CLI runs at config-5 width; each launches MORE_TRAINING
+MORE_TRAINERS = ("--algo ppo", "--algo ppo --critic central", "--algo ac",
+                 "--algo es --population 8", "--algo reinforce-gru",
+                 "--algo reinforce --net conv")
+MORE_TRAINING = ("gravity", "disc_eye")
 WF_SERVING = ("gravity", "boids", "wireframe_eye")
 WF_TRAINING = {"reinforce": ("gravity", "wireframe_eye"),
                "apg diff_vision": ("gravity", "gravity_vjp", "wireframe_eye",
@@ -791,6 +803,36 @@ def phase_train():
     if missing:
         raise AssertionError(f"the training path never launched {missing}")
     return runs, counts
+
+
+def phase_more_trainers():
+    """The other trainers through the CLI at config-5 width, 3 iterations
+    each (MORE_TRAINERS), each with its launch counts set to 0 just before
+    it and read just after, and its peak device memory. Returns (each
+    run's metric rows, the summed launch counts)."""
+    runs, total = {}, {k: 0 for k in KERNEL_INFO}
+    t0 = time.perf_counter()
+    for label in MORE_TRAINERS:
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launch_counts()
+        with ParamWatch() as watch:
+            runs[label] = cli_rows(["train", *label.split(), "--envs", str(TRAIN_ENVS), "--agents",
+                                    str(TRAIN_AGENTS), "--vision-width", str(TRAIN_WIDTH),
+                                    "--horizon", str(TRAIN_HORIZON), "--iters", "3",
+                                    "--seed", "0"])
+        torch.cuda.synchronize()
+        counts = common.launch_counts()
+        check_metrics(f"train {label}", runs[label], 3, watch.moved())
+        log("train", f"train {label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon "
+            f"{TRAIN_HORIZON}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {counts}")
+        missing = [k for k in MORE_TRAINING if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"train {label} never launched {missing}")
+        for k in total:
+            total[k] += counts[k]
+    log("train", f"the other trainers ran in {time.perf_counter() - t0:.2f} s")
+    return runs, total
 
 
 def wf_cfg(cfg: SimConfig, antialias: bool | None = None) -> SimConfig:
@@ -2613,13 +2655,15 @@ def main() -> None:
         paths = [phase_slice(), phase_wireframe_slice()]
     phase_apg_routes()
     runs, training = phase_train()
+    more_runs, more_training = phase_more_trainers()
     wf_runs, wf_training = phase_wireframe_train()
     ring_counts, ring_runs = phase_ring(smi)
     rdma_counts = phase_rdma(errors, smi, rdma_mesh(1))
     with torch.no_grad():
         phase_appearance_kernels(errors, gen)
     appearance_counts = phase_appearance(errors, smi)
-    paths += [training, wf_training, ring_counts, rdma_counts, appearance_counts]
+    paths += [training, more_training, wf_training, ring_counts, rdma_counts,
+              appearance_counts]
     with torch.no_grad():
         times, shapes = phase_kernel_times(gen, smi)
         log_wireframe_culls(gen, smi)
@@ -2628,6 +2672,7 @@ def main() -> None:
         times.update(phase_rdma_times(gen, smi, rdma_mesh(1)))
         forms = phase_appearance_times(gen, smi)
     log_train_times(runs, smi)
+    log_train_times(more_runs, smi)
     log_train_times(wf_runs, smi, prefix="wireframe ")
     log_train_times(ring_runs, smi, prefix="ring ")
 

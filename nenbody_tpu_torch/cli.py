@@ -1,18 +1,24 @@
 """Command line of the PyTorch port (counterpart of nenbody_tpu/cli.py; its
-`train` command for the two ported trainers so far, ROADMAP queue 1
-item 18 for the rest):
+`train` command with all six trainers, ROADMAP queue 1 item 18 for the
+other commands):
 
     python -m nenbody_tpu_torch train --algo apg --envs 64 --agents 64 --iters 10
+    python -m nenbody_tpu_torch train --algo ppo --critic central --reward-mode team
+    python -m nenbody_tpu_torch train --algo reinforce --net conv
     python -m nenbody_tpu_torch train --device cpu --envs 4 --agents 16 --iters 2
     python -m nenbody_tpu_torch train --mesh auto          # the agent-axis ring
 
-Flags and defaults are the JAX `train` command's for these trainers, plus
+Flags, defaults and flag errors (rc 2) are the JAX `train` command's
+(`--algo reinforce|reinforce-gru|ppo|ac|es|apg`, `--net mlp|conv`,
+`--critic agent|central` for ppo and ac, `--population` for es), plus
 `--device` (default cuda, with no fallback: on a machine without a GPU it
-fails). `--mesh` (DATAxAGENTS, -1 for the rest, or auto: every card on the
-agent axis) runs the sim on a mesh of the visible CUDA devices
+fails); its `--save`, `--checkpoint` and `--resume` wait for ROADMAP
+queue 1 item 15. `--mesh` (DATAxAGENTS, -1 for the rest, or auto: every
+card on the agent axis) runs the sim on a mesh of the visible CUDA devices
 (rl/train.py). Each iteration prints one JSON line: the trainer's metrics,
 `iter`, `sec` (host seconds of the step, ending when its metrics reach the
-host) and `agent_frames` (envs x agents x horizon).
+host) and `agent_frames` (envs x agents x horizon, times 2 x population
+for es).
 """
 
 from __future__ import annotations
@@ -24,9 +30,7 @@ import time
 
 import torch
 
-TRAINERS = ("reinforce", "apg")
-# the JAX package's other trainers, not ported yet
-UNPORTED_TRAINERS = ("reinforce-gru", "ppo", "ac", "es")
+TRAINERS = ("reinforce", "reinforce-gru", "ppo", "ac", "es", "apg")
 
 
 def _error(msg: str) -> int:
@@ -90,12 +94,61 @@ def _mesh_from_args(args):
         return _error(str(e))
 
 
+def _feedforward_net(args, env):
+    """--net -> the feedforward trainers' policy (None: their default MLP)."""
+    if args.net == "conv":
+        from .rl.policy import ConvPolicy, seeded
+
+        return seeded(args.seed, lambda: ConvPolicy(env.obs_width, env.cfg.vision.width))
+    return None
+
+
+def _trainer(args, env, mesh, device):
+    """(train state, step) of --algo; a ValueError for a minibatch scheme
+    PPO cannot run."""
+    net = _feedforward_net(args, env)
+    central = None
+    if args.critic == "central":
+        from .rl.policy import CentralValueMLP, seeded
+
+        central = seeded(args.seed + 1, lambda: CentralValueMLP(env.obs_width))
+    kw = dict(seed=args.seed, lr=args.lr, device=device)
+    if args.algo == "apg":
+        from .rl import apg
+
+        return (apg.init_apg_state(env, policy=net, **kw),
+                apg.make_apg_step(env, horizon=args.horizon, num_envs=args.envs, mesh=mesh))
+    if args.algo == "ppo":
+        from .rl import ppo
+
+        step = ppo.make_ppo_step(env, horizon=args.horizon, num_envs=args.envs, mesh=mesh,
+                                 central_critic=central is not None)
+        return ppo.init_ppo_state(env, policy=net, value=central, **kw), step
+    if args.algo == "ac":
+        from .rl import ac
+
+        return (ac.init_ac_state(env, args.envs, policy=net, value=central, mesh=mesh, **kw),
+                ac.make_ac_step(env, horizon=args.horizon, mesh=mesh))
+    if args.algo == "es":
+        from .rl import es
+
+        return (es.init_es_state(env, policy=net, **kw),
+                es.make_es_step(env, horizon=args.horizon, population=args.population,
+                                num_envs=args.envs, mesh=mesh))
+    from .rl import train
+
+    if args.algo == "reinforce-gru":
+        return (train.init_recurrent_train_state(env, args.envs, mesh=mesh, **kw),
+                train.make_recurrent_train_step(env, horizon=args.horizon, mesh=mesh))
+    return (train.init_train_state(env, args.envs, policy=net, mesh=mesh, **kw),
+            train.make_train_step(env, horizon=args.horizon, mesh=mesh))
+
+
 def cmd_train(args) -> int:
-    if args.algo in UNPORTED_TRAINERS:
-        return _error(f"--algo {args.algo} is not ported yet (ROADMAP queue 1 item 13); "
-                      f"the port trains with {' or '.join(TRAINERS)}")
-    if args.algo not in TRAINERS:
-        return _error(f"unknown --algo {args.algo!r}; choose {' or '.join(TRAINERS)}")
+    if args.net == "conv" and args.algo == "reinforce-gru":
+        return _error("--net conv is feedforward; reinforce-gru is its own (recurrent) net")
+    if args.critic == "central" and args.algo not in ("ppo", "ac"):
+        return _error("--critic central needs a learned value baseline (--algo ppo or ac)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         return _error("--device cuda, but torch.cuda.is_available() is false "
@@ -106,17 +159,11 @@ def cmd_train(args) -> int:
     mesh = _mesh_from_args(args)
     if isinstance(mesh, int):
         return mesh
-    if args.algo == "apg":
-        from .rl import apg
-
-        ts = apg.init_apg_state(env, seed=args.seed, lr=args.lr, device=device)
-        step = apg.make_apg_step(env, horizon=args.horizon, num_envs=args.envs, mesh=mesh)
-    else:
-        from .rl import train
-
-        ts = train.init_train_state(env, args.envs, seed=args.seed, lr=args.lr, device=device,
-                                    mesh=mesh)
-        step = train.make_train_step(env, horizon=args.horizon, mesh=mesh)
+    try:
+        ts, step = _trainer(args, env, mesh, device)
+    except ValueError as e:
+        return _error(str(e))
+    rollouts = 2 * args.population if args.algo == "es" else 1
     for i in range(args.iters):
         t0 = time.perf_counter()
         ts, metrics = step(ts)
@@ -124,7 +171,7 @@ def cmd_train(args) -> int:
         metrics.update(
             iter=i,
             sec=time.perf_counter() - t0,
-            agent_frames=args.envs * args.agents * args.horizon,
+            agent_frames=rollouts * args.envs * args.agents * args.horizon,
         )
         print(json.dumps(metrics), flush=True)
     return 0
@@ -136,9 +183,11 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("train", help="policy training on the vision env")
-    p.add_argument("--algo", default="reinforce",
-                   help=f"trainer: {' or '.join(TRAINERS)} (the JAX package's "
-                   f"{', '.join(UNPORTED_TRAINERS)} are not ported yet)")
+    p.add_argument("--algo", choices=TRAINERS, default="reinforce")
+    p.add_argument("--critic", choices=["agent", "central"], default="agent",
+                   help="ppo/ac value baseline: per-agent V(obs_i) or the centralized "
+                   "pooled V(s) (MAPPO-style, for team/shared rewards)")
+    p.add_argument("--population", type=int, default=8, help="ES antithetic pairs")
     p.add_argument("--envs", type=int, default=64)
     p.add_argument("--agents", type=int, default=64)
     p.add_argument("--vision-width", type=int, default=64)
@@ -151,6 +200,8 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--net", choices=["mlp", "conv"], default="mlp",
+                   help="policy function family (conv: 1D convs over the eye line)")
     p.add_argument("--reward-mode", choices=["cohesion", "team", "difference", "visibility"],
                    default="cohesion",
                    help="per-agent shaping, shared team objective, counterfactual "

@@ -1,5 +1,7 @@
-"""Where a training iteration's time goes: REINFORCE, APG and APG with
-diff_vision, each timed untraced and then traced once with torch.profiler.
+"""Where a training iteration's time goes: REINFORCE, APG, APG with
+diff_vision, PPO (per-agent and central critic), actor-critic, ES and
+recurrent REINFORCE, each timed untraced and then traced once with
+torch.profiler.
 
     python -m nenbody_tpu_torch.profile_train --out chiprun_out/prof_train.json
     python -m nenbody_tpu_torch.profile_train --sprite-mode wireframe \\
@@ -8,8 +10,9 @@ diff_vision, each timed untraced and then traced once with torch.profiler.
         --vision-width 16 --horizon 2 --runs 2 --out /tmp/prof.json
 
 Defaults are BASELINE config 5's width (4,096 envs x 256 agents x 64 px,
-horizon 8), disc sprites unless --sprite-mode says otherwise. For each
-trainer: `--warmup` iterations, then `--runs` untraced iterations, each on
+horizon 8), disc sprites unless --sprite-mode says otherwise; each trainer
+with the CLI's defaults (PPO 4 epochs x 4 minibatches, ES 8 antithetic
+pairs, so 16 rollouts a generation). For each trainer: `--warmup` iterations, then `--runs` untraced iterations, each on
 the host clock and ending when its metrics reach the host (median and all
 runs), then one traced iteration. Device time is the
 sum of the trace's CUDA kernel, memcpy and memset events, by category (one
@@ -34,8 +37,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from .config import SimConfig, VisionConfig
 from .ops import common
-from .rl import apg, train
+from .rl import ac, apg, es, ppo, train
 from .rl.env import VisionEnv
+from .rl.policy import CentralValueMLP, seeded
 
 # (category, substrings of a device event's name), first match wins
 CATEGORIES = (
@@ -58,7 +62,13 @@ TRAINERS = (
     ("reinforce", "reinforce", "cohesion", False, False),
     ("apg", "apg", "cohesion", False, False),
     ("apg_diff_vision", "apg", "visibility", True, True),
+    ("ppo", "ppo", "cohesion", False, False),
+    ("ppo_central", "ppo_central", "team", False, False),
+    ("ac", "ac", "cohesion", False, False),
+    ("es", "es", "cohesion", False, False),
+    ("reinforce_gru", "reinforce_gru", "cohesion", False, False),
 )
+ES_POPULATION = 8  # the CLI's default
 
 
 def category(name: str) -> str:
@@ -83,11 +93,25 @@ def make_step(args, algo: str, reward_mode: str, antialias: bool, diff_vision: b
                               vision=VisionConfig(width=args.vision_width, antialias=antialias,
                                                   sprite_mode=args.sprite_mode)),
                     reward_mode=reward_mode)
+    kw = dict(seed=args.seed, device=args.device)
     if algo == "apg":
-        ts = apg.init_apg_state(env, seed=args.seed, device=args.device)
+        ts = apg.init_apg_state(env, **kw)
         return ts, apg.make_apg_step(env, horizon=args.horizon, num_envs=args.envs,
                                      diff_vision=diff_vision)
-    ts = train.init_train_state(env, args.envs, seed=args.seed, device=args.device)
+    if algo.startswith("ppo"):
+        central = algo == "ppo_central"
+        value = seeded(args.seed + 1, lambda: CentralValueMLP(env.obs_width)) if central else None
+        return ppo.init_ppo_state(env, value=value, **kw), ppo.make_ppo_step(
+            env, horizon=args.horizon, num_envs=args.envs, central_critic=central)
+    if algo == "ac":
+        return ac.init_ac_state(env, args.envs, **kw), ac.make_ac_step(env, horizon=args.horizon)
+    if algo == "es":
+        return es.init_es_state(env, **kw), es.make_es_step(
+            env, horizon=args.horizon, population=ES_POPULATION, num_envs=args.envs)
+    if algo == "reinforce_gru":
+        ts = train.init_recurrent_train_state(env, args.envs, **kw)
+        return ts, train.make_recurrent_train_step(env, horizon=args.horizon)
+    ts = train.init_train_state(env, args.envs, **kw)
     return ts, train.make_train_step(env, horizon=args.horizon)
 
 
@@ -121,7 +145,8 @@ def profile_trainer(args, algo, reward_mode, antialias, diff_vision) -> dict:
     return {
         "median_s": median, "runs": runs, "traced_s": traced, "device_s": device_s,
         "busy": device_s / median,
-        "agent_frames_per_s": args.envs * args.agents * args.horizon / median,
+        "agent_frames_per_s": (2 * ES_POPULATION if algo == "es" else 1)
+        * args.envs * args.agents * args.horizon / median,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None,
         "launches": common.launch_counts(), "device_ms": cats,
     }

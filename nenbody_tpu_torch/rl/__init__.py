@@ -1,7 +1,10 @@
-"""RL-style control on top of the sim: the vision env, the MLP policy and
-the REINFORCE and APG trainers (counterpart of nenbody_tpu/rl; the other
-trainers wait, ROADMAP queue 1 item 13)."""
+"""RL-style control on top of the sim (counterpart of nenbody_tpu/rl): the
+vision env; the MLP, 1D-conv and GRU policies, the per-agent and pooled
+value heads and the scripted controllers; and the six trainers: REINFORCE
+(`train`, with its recurrent form), actor-critic (`ac`), PPO with GAE and
+the MAPPO critic (`ppo`), antithetic evolution strategies (`es`) and
+analytic policy gradients through the differentiable physics (`apg`)."""
 
-from . import apg, env, policy, train
+from . import ac, apg, env, es, policy, ppo, scripted, train
 
-__all__ = ["apg", "env", "policy", "train"]
+__all__ = ["ac", "apg", "env", "es", "policy", "ppo", "scripted", "train"]

@@ -1,7 +1,7 @@
 """REINFORCE over batched vision envs (counterpart of nenbody_tpu/rl/train.py:
 `Trajectory`, `TrainState`, `discounted_returns`, `make_train_step`,
-`init_train_state`, and `mesh=`; the recurrent form waits, ROADMAP queue 1
-item 13).
+`init_train_state`, the recurrent `make_recurrent_train_step` and
+`init_recurrent_train_state`, and `mesh=`).
 
 The rollout steps the batch of env states directly (the env takes leading
 batch dims; no vmap) under torch.no_grad(): as in the JAX trainer the
@@ -29,7 +29,8 @@ from torch import nn
 
 from ..state import SceneState, spawn_batch
 from .env import VisionEnv
-from .policy import gaussian_log_prob, init_mlp_policy, sample_action
+from .policy import (GRUPolicy, gaussian_log_prob, init_mlp_policy, sample_action,
+                     sample_gaussian, seeded)
 
 
 class Trajectory(NamedTuple):
@@ -44,6 +45,22 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     env_states: SceneState  # batched [B, ...]
     generator: torch.Generator  # spawns and action noise, on the envs' device
+
+
+def start_states(env: VisionEnv, ts, episodic: bool) -> SceneState:
+    """The env states an iteration starts from: fresh spawns from the
+    state's generator (as many as it holds) when `episodic`, else its own."""
+    if not episodic:
+        return ts.env_states
+    pos = ts.env_states.pos
+    return spawn_batch(env.cfg, ts.generator, pos.shape[0], pos.device)
+
+
+def _reinforce_advantages(rets: torch.Tensor, standardize: bool) -> torch.Tensor:
+    """Returns-to-go minus their mean, over their std when `standardize`
+    (jnp.std's ddof 0: torch.std's default ddof 1 would change the loss)."""
+    adv = rets - rets.mean()
+    return adv / (adv.std(correction=0) + 1e-6) if standardize else adv
 
 
 def check_mesh_envs(mesh, num_envs: int) -> None:
@@ -160,6 +177,23 @@ def discounted_returns(rewards: torch.Tensor, gamma: float) -> torch.Tensor:
     return rets
 
 
+def sampled_rollout(policy, observe_b, step_b, env_states: SceneState, generator,
+                    horizon: int) -> Tuple[SceneState, Trajectory]:
+    """`horizon` steps of actions sampled from `policy` (call under
+    torch.no_grad(): the actions are the data the loss scores): (the last
+    env states, the trajectory)."""
+    obs = observe_b(env_states)
+    obs_t, act_t, rew_t = [], [], []
+    for _ in range(horizon):
+        action, _ = sample_action(policy, obs, generator)
+        env_states, next_obs, reward = step_b(env_states, action)
+        obs_t.append(obs)
+        act_t.append(action)
+        rew_t.append(reward)
+        obs = next_obs
+    return env_states, Trajectory(torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t))
+
+
 def make_train_step(
     env: VisionEnv,
     horizon: int = 8,
@@ -177,42 +211,32 @@ def make_train_step(
     on it (module docstring)."""
     observe_b, step_b = batched_env_fns(env, mesh)
 
-    def rollout(policy, env_states: SceneState, generator) -> Tuple[SceneState, Trajectory]:
-        obs = observe_b(env_states)
-        obs_t, act_t, rew_t = [], [], []
-        for _ in range(horizon):
-            action, _ = sample_action(policy, obs, generator)
-            env_states, next_obs, reward = step_b(env_states, action)
-            obs_t.append(obs)
-            act_t.append(action)
-            rew_t.append(reward)
-            obs = next_obs
-        return env_states, Trajectory(torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t))
-
     def train_step(ts: TrainState) -> Tuple[TrainState, dict]:
-        start = ts.env_states
-        if episodic:
-            start = spawn_batch(env.cfg, ts.generator, start.pos.shape[0], start.pos.device)
         with torch.no_grad():
-            env_states, traj = rollout(ts.policy, start, ts.generator)
+            env_states, traj = sampled_rollout(ts.policy, observe_b, step_b,
+                                               start_states(env, ts, episodic), ts.generator,
+                                               horizon)
             rets = discounted_returns(traj.reward, gamma)
-            adv = rets - rets.mean()
-            if standardize_adv:
-                # jnp.std's ddof 0: torch.std's default (ddof 1) would change the loss
-                adv = adv / (adv.std(correction=0) + 1e-6)
+            adv = _reinforce_advantages(rets, standardize_adv)
         mean, log_std = ts.policy(traj.obs)
         loss = -(gaussian_log_prob(traj.action, mean, log_std) * adv).mean()
-        ts.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        ts.optimizer.step()
-        metrics = {
-            "loss": loss.detach(),
-            "reward_mean": traj.reward.mean(),
-            "return_mean": rets.mean(),
-        }
-        return dataclasses.replace(ts, env_states=env_states), metrics
+        return _reinforce_update(ts, loss, env_states, traj, rets)
 
     return train_step
+
+
+def _reinforce_update(ts: TrainState, loss: torch.Tensor, env_states: SceneState,
+                      traj: Trajectory, rets: torch.Tensor) -> Tuple[TrainState, dict]:
+    """One optimizer step on `loss`; the REINFORCE metrics."""
+    ts.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    ts.optimizer.step()
+    metrics = {
+        "loss": loss.detach(),
+        "reward_mean": traj.reward.mean(),
+        "return_mean": rets.mean(),
+    }
+    return dataclasses.replace(ts, env_states=env_states), metrics
 
 
 def init_train_state(
@@ -229,11 +253,85 @@ def init_train_state(
     `device`; the random stream is a generator seeded with `seed`. With a
     mesh the env batch must divide its data axis; states and policy stay on
     `device`, the controller's (module docstring)."""
+    policy = policy or init_mlp_policy(env.obs_width, seed)
+    return _train_state(env, num_envs, seed, lr, policy, device, mesh)
+
+
+def spawn_envs(env: VisionEnv, num_envs: int, seed: int, device: str | torch.device,
+               mesh=None) -> Tuple[SceneState, torch.Generator]:
+    """`num_envs` envs spawned on `device` from a generator seeded with
+    `seed` there, and that generator; with a mesh the env batch must divide
+    its data axis."""
     if mesh is not None:
         check_mesh_envs(mesh, num_envs)
-    device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    env_states = spawn_batch(env.cfg, generator, num_envs, device)
-    policy = (policy or init_mlp_policy(env.obs_width, seed)).to(device)
-    optimizer = torch.optim.Adam(policy.parameters(), lr=lr)
-    return TrainState(policy, optimizer, env_states, generator)
+    return spawn_batch(env.cfg, generator, num_envs, device), generator
+
+
+def _train_state(env, num_envs, seed, lr, policy, device, mesh) -> TrainState:
+    env_states, generator = spawn_envs(env, num_envs, seed, device, mesh)
+    policy = policy.to(device)
+    return TrainState(policy, torch.optim.Adam(policy.parameters(), lr=lr), env_states, generator)
+
+
+def make_recurrent_train_step(
+    env: VisionEnv,
+    horizon: int = 8,
+    gamma: float = 0.99,
+    mesh=None,
+    episodic: bool = True,
+    standardize_adv: bool = True,
+):
+    """REINFORCE with a recurrent policy (GRUPolicy): the rollout threads
+    the hidden state beside the env state (no grad, actions detached), and
+    the loss re-runs the recurrence over the recorded observations and
+    actions from a zero carry, so the log-prob gradient flows through it:
+    backpropagation through time over the horizon. The carry starts at
+    zero each iteration (with episodic=False: truncated BPTT, the envs
+    persist and the memory does not). `mesh` as make_train_step's."""
+    observe_b, step_b = batched_env_fns(env, mesh)
+
+    def rollout(policy, env_states: SceneState, generator) -> Tuple[SceneState, Trajectory]:
+        obs = observe_b(env_states)
+        h = policy.initial_carry(env_states.pos.shape[:-1], obs.device)
+        obs_t, act_t, rew_t = [], [], []
+        for _ in range(horizon):
+            h, (mean, log_std) = policy(h, obs)
+            action = sample_gaussian(mean, log_std, generator)
+            env_states, next_obs, reward = step_b(env_states, action)
+            obs_t.append(obs)
+            act_t.append(action)
+            rew_t.append(reward)
+            obs = next_obs
+        return env_states, Trajectory(torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t))
+
+    def train_step(ts: TrainState) -> Tuple[TrainState, dict]:
+        start = start_states(env, ts, episodic)
+        with torch.no_grad():
+            env_states, traj = rollout(ts.policy, start, ts.generator)
+            rets = discounted_returns(traj.reward, gamma)
+            adv = _reinforce_advantages(rets, standardize_adv)
+        h = ts.policy.initial_carry(start.pos.shape[:-1], start.pos.device)
+        logp = []
+        for obs, action in zip(traj.obs, traj.action):
+            h, (mean, log_std) = ts.policy(h, obs)
+            logp.append(gaussian_log_prob(action, mean, log_std))
+        loss = -(torch.stack(logp) * adv).mean()
+        return _reinforce_update(ts, loss, env_states, traj, rets)
+
+    return train_step
+
+
+def init_recurrent_train_state(
+    env: VisionEnv,
+    num_envs: int,
+    seed: int = 0,
+    lr: float = 1e-3,
+    policy: Optional[GRUPolicy] = None,
+    device: str | torch.device = "cuda",
+    mesh=None,
+) -> TrainState:
+    """init_train_state for a recurrent policy (a GRUPolicy, weights from
+    `seed`, by default)."""
+    policy = policy or seeded(seed, lambda: GRUPolicy(env.obs_width))
+    return _train_state(env, num_envs, seed, lr, policy, device, mesh)

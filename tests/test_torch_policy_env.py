@@ -1,5 +1,5 @@
 """The port's MLP policy and VisionEnv against the JAX package's, on shared
-numpy inputs and flax weights carried across by mlp_state_dict_from_flax.
+numpy inputs and flax weights carried across by state_dict_from_flax.
 
 Tolerances: the fp32 MLP agrees to rtol 1e-5 (matmuls sum in another
 order). In bf16 both frameworks round inputs, weights and activations to 8
@@ -23,7 +23,7 @@ from nenbody_tpu.rl.policy import MLPPolicy as JMLPPolicy
 
 from nenbody_tpu_torch import SceneState, SimConfig, VisionConfig
 from nenbody_tpu_torch.rl.env import VisionEnv
-from nenbody_tpu_torch.rl.policy import MLPPolicy, mlp_state_dict_from_flax
+from nenbody_tpu_torch.rl.policy import MLPPolicy, state_dict_from_flax
 
 torch.set_num_threads(1)
 
@@ -42,8 +42,8 @@ def _obs(n, w, seed):
 
 
 def test_state_dict_crossing_is_complete():
-    sd = mlp_state_dict_from_flax(_flax_params(66, False))
     policy = MLPPolicy(66)
+    sd = state_dict_from_flax(policy, _flax_params(66, False))
     assert set(sd) == set(policy.state_dict())
     policy.load_state_dict(sd, strict=True)
     assert policy.hidden[0].weight.shape == (128, 66) and policy.head.weight.shape == (2, 128)
@@ -54,7 +54,7 @@ def test_mlp_fp32_matches_flax():
     obs = _obs(300, 64, 1)
     want_mean, want_log_std = JMLPPolicy(use_bf16=False).apply(params, jnp.asarray(obs))
     policy = MLPPolicy(66, use_bf16=False)
-    policy.load_state_dict(mlp_state_dict_from_flax(params))
+    policy.load_state_dict(state_dict_from_flax(policy, params))
     with torch.no_grad():
         mean, log_std = policy(torch.from_numpy(obs))
     np.testing.assert_allclose(mean.numpy(), np.asarray(want_mean), rtol=1e-5, atol=1e-6)
@@ -67,7 +67,7 @@ def test_mlp_bf16_matches_flax_within_bf16_bound():
     obs = _obs(300, 64, 2)
     want, _ = JMLPPolicy(use_bf16=True).apply(params, jnp.asarray(obs))
     policy = MLPPolicy(66, use_bf16=True)
-    policy.load_state_dict(mlp_state_dict_from_flax(params))
+    policy.load_state_dict(state_dict_from_flax(policy, params))
     with torch.no_grad():
         mean, _ = policy(torch.from_numpy(obs))
     assert mean.dtype == torch.float32

@@ -29,7 +29,7 @@ from nenbody_tpu_torch import PRESETS, Scene, SceneState, SimConfig, VisionConfi
 from nenbody_tpu_torch.entry import CONFIG_2, entry, make_entry_fn
 from nenbody_tpu_torch.parallel import make_mesh
 from nenbody_tpu_torch.rl.env import VisionEnv
-from nenbody_tpu_torch.rl.policy import MLPPolicy, mlp_state_dict_from_flax
+from nenbody_tpu_torch.rl.policy import MLPPolicy, state_dict_from_flax
 
 torch.set_num_threads(1)
 
@@ -63,7 +63,8 @@ def test_entry_step_matches_jax_for_three_steps(jax_backend):
     jfn = _jax_entry_fn(jenv, jpolicy)
 
     fn, (policy, _, _) = entry("cpu", cfg=cfg, use_bf16=False)
-    policy.load_state_dict(mlp_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params)))
+    policy.load_state_dict(state_dict_from_flax(policy,
+                                                jax.tree_util.tree_map(np.asarray, params)))
 
     rng = np.random.RandomState(0)
     pos = rng.uniform(-30, 30, (n, 2)).astype(np.float32)

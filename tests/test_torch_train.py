@@ -1,12 +1,14 @@
-"""The port's REINFORCE and APG trainers and its `train` CLI against the JAX
-package's, on shared inputs.
+"""The port's REINFORCE and APG trainers against the JAX package's, on
+shared inputs, and its `train` CLI with every trainer (the other trainers'
+parity tests: tests/test_torch_ppo.py, test_torch_ac.py, test_torch_es.py,
+test_torch_recurrent.py).
 
 jax.random and torch give different streams, so each parity test patches
 the JAX trainers' module attributes with pytest's monkeypatch (their files
 are untouched): `spawn_batch` returns one shared numpy batch of env states
 on both sides and, for REINFORCE, `sample_action` draws one fixed numpy
 noise array. The flax weights cross into the port with
-mlp_state_dict_from_flax, in float32 (use_bf16=False). The JAX side runs its
+state_dict_from_flax, in float32 (use_bf16=False). The JAX side runs its
 dense backend (plain jnp autodiff, the reference); the port runs its kernel
 route, which on the CPU is its autograd Functions over the kernels' plain
 versions.
@@ -41,7 +43,7 @@ from nenbody_tpu_torch import cli, profile_train
 from nenbody_tpu_torch.parallel import make_mesh
 from nenbody_tpu_torch.rl import apg, train
 from nenbody_tpu_torch.rl.env import VisionEnv
-from nenbody_tpu_torch.rl.policy import MLPPolicy, gaussian_log_prob, mlp_state_dict_from_flax
+from nenbody_tpu_torch.rl.policy import MLPPolicy, gaussian_log_prob, state_dict_from_flax
 
 torch.set_num_threads(1)
 
@@ -80,7 +82,7 @@ def _shared_spawn(monkeypatch, jmodule, module, seed, b=B, n=N, spread=30.0):
 def _ported_policy(params, obs_dim):
     """The JAX trainer's initial flax params as the port's float32 MLP."""
     pol = MLPPolicy(obs_dim, use_bf16=False)
-    pol.load_state_dict(mlp_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params)))
+    pol.load_state_dict(state_dict_from_flax(pol, jax.tree_util.tree_map(np.asarray, params)))
     return pol
 
 
@@ -91,7 +93,7 @@ def _assert_updates(policy, old_sd, new_flax_params):
     Adam's g / (|g| + eps) turns that noise into a different update, and
     only its bound lr holds."""
     assert all(np.abs(v.numpy()).max() < 8 for v in old_sd.values())
-    want_new = mlp_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, new_flax_params))
+    want_new = state_dict_from_flax(policy, jax.tree_util.tree_map(np.asarray, new_flax_params))
     grads = {k: p.grad for k, p in policy.named_parameters()}
     for name, p in policy.state_dict().items():
         got = (p - old_sd[name]).numpy()
@@ -106,11 +108,10 @@ def _assert_updates(policy, old_sd, new_flax_params):
     assert any((p - old_sd[k]).abs().max() > 0 for k, p in policy.state_dict().items())
 
 
-@pytest.mark.parametrize("reward_mode,antialias", [("cohesion", False), ("visibility", True)])
-def test_reinforce_step_matches_jax(monkeypatch, reward_mode, antialias):
-    jenv, env = _envs(reward_mode, antialias)
-    _shared_spawn(monkeypatch, jtrain, train, seed=1)
-    noise = np.random.RandomState(2).randn(B, N, 2).astype(np.float32)
+def _shared_noise(monkeypatch, jmodule, module, seed, b=B, n=N):
+    """Patch `sample_action` of both modules to add one fixed numpy noise
+    array (the same at every step) to the policy's mean."""
+    noise = np.random.RandomState(seed).randn(b, n, 2).astype(np.float32)
 
     def jsample(params, apply_fn, obs, key):
         mean, log_std = apply_fn(params, obs)
@@ -122,8 +123,16 @@ def test_reinforce_step_matches_jax(monkeypatch, reward_mode, antialias):
         action = mean + torch.exp(log_std) * torch.tensor(noise)
         return action, gaussian_log_prob(action, mean, log_std)
 
-    monkeypatch.setattr(jtrain, "sample_action", jsample)
-    monkeypatch.setattr(train, "sample_action", sample)
+    monkeypatch.setattr(jmodule, "sample_action", jsample)
+    monkeypatch.setattr(module, "sample_action", sample)
+    return noise
+
+
+@pytest.mark.parametrize("reward_mode,antialias", [("cohesion", False), ("visibility", True)])
+def test_reinforce_step_matches_jax(monkeypatch, reward_mode, antialias):
+    jenv, env = _envs(reward_mode, antialias)
+    _shared_spawn(monkeypatch, jtrain, train, seed=1)
+    _shared_noise(monkeypatch, jtrain, train, seed=2)
 
     opt = optax.adam(LR)
     jts, apply_fn, _ = jtrain.init_train_state(jenv, B, jax.random.key(0), opt,
@@ -172,6 +181,18 @@ def _grad_recorder():
     )
 
 
+def _assert_grads(module, flax_grads, gtol):
+    """Each parameter gradient of `module` against the JAX step's
+    (flax_grads, e.g. from _grad_recorder, crossed by state_dict_from_flax):
+    within gtol of its tensor's largest component."""
+    want = state_dict_from_flax(module, jax.tree_util.tree_map(np.asarray, flax_grads))
+    for name, p in module.named_parameters():
+        g = want[name].numpy()
+        assert p.grad is not None, name
+        np.testing.assert_allclose(p.grad.numpy(), g, rtol=0,
+                                   atol=gtol * max(np.abs(g).max(), 1e-30), err_msg=name)
+
+
 @pytest.mark.parametrize("reward_mode,diff_vision,n,w,b,h,spread,rtol,gtol", [
     ("cohesion", False, N, W, B, H, 30.0, 1e-4, 1e-4),
     ("visibility", True, N, W, B, H, 30.0, 1e-4, 1e-4),
@@ -199,10 +220,9 @@ def test_apg_step_with_default_actuation_matches_jax(monkeypatch, reward_mode, d
                                            policy=JMLPPolicy(use_bf16=False))
     jts2, jm = jax.jit(japg.make_apg_step(jenv, apply_fn, opt, horizon=h, num_envs=b,
                                           diff_vision=diff_vision))(jts)
-    want = mlp_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jts2.opt_state))
-
     ts = apg.init_apg_state(env, seed=0, lr=LR,
                             policy=_ported_policy(jts.params, env.obs_width), device="cpu")
+    want = state_dict_from_flax(ts.policy, jax.tree_util.tree_map(np.asarray, jts2.opt_state))
     _, m = apg.make_apg_step(env, horizon=h, num_envs=b, diff_vision=diff_vision)(ts)
     for key in ("loss", "reward_mean", "grad_norm"):
         np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=rtol, err_msg=key)
@@ -277,33 +297,58 @@ def test_train_states_are_seeded_and_mesh_waits_for_the_ring():
         apg.make_apg_step(env, num_envs=3, mesh=mesh)
 
 
-@pytest.mark.parametrize("algo", ["reinforce", "apg"])
-def test_train_cli_runs_on_cpu(capsys, algo):
-    rc = cli.main(["train", "--algo", algo, "--device", "cpu", "--envs", "2", "--agents", "12",
+METRIC_KEYS = {
+    "reinforce": {"loss", "reward_mean", "return_mean"},
+    "reinforce-gru": {"loss", "reward_mean", "return_mean"},
+    "apg": {"loss", "reward_mean", "grad_norm"},
+    "ppo": {"loss", "reward_mean", "return_mean", "value_mean"},
+    "ac": {"loss", "pg_loss", "value_loss", "reward_mean"},
+    "es": {"fitness_mean", "fitness_best", "grad_norm"},
+}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--algo", "reinforce"], ["--algo", "apg"], ["--algo", "ppo"],
+    ["--algo", "ppo", "--critic", "central", "--reward-mode", "team"], ["--algo", "ac"],
+    ["--algo", "ac", "--critic", "central"], ["--algo", "es", "--population", "2"],
+    ["--algo", "reinforce-gru"], ["--algo", "reinforce", "--net", "conv"],
+    ["--algo", "ppo", "--net", "conv"],
+], ids=lambda argv: "-".join(a.lstrip("-") for a in argv[1:]))
+def test_train_cli_runs_on_cpu(capsys, argv):
+    """Every trainer of the CLI on the CPU: the JAX command's metric keys
+    per --algo, finite values, agent_frames (times 2 x population for
+    es)."""
+    rc = cli.main(["train", *argv, "--device", "cpu", "--envs", "2", "--agents", "12",
                    "--vision-width", "16", "--horizon", "3", "--iters", "2", "--antialias"])
     assert rc == 0
+    algo = argv[1]
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["iter"] for r in lines] == [0, 1]
-    keys = {"loss", "reward_mean", "iter", "sec", "agent_frames"}
-    keys |= {"grad_norm"} if algo == "apg" else {"return_mean"}
+    frames = 2 * 12 * 3 * (2 * 2 if algo == "es" else 1)
     for row in lines:
-        assert set(row) == keys and row["agent_frames"] == 2 * 12 * 3
+        assert set(row) == METRIC_KEYS[algo] | {"iter", "sec", "agent_frames"}
+        assert row["agent_frames"] == frames
         assert all(np.isfinite(v) for v in row.values())
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--algo", "ppo"], "item 13"), (["--algo", "ac"], "item 13"), (["--algo", "es"], "item 13"),
-    (["--algo", "reinforce-gru"], "item 13"),
-])
-def test_train_cli_names_the_roadmap_item_of_what_is_not_ported(capsys, argv, item):
-    assert cli.main(["train", "--device", "cpu", *argv]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err and item in err
+@pytest.mark.parametrize("argv,message", [
+    (["--algo", "reinforce-gru", "--net", "conv"], "feedforward"),
+    (["--algo", "es", "--critic", "central"], "needs a learned value baseline"),
+    (["--algo", "ppo", "--critic", "central", "--envs", "1", "--horizon", "2"],
+     "minibatches would be empty"),
+], ids=["conv-gru", "central-es", "ppo-empty-minibatches"])
+def test_train_cli_refuses_what_the_jax_command_refuses(capsys, argv, message):
+    """The JAX `train` command's flag errors (cli.py:316-323, 366-379),
+    each exit code 2 with its message, before any iteration."""
+    assert cli.main(["train", "--device", "cpu", "--agents", "8", "--vision-width", "8",
+                     *argv]) == 2
+    out = capsys.readouterr()
+    assert message in out.err and out.out == ""
 
 
 def test_profile_train_runs_on_cpu(tmp_path, capsys):
     """The training profiler (python -m nenbody_tpu_torch.profile_train)
-    at a tiny size on the CPU: host times for all three trainers, no device
+    at a tiny size on the CPU: host times for every trainer, no device
     events and no kernel launches there."""
     out = tmp_path / "prof.json"
     assert profile_train.main(["--device", "cpu", "--envs", "2", "--agents", "12",
@@ -312,7 +357,8 @@ def test_profile_train_runs_on_cpu(tmp_path, capsys):
     result = json.loads(out.read_text())
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == result
     assert result["card"] == "cpu" and set(result["trainers"]) == {
-        "reinforce", "apg", "apg_diff_vision"}
+        "reinforce", "apg", "apg_diff_vision", "ppo", "ppo_central", "ac", "es",
+        "reinforce_gru"}
     for row in result["trainers"].values():
         assert len(row["runs"]) == 2 and row["median_s"] > 0 and row["device_ms"] == {}
         assert row["busy"] == 0.0 and row["peak_gib"] is None

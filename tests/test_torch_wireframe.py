@@ -34,7 +34,7 @@ from nenbody_tpu.vision import render as jrender
 from nenbody_tpu_torch import Scene, SceneState, SimConfig, VisionConfig, cli
 from nenbody_tpu_torch import state as tstate
 from nenbody_tpu_torch.ops import common, wireframe
-from nenbody_tpu_torch.rl import apg, train
+from nenbody_tpu_torch.rl import ac, apg, es, ppo, train
 from nenbody_tpu_torch.rl.env import VisionEnv
 from nenbody_tpu_torch.vision import camera, render
 
@@ -247,11 +247,17 @@ def _entry_points():
         "spawn_batch": (tstate.spawn_batch, lambda: tstate.spawn_batch(cfg, gen, 2)),
         "init_train_state": (train.init_train_state, lambda: train.init_train_state(env, 2)),
         "init_apg_state": (apg.init_apg_state, lambda: apg.init_apg_state(env)),
+        "init_ppo_state": (ppo.init_ppo_state, lambda: ppo.init_ppo_state(env)),
+        "init_ac_state": (ac.init_ac_state, lambda: ac.init_ac_state(env, 2)),
+        "init_es_state": (es.init_es_state, lambda: es.init_es_state(env)),
+        "init_recurrent_train_state": (train.init_recurrent_train_state,
+                                       lambda: train.init_recurrent_train_state(env, 2)),
     }
 
 
 @pytest.mark.parametrize("name", ["Scene", "spawn", "spawn_batch", "init_train_state",
-                                  "init_apg_state"])
+                                  "init_apg_state", "init_ppo_state", "init_ac_state",
+                                  "init_es_state", "init_recurrent_train_state"])
 def test_entry_points_default_to_the_card(name):
     """Without a device argument the entry points target cuda; on a
     machine without a GPU they raise and do not fall back to the CPU."""
