@@ -45,7 +45,23 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 the conv run's peak is about 53 GiB, PERF.md), each with
                 its peak device memory and its launch counts read just
                 before and after (gravity and disc_eye each launched).
-     wireframe — the exact wireframe eye's paths, each with its launch
+     cli      — the CLI's simulation and data surface through cli.main at
+                the BASELINE shapes, each command's launch counts set to 0
+                just before it and read just after: `run` at config 4
+                with checkpoints and a resume that continues t (gravity),
+                config 3 with --record (boids; 4 frames through the
+                native host library, built with g++), config 2 plain and under a trained policy; `train
+                --algo reinforce` at config-5 width, 2 iterations +
+                --checkpoint + --resume 1 against 3 uninterrupted (equal
+                params, else the difference beside two uninterrupted
+                runs'); `eval --policy`; `datagen` at BASELINE config 5
+                (2 shards, agent-frames/s with and without the writes,
+                chunk 1's host copy overlapping chunk 2's compute on the
+                card's timeline); `bc` on those shards; `export --check` at
+                config-5 width, its step bit-equal to the live step and
+                timed against it (gravity and disc_eye launched by train,
+                eval, datagen and export).
+     wireframe —the exact wireframe eye's paths, each with its launch
                 counts read before and after: Scene rollouts with
                 sprite_mode='wireframe' at config 2 and reference-100, then
                 `train --algo reinforce --sprite-mode wireframe` of the CLI
@@ -747,12 +763,12 @@ def check_metrics(label: str, rows, iters: int, moved: float) -> None:
 
 
 def cli_rows(argv) -> list:
-    """The metric rows `cli.main(argv)` prints; it must exit 0."""
+    """The JSON rows `cli.main(argv)` prints; it must exit 0."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     expect(rc == 0, f"{' '.join(argv)} exits 0")
-    return [json.loads(line) for line in out.getvalue().splitlines()]
+    return [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
 
 
 def step_rows(step, ts, iters: int):
@@ -833,6 +849,270 @@ def phase_more_trainers():
             total[k] += counts[k]
     log("train", f"the other trainers ran in {time.perf_counter() - t0:.2f} s")
     return runs, total
+
+
+def cli_counted(argv, need=(), rows=True):
+    """`cli.main(argv)` with the launch counts set to 0 just before it and
+    read just after; it must exit 0 and launch each kernel of `need`.
+    Returns (the JSON rows it printed, or its whole stdout, the counts, its
+    host seconds, its peak device memory in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = common.launch_counts()
+    expect(rc == 0, f"{' '.join(argv)} exits 0")
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{' '.join(argv[:1])} never launched {missing}")
+    text = out.getvalue()
+    got = [json.loads(x) for x in text.splitlines() if x.startswith("{")] if rows else text
+    return got, counts, sec, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def log_run_rate(label: str, rows, card: str) -> None:
+    """`run`'s last StepTimer report (its EMA skips the first chunk)."""
+    last = rows[-1]
+    log("cli", f"run {label}: {last['step_ms']:.4f} ms per step, {last['steps_per_s']:.2f} "
+        f"steps/s (StepTimer's EMA over chunks 2 on), t {last['t']} [{card}]")
+
+
+def params_diff(a: str, b: str) -> float:
+    """The largest |difference| between two params npz files' leaves."""
+    import numpy as np
+
+    with np.load(a) as x, np.load(b) as y:
+        expect(sorted(x.files) == sorted(y.files), f"{a} and {b} hold the same leaves")
+        return max(float(np.abs(x[k] - y[k]).max()) for k in x.files)
+
+
+def phase_cli_surface(card: str):
+    """The CLI's simulation and data surface in-process through cli.main, at
+    the BASELINE shapes, each command with its launch counts set to 0 just
+    before it and read just after: `run` at config 4 with checkpoints and
+    its `--resume`, config 3 with `--record`, config 2 plain and under a
+    trained policy; `train --algo reinforce` at config-5 width, resumed
+    against uninterrupted; `eval --policy`; `datagen` at BASELINE config 5
+    (2 shards) with the copy's overlap shown on the card's timeline; `bc`
+    on its shards; `export --check` at config-5 width, its step bit-equal
+    to the live step. Files go to build/chip_smoke_cli, deleted afterwards.
+    Returns the summed launch counts."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from nenbody_tpu_torch.rl import bc as bc_lib
+    from nenbody_tpu_torch.rl import datagen as dg
+    from nenbody_tpu_torch.utils import export as export_lib
+    from nenbody_tpu_torch.utils import native
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = lambda name: os.path.join(root, name)  # noqa: E731
+    total = {k: 0 for k in KERNEL_INFO}
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    width5 = ["--envs", str(TRAIN_ENVS), "--agents", str(TRAIN_AGENTS), "--vision-width",
+              str(TRAIN_WIDTH)]
+    try:
+        log("cli", f"disk free under build/: "
+            f"{shutil.disk_usage(root).free / 2 ** 30:.1f} GiB")
+        # config 4: checkpoints every 20 steps, then a resume from t = 40
+        rows, counts, _, _ = cli_counted(
+            ["run", "--preset", "gravity-65536", "--steps", "40", "--log-every", "10",
+             "--checkpoint-dir", path("ck"), "--checkpoint-every", "20"], need=("gravity",))
+        add(counts)
+        expect(rows[-1]["t"] == 40 and sorted(os.listdir(path("ck"))) == [
+            "state_000000020.npz", "state_000000040.npz"], "config 4 run: t 40, 2 checkpoints")
+        log_run_rate("config 4 (gravity N=65,536)", rows, card)
+        rows, counts, _, _ = cli_counted(
+            ["run", "--preset", "gravity-65536", "--resume", path("ck/state_000000040.npz"),
+             "--steps", "10", "--log-every", "10"], need=("gravity",))
+        add(counts)
+        expect(rows[-1]["t"] == 50, f"the resumed run continues at t 50, got {rows[-1]['t']}")
+        # config 3 with a recording, when the host library builds here
+        rows, counts, _, _ = cli_counted(
+            ["run", "--preset", "boids-4096", "--steps", "20", "--log-every", "5", "--record",
+             path("r.nentraj")], need=("boids",))
+        add(counts)
+        log_run_rate("config 3 (boids N=4,096)", rows, card)
+        # the card's machine has g++ and zlib's header, so the host
+        # library builds there and the recording is required
+        expect(native.available(), "the native host library (g++, zlib) built for --record")
+        frames = len(native.read_trajectory(path("r.nentraj"))[0])
+        expect(frames == 4, f"4 recorded frames, got {frames}")
+        log("cli", f"--record: {frames} frames of 4,096 agents through libnenhost")
+        rows, counts, _, _ = cli_counted(
+            ["run", "--preset", "gravity-vision-1024", "--steps", "40", "--log-every", "10"],
+            need=("gravity",))
+        add(counts)
+        log_run_rate("config 2 (gravity N=1,024, no observe)", rows, card)
+
+        # train at config-5 width: 3 iterations against 2 + checkpoint + resume 1
+        base = ["train", "--algo", "reinforce", *width5, "--horizon", str(TRAIN_HORIZON),
+                "--seed", "0"]
+        for argv in (base + ["--iters", "3", "--save", path("a.npz")],
+                     base + ["--iters", "2", "--checkpoint", path("ts.npz")],
+                     base + ["--iters", "1", "--resume", path("ts.npz"), "--save", path("p.npz")]):
+            rows, counts, sec, _ = cli_counted(argv, need=MORE_TRAINING)
+            add(counts)
+            expect(all(math.isfinite(v) for r in rows for v in r.values()), "finite metrics")
+        resumed = params_diff(path("a.npz"), path("p.npz"))
+        if resumed:
+            _, counts, _, _ = cli_counted(base + ["--iters", "3", "--save", path("b.npz")],
+                                          need=MORE_TRAINING)
+            add(counts)
+            rerun = params_diff(path("a.npz"), path("b.npz"))
+            log("cli", f"train resumed against uninterrupted: max |dparam| {resumed:.3e}; "
+                f"two uninterrupted runs {rerun:.3e} (bound 2x)")
+            expect(rerun > 0 and resumed <= 2 * rerun, "the resumed params equal the "
+                   "uninterrupted run's up to the card's run-to-run difference")
+        else:
+            log("cli", "train 2 + checkpoint + resume 1 equals 3 iterations bit for bit")
+
+        # eval of that policy, and config-2 playback under it
+        rows, counts, sec, _ = cli_counted(["eval", "--policy", path("p.npz"), *width5,
+                                            "--horizon", str(TRAIN_HORIZON)], need=MORE_TRAINING)
+        add(counts)
+        expect(math.isfinite(rows[-1]["reward_mean"]), "eval: finite reward_mean")
+        log("cli", f"eval --policy at config-5 width, horizon {TRAIN_HORIZON}: {sec:.3f} s; "
+            f"{json.dumps(rows[-1])}")
+        rows, counts, _, _ = cli_counted(
+            ["run", "--n", "1024", "--controller", "gravity", "--vision-width", "64", "--policy",
+             path("p.npz"), "--steps", "20", "--log-every", "5"], need=MORE_TRAINING)
+        add(counts)
+        log_run_rate("config 2 under the policy (observe, MLP, dynamics)", rows, card)
+
+        # datagen at BASELINE config 5: 2 shards of 8 steps
+        frames = 16 * TRAIN_ENVS * TRAIN_AGENTS
+        rows, counts, sec, peak = cli_counted(
+            ["datagen", *width5, "--steps", "16", "--horizon", "8", "--out-dir", path("ds")],
+            need=MORE_TRAINING)
+        add(counts)
+        expect([r["obs_shape"] for r in rows] == [[8, TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH + 2]]
+               * 2, "datagen: 2 shards of obs [8, 4096, 256, 66]")
+        env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity",
+                                  vision=VisionConfig(width=TRAIN_WIDTH)))
+        stats, chunks = [], []
+        t0 = time.perf_counter()
+        for _, chunk in dg.collect(env, TRAIN_ENVS, 16, horizon=8, device="cuda", stats=stats):
+            chunks.append(chunk)
+        no_write = time.perf_counter() - t0
+        for row in stats:
+            expect(all(math.isfinite(v) for v in row["compute"] + row["copy"]), "finite timeline")
+        c0, k0, c1 = stats[0]["compute"], stats[0]["copy"], stats[1]["compute"]
+        overlap = min(k0[1], c1[1]) - max(k0[0], c1[0])
+        t0 = time.perf_counter()
+        np.savez(path("timing_shard.npz"), **chunks[0])
+        write_s = time.perf_counter() - t0
+        log("cli", f"datagen at config 5 (4,096 x 256 x 64, 16 steps, 2 shards of "
+            f"{chunks[0]['obs'].nbytes / 1e9:.2f} GB obs): {sec:.3f} s with the shard writes = "
+            f"{frames / sec:.4e} agent-frames/s; without writes {no_write:.3f} s = "
+            f"{frames / no_write:.4e}; a chunk {c0[1] - c0[0]:.3f} ms on the card (chunk 2 "
+            f"{c1[1] - c1[0]:.3f}); chunk 1's copy to pinned host memory {k0[1] - k0[0]:.3f} ms "
+            f"({k0[0]:.3f}-{k0[1]:.3f}) overlaps chunk 2's compute ({c1[0]:.3f}-{c1[1]:.3f}) "
+            f"by {overlap:.3f} ms; a shard's np.savez {write_s:.3f} s; peak device memory "
+            f"{peak:.2f} GiB [{card}]")
+        expect(overlap > 0, "chunk 1's host copy overlaps chunk 2's compute")
+        os.remove(path("timing_shard.npz"))
+
+        # bc on those shards, and its steps/s on one chunk on the card
+        rows, counts, sec, _ = cli_counted(
+            ["bc", "--data", path("ds"), "--agents", str(TRAIN_AGENTS), "--vision-width",
+             str(TRAIN_WIDTH), "--steps", "50", "--batch-size", "4096"])
+        add(counts)
+        expect(math.isfinite(rows[-1]["bc_loss"]), "bc: finite loss")
+        obs = torch.as_tensor(chunks[0]["obs"].reshape(-1, TRAIN_WIDTH + 2), device="cuda")
+        act = torch.as_tensor(chunks[0]["action"].reshape(-1, 2), device="cuda")
+        del chunks
+        ts = bc_lib._bc_state(env, 0, 1e-3, None, torch.device("cuda"))
+        step = bc_lib.make_bc_step(4096)
+        for _ in range(5):
+            ts, loss = step(ts, obs, act)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            ts, loss = step(ts, obs, act)
+        torch.cuda.synchronize()
+        bc_rate = 50 / (time.perf_counter() - t0)
+        log("cli", f"bc --data (2 shards, 16.8 M samples) --steps 50 --batch-size 4096: "
+            f"{sec:.3f} s with the shard load, loss {rows[-1]['bc_loss']:.4f}; {bc_rate:.1f} "
+            f"steps/s on the card [{card}]")
+        del obs, act
+
+        # export at config-5 width, checked, then held against the live step
+        rows, counts, sec, peak = cli_counted(
+            ["export", "--policy", path("p.npz"), *width5, "--out", path("e.pt2"), "--check"],
+            need=MORE_TRAINING)
+        add(counts)
+        expect(rows[-1]["checked"], "export --check")
+        hold_export(env, path("e.pt2"), path("p.npz"), peak, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("cli", f"the CLI surface ran in {time.perf_counter() - t_phase:.2f} s; launches {total}")
+    return total
+
+
+def hold_export(env: VisionEnv, artifact: str, params: str, peak: float, card: str) -> None:
+    """The exported step (its kernels through the custom ops) against the
+    live closed-loop step (VisionEnv.observe, the policy's mean,
+    VisionEnv.dynamics: the direct wrappers) on one spawn at config-5
+    width: bit-equal; then ms per step of both, alternated (live, export,
+    export, live), 20 chained steps each, CUDA events."""
+    from nenbody_tpu_torch.state import SceneState, spawn_batch
+    from nenbody_tpu_torch.utils import export as export_lib
+
+    step = export_lib.load_policy_step(artifact)
+    policy = cli._load_policy(env, params, "mlp", torch.device("cuda"))
+
+    @torch.no_grad()
+    def live(pos, vel):
+        state = SceneState(pos=pos, vel=vel,
+                           t=torch.zeros(pos.shape[:-2], dtype=torch.int32, device=pos.device))
+        action, _ = policy(env.observe(state))
+        nxt = env.dynamics(state, action)
+        return nxt.pos, nxt.vel, action
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s = spawn_batch(env.cfg, gen, TRAIN_ENVS, "cuda")
+    common.reset_launch_counts()
+    got = step(s.pos, s.vel)
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    expect(counts["gravity"] == 1 and counts["disc_eye"] == 1,
+           f"one exported step launches gravity and the disc eye once each, got {counts}")
+    want = live(s.pos, s.vel)
+    for name, g, w in zip(("pos", "vel", "action"), got, want):
+        expect(torch.equal(g, w), f"the exported step's {name} equals the live step's bit for bit")
+
+    def chained(fn):
+        pos, vel = s.pos, s.vel
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            pos, vel, _ = fn(pos, vel)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 20
+
+    chained(live)
+    chained(step)
+    live_a, exp_a, exp_b, live_b = chained(live), chained(step), chained(step), chained(live)
+    log("cli", f"export at config-5 width: the .pt2 step equals the live step bit for bit; "
+        f"{exp_a:.4f}, {exp_b:.4f} ms per step against the live step's {live_a:.4f}, {live_b:.4f} "
+        f"(20 chained steps, CUDA events); export --check peak device memory {peak:.2f} GiB "
+        f"[{card}]")
 
 
 def wf_cfg(cfg: SimConfig, antialias: bool | None = None) -> SimConfig:
@@ -2656,13 +2936,14 @@ def main() -> None:
     phase_apg_routes()
     runs, training = phase_train()
     more_runs, more_training = phase_more_trainers()
+    cli_counts = phase_cli_surface(smi)
     wf_runs, wf_training = phase_wireframe_train()
     ring_counts, ring_runs = phase_ring(smi)
     rdma_counts = phase_rdma(errors, smi, rdma_mesh(1))
     with torch.no_grad():
         phase_appearance_kernels(errors, gen)
     appearance_counts = phase_appearance(errors, smi)
-    paths += [training, more_training, wf_training, ring_counts, rdma_counts,
+    paths += [training, more_training, cli_counts, wf_training, ring_counts, rdma_counts,
               appearance_counts]
     with torch.no_grad():
         times, shapes = phase_kernel_times(gen, smi)

@@ -6,7 +6,9 @@ paths are the JAX package's: serving (seeded spawn -> a physics step,
 all-pairs gravity or boids -> the per-agent 1D disc eye -> the shared MLP
 policy, for one env or a batch of envs) and training (REINFORCE, its
 recurrent form, actor-critic, PPO, ES and APG, rl.*, `python -m
-nenbody_tpu_torch train`), on hand-written
+nenbody_tpu_torch train`), with checkpoints, datagen, behaviour cloning and
+a `torch.export` serving artifact (utils.*, rl.datagen, rl.bc, and the
+commands `run`, `eval`, `datagen`, `bc`, `export`), on hand-written
 CUDA kernels (nenbody_tpu_torch/csrc, built with nvcc at first use) that
 replace the Pallas kernels of the JAX package, the backward kernels of
 gravity and the eye included; on CPU tensors each kernel's plain PyTorch
@@ -24,6 +26,7 @@ from .config import (
     SimConfig,
     VisionConfig,
 )
+from .ops import library as _library  # registers the kernels' custom ops (utils/export.py)
 from .scene import Scene, make_observe_fn, make_step_fn
 from .state import SceneState, heading, model_matrices, spawn, spawn_batch
 

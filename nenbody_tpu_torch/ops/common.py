@@ -156,16 +156,21 @@ def _build(sources, out: Path) -> str:
     return report
 
 
+def library_path() -> Path:
+    """Where the library of these sources and flags is (or will be) built."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
+        digest.update(src.name.encode() + src.read_bytes())
+    return BUILD_DIR / f"libnenbody_kernels_{digest.hexdigest()[:16]}.so"
+
+
 def kernel_library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
             sources = sorted(CSRC.glob("*.cu"))
-            digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-            for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
-                digest.update(src.name.encode() + src.read_bytes())
-            out = BUILD_DIR / f"libnenbody_kernels_{digest.hexdigest()[:16]}.so"
+            out = library_path()
             t0 = time.perf_counter()
             if out.exists():
                 report = out.with_suffix(".log").read_text()

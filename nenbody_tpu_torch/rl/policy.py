@@ -2,7 +2,8 @@
 (counterpart of nenbody_tpu/rl/policy.py): the Gaussian MLPPolicy, the 1D
 ConvPolicy and the recurrent GRUPolicy, the per-agent ValueMLP and the
 pooled CentralValueMLP, sample_action and gaussian_log_prob, and
-state_dict_from_flax, which carries flax params of every family across.
+state_dict_from_flax and its inverse flax_from_state_dict, which carry
+params of every family across between the packages.
 
 One weight set is shared by all agents: the per-agent forward is a batched
 matmul over the agent axis. Actions are 2D control accelerations with a
@@ -344,6 +345,37 @@ def state_dict_from_flax(module: nn.Module, params) -> Dict[str, torch.Tensor]:
     if "log_std" in p:
         out["log_std"] = _tensor(p["log_std"])
     return out
+
+
+def flax_from_state_dict(module: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of state_dict_from_flax: `module`'s weights as the flax
+    params tree of the JAX family, {'params': {...}} with float32 numpy
+    leaves (the i-th nn.Linear as 'Dense_i' with kernel [in, out], the i-th
+    nn.Conv1d as 'Conv_i' with kernel [k, in, out], the GRU cell as
+    'GRUCell_0' with its six gate blocks, 'log_std'). Saved with
+    utils.checkpoint.save_pytree it is the file the JAX `train --save`
+    writes, so a policy crosses between the packages both ways."""
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy().copy()
+
+    p = {}
+    for kind, cls, turn in (("Dense", nn.Linear, lambda w: w.T),
+                            ("Conv", nn.Conv1d, lambda w: w.permute(2, 1, 0))):
+        layers = [m for m in module.modules() if isinstance(m, cls)]
+        for i, layer in enumerate(layers):
+            p[f"{kind}_{i}"] = {"kernel": arr(turn(layer.weight)), "bias": arr(layer.bias)}
+    cells = [m for m in module.modules() if isinstance(m, nn.GRUCell)]
+    for i, cell in enumerate(cells):
+        w_i, w_h = cell.weight_ih.T.chunk(3, dim=1), cell.weight_hh.T.chunk(3, dim=1)
+        b_i, b_h = cell.bias_ih.chunk(3), cell.bias_hh.chunk(3)
+        g = {k: {"kernel": arr(w), "bias": arr(b)} for k, w, b in zip(("ir", "iz", "in"), w_i, b_i)}
+        g.update({k: {"kernel": arr(w)} for k, w in zip(("hr", "hz"), w_h[:2])})
+        g["hn"] = {"kernel": arr(w_h[2]), "bias": arr(b_h[2])}
+        p[f"GRUCell_{i}"] = g
+    if isinstance(getattr(module, "log_std", None), torch.Tensor):
+        p["log_std"] = arr(module.log_std)
+    return {"params": p}
 
 
 def sample_gaussian(mean: torch.Tensor, log_std: torch.Tensor,

@@ -1304,3 +1304,33 @@ def test_wireframe_eye_bwd_appearance_in_runs(cuda, form, tex, aa):
     albedo, texture = _appearance(form, tex, (2,), 200, cuda)
     cfg = VisionConfig(width=128, antialias=aa, sprite_mode="wireframe")
     _hold_pullback("wireframe", pos, dirs, pos, dirs, cfg, albedo, texture)
+
+
+@pytest.mark.parametrize("sprite_mode", ["disc", "wireframe"])
+def test_exported_step_equals_the_live_step(cuda, sprite_mode):
+    """The `.pt2` program (utils/export.py) on the card at config 2 (N=1,024,
+    64 px), its kernels launched through the custom ops (ops/library.py),
+    against the live closed-loop step through the wrappers directly: bit
+    for bit, one launch of gravity and of the eye per step."""
+    from nenbody_tpu_torch.rl.env import VisionEnv
+    from nenbody_tpu_torch.rl.policy import init_mlp_policy
+    from nenbody_tpu_torch.state import SceneState, spawn
+    from nenbody_tpu_torch.utils import export as export_lib
+
+    env = VisionEnv(SimConfig(n=1024, controller="gravity",
+                              vision=VisionConfig(width=64, sprite_mode=sprite_mode)))
+    policy = init_mlp_policy(env.obs_width, 0).to(cuda)
+    step = export_lib.load_policy_step(export_lib.export_policy_step(env, policy))
+    st = spawn(env.cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    eye = "wireframe_eye" if sprite_mode == "wireframe" else "disc_eye"
+    common.reset_launch_counts()
+    got = step(st.pos, st.vel)
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    assert counts["gravity"] == 1 and counts[eye] == 1
+    with torch.no_grad():
+        state = SceneState(pos=st.pos, vel=st.vel, t=st.t)
+        action, _ = policy(env.observe(state))
+        nxt = env.dynamics(state, action)
+    for g, w in zip(got, (nxt.pos, nxt.vel, action)):
+        assert torch.equal(g, w)

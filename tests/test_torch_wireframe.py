@@ -17,6 +17,7 @@ near-tie allowance; tests/test_wireframe_kernel.py:491-496 allows the same).
 import dataclasses
 import inspect
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -34,8 +35,10 @@ from nenbody_tpu.vision import render as jrender
 from nenbody_tpu_torch import Scene, SceneState, SimConfig, VisionConfig, cli
 from nenbody_tpu_torch import state as tstate
 from nenbody_tpu_torch.ops import common, wireframe
-from nenbody_tpu_torch.rl import ac, apg, es, ppo, train
+from nenbody_tpu_torch.rl import ac, apg, bc, datagen, es, ppo, train
 from nenbody_tpu_torch.rl.env import VisionEnv
+from nenbody_tpu_torch.utils import checkpoint as tcheckpoint
+from nenbody_tpu_torch.utils import export as texport
 from nenbody_tpu_torch.vision import camera, render
 
 torch.set_num_threads(1)
@@ -237,10 +240,29 @@ def test_scene_observe_wireframe_matches_jax(backend):
     assert traj["obs"].shape == (2, 2, 40, 64) and torch.isfinite(traj["obs"]).all()
 
 
+def _written(suffix: str, write) -> str:
+    """A temporary file filled by write(path) (the entry points that read one)."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=suffix)
+    os.close(fd)
+    write(path)
+    return path
+
+
+def _two_frames(path: str) -> None:
+    """A .nentraj recording of 8 agents at t = 0, 1."""
+    with open(path, "wb") as f:
+        f.write(b"NENTRJ01" + np.array([8, 2], np.uint32).tobytes())
+        for t in range(2):
+            f.write(np.int64(t).tobytes() + np.zeros(32, np.float32).tobytes())
+
+
 def _entry_points():
     cfg = SimConfig(n=8, controller="gravity", vision=VisionConfig(width=8))
     env = VisionEnv(cfg)
     gen = torch.Generator()
+    data = {"obs": np.zeros((1, 1, 8, 10), np.float32), "action": np.zeros((1, 1, 8, 2), np.float32)}
     return {
         "Scene": (Scene, lambda: Scene(cfg)),
         "spawn": (tstate.spawn, lambda: tstate.spawn(cfg, gen)),
@@ -252,12 +274,26 @@ def _entry_points():
         "init_es_state": (es.init_es_state, lambda: es.init_es_state(env)),
         "init_recurrent_train_state": (train.init_recurrent_train_state,
                                        lambda: train.init_recurrent_train_state(env, 2)),
+        "collect": (datagen.collect, lambda: next(datagen.collect(env, 2, 1, horizon=1))),
+        "fit": (bc.fit, lambda: bc.fit(env, data, steps=1)),
+        "distill": (bc.distill, lambda: bc.distill(env, lambda obs: obs[..., :2], iters=1,
+                                                   num_envs=2, horizon=1)),
+        "fit_streaming": (bc.fit_streaming,
+                          lambda: bc.fit_streaming(env, total_steps=1, num_envs=2, horizon=1)),
+        "dataset_from_trajectory": (bc.dataset_from_trajectory, lambda: bc.dataset_from_trajectory(
+            _written(".nentraj", _two_frames), env)),
+        "load_state": (tcheckpoint.load_state, lambda: tcheckpoint.load_state(_written(
+            ".npz", lambda p: np.savez(p, pos=np.zeros((8, 2), np.float32),
+                                       vel=np.zeros((8, 2), np.float32), t=np.int32(0))))),
+        "export_sim_step": (texport.export_sim_step, lambda: texport.export_sim_step(cfg)),
     }
 
 
 @pytest.mark.parametrize("name", ["Scene", "spawn", "spawn_batch", "init_train_state",
                                   "init_apg_state", "init_ppo_state", "init_ac_state",
-                                  "init_es_state", "init_recurrent_train_state"])
+                                  "init_es_state", "init_recurrent_train_state", "collect", "fit",
+                                  "distill", "fit_streaming", "dataset_from_trajectory",
+                                  "load_state", "export_sim_step"])
 def test_entry_points_default_to_the_card(name):
     """Without a device argument the entry points target cuda; on a
     machine without a GPU they raise and do not fall back to the CPU."""
