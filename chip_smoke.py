@@ -61,6 +61,26 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 config-5 width, its step bit-equal to the live step and
                 timed against it (gravity and disc_eye launched by train,
                 eval, datagen and export).
+     viewer   — the viewer through the CLI and the Scene, each part's launch
+                counts set to 0 just before it and read just after: `gif`
+                at BASELINE config 3 (boids N=4,096, 256 px) and at config
+                2 with --first-person (GIF89a header, frame count, size,
+                delay, loop), ms per config-3 GIF frame (compose, encode);
+                `run --capture 10 --first-person --record` at config 2,
+                each PNG decoded (viz.image.read_png) and equal to the
+                frame composed again from the recorded state, `replay` of
+                the recording; render_eye_view's row (render_eye_row)
+                against the plain render_single_row on the card (disc at
+                config 3, 480 and 512 px, wireframe at reference-100, 1,024
+                px with AA; bare, colors, texture; bit-equal at 512 and
+                1,024 without a texture), one launch of the eye kernel a
+                channel; the call's time against its kernel's; run_live's
+                whole loop at config 2 under a pyplot stub (StubPlt).
+     cells    — Scene(backend="cells") at config 3 and at N=65,536, the
+                capacity sized by cells_stats, each step from a shared
+                state within RING_BOIDS_BOUND of backend="pallas"
+                (boids.cu); the step's time against boids.cu's and its
+                peak memory; its observe launches the disc eye.
      wireframe —the exact wireframe eye's paths, each with its launch
                 counts read before and after: Scene rollouts with
                 sprite_mode='wireframe' at config 2 and reference-100, then
@@ -177,6 +197,8 @@ from nenbody_tpu_torch.physics import dense
 from nenbody_tpu_torch.rl import apg, train
 from nenbody_tpu_torch.rl.env import VisionEnv
 from nenbody_tpu_torch.vision import camera, render
+from nenbody_tpu_torch.viz import image, live
+from nenbody_tpu_torch.viz import viewer as viewer_lib
 
 KERNEL_INFO = {
     "gravity": dict(source="nenbody_tpu_torch/csrc/gravity.cu",
@@ -322,6 +344,18 @@ TEX_SAMPLE_OPS, ALBEDO_OPS = 20, 1
 # tests on the winner's uv)
 FORMS = ("albedo", "texture", "albedo+texture")
 TEX_RTOL, TEX_ATOL = 1e-5, 3e-4
+# the viewer phase: the first-person viewport widths of render_eye_view
+# (config 3's disc eye, reference-100's wireframe eye with AA), and the
+# keys run_live's loop takes under the pyplot stub (select, first person
+# on, capture, first person off, quit)
+EYE_VIEW_CASES = [("config 3 disc", "boids-4096", "disc", False, 480),
+                  ("config 3 disc", "boids-4096", "disc", False, 512),
+                  ("reference-100 wireframe", "reference-100", "wireframe", True, 1024)]
+LIVE_KEYS = ("]", "v", "c", "v", "escape")
+# the cells phase: Scene(backend="cells") against backend="pallas" (boids.cu)
+# at config 3 and at N=65,536, steps held from shared states
+CELLS_SHAPES = [("config 3", 4096), ("N=65,536", 65536)]
+CELLS_STEPS = 3
 # the wireframe backward's texture gradient (a sum over every pixel of
 # every env) against its plain version, normalised by its largest texel:
 # the sums run in another (atomic) order
@@ -1113,6 +1147,331 @@ def hold_export(env: VisionEnv, artifact: str, params: str, peak: float, card: s
         f"{exp_a:.4f}, {exp_b:.4f} ms per step against the live step's {live_a:.4f}, {live_b:.4f} "
         f"(20 chained steps, CUDA events); export --check peak device memory {peak:.2f} GiB "
         f"[{card}]")
+
+
+class StubPlt:
+    """A pyplot stand-in for run_live's `_plt` hook: it keeps the shape of
+    every eye-panel image the loop shows (the smoke needs no matplotlib
+    and no display)."""
+
+    def __init__(self):
+        self.eye_shapes = []
+        stub = self
+
+        class Artist:
+            def __init__(self, data, log):
+                self.data, self.log = data, log
+                log.append(data.shape)
+
+            def set_data(self, data):
+                self.data = data
+                self.log.append(data.shape)
+
+            def get_array(self):
+                return self.data
+
+            def remove(self):
+                pass
+
+        class Axis:
+            def __init__(self, log):
+                self.log = log
+
+            def imshow(self, img, **kw):
+                return Artist(img, self.log)
+
+            def set_axis_off(self):
+                pass
+
+            def set_title(self, *a, **kw):
+                pass
+
+        class Canvas:
+            def mpl_connect(self, *a):
+                return 0
+
+            def draw_idle(self):
+                pass
+
+        class Fig:
+            canvas = Canvas()
+
+        self._axes = (Axis([]), Axis(stub.eye_shapes))
+        self._fig = Fig()
+
+    def subplots(self, *a, **kw):
+        return self._fig, self._axes
+
+    def pause(self, *_):
+        pass
+
+    def close(self, *_):
+        pass
+
+
+def counted(total: dict, fn, need=(), label: str = ""):
+    """fn() with the launch counts set to 0 just before it and read just
+    after, added into `total`; each kernel of `need` must have launched."""
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label} never launched {missing}")
+    for k, v in counts.items():
+        total[k] += v
+    return out, counts
+
+
+def eye_view_rows(errors: Errors, label: str, scene: Scene, state, w: int, vcfg: VisionConfig,
+                  colors, texture, kernel: str, total: dict) -> None:
+    """render_eye_row on the card (the eye kernel, one launch a channel)
+    against the plain render_single_row on the card: bit-equal at a
+    power-of-two width without a texture, else within the eye's tolerances
+    (the disc's 1e-5/1e-4 of tests/test_kernels.py, the wireframe's 2e-4,
+    the texture's TEX_RTOL/TEX_ATOL), the hit mask equal."""
+    (shade, depth), counts = counted(
+        total, lambda: scene.render_eye_row(state, 7, w, colors, texture), (kernel,), label)
+    chans = 3 if colors is not None else 1
+    expect(counts[kernel] == chans and sum(counts.values()) == chans,
+           f"{label}: {chans} launch(es) of {kernel} and nothing else, got {counts}")
+    wcfg = dataclasses.replace(vcfg, width=w)
+    plain = []
+    for c in range(chans):
+        ccfg = (dataclasses.replace(wcfg, background=render.BACKGROUND_RGB[c])
+                if colors is not None else wcfg)
+        s, d = render.render_single_row(state.pos, state.vel, 7, ccfg,
+                                        None if colors is None else colors[:, c].contiguous(),
+                                        texture)
+        plain.append(s)
+    want_s = torch.stack(plain, -1) if colors is not None else plain[0]
+    exact = w & (w - 1) == 0 and texture is None
+    if texture is not None:
+        tol = (TEX_RTOL, TEX_ATOL)
+    else:
+        tol = (1e-5, 2e-4 if kernel == "wireframe_eye" else 1e-5)
+    depth_tol = (1e-5, 2e-4 if kernel == "wireframe_eye" else 1e-4)
+    errors.check(kernel, label + " depth", depth, d, *((0, 0) if exact else depth_tol))
+    errors.check(kernel, label + " shade", shade, want_s, *((0, 0) if exact else tol))
+    flips = int(((depth < wcfg.far) != (d < wcfg.far)).sum())
+    log("viewer", f"{label}: hit pixels {int((d < wcfg.far).sum())} of {w}, flipped {flips} "
+        f"(bound 0){', bit-equal required' if exact else ''}")
+    expect(flips == 0, f"{label}: no pixel flips between hit and miss")
+
+
+def phase_viewer(errors: Errors, card: str) -> dict:
+    """The viewer through the user's entry points on the card, each part
+    with its launch counts set to 0 just before it and read just after:
+    `gif` at config 3 (boids N=4,096, 256-pixel eye) and at config 2 with
+    --first-person; `run --capture 10 --first-person --record` at config 2
+    (each PNG decoded by viz.image.read_png and held equal to the frame
+    Viewer.compose makes again from the recorded state) and `replay` of
+    that recording; render_eye_view and its rows (render_eye_row) against
+    the plain render_single_row on the card (EYE_VIEW_CASES, with and
+    without colors and texture); run_live's whole loop under StubPlt.
+    Files go to build/chip_smoke_viewer, deleted afterwards. Returns the
+    summed launch counts."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from nenbody_tpu_torch.state import SceneState
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_viewer")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = lambda name: os.path.join(root, name)  # noqa: E731
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    t_phase = time.perf_counter()
+    try:
+        # gif at config 3 and at config 2 with the first-person panel
+        for label, argv, need, size in (
+            ("config 3 (boids N=4,096, W=256)", ["--preset", "boids-4096"],
+             ("boids", "disc_eye"), (480, 270 + 4 + 48)),
+            ("config 2 --first-person (gravity N=1,024, W=64)",
+             ["--preset", "gravity-vision-1024", "--first-person"], ("gravity", "disc_eye"),
+             (480, 270 + 4 + 96 + 48)),
+        ):
+            out = path("g.gif")
+            _, counts, sec, _ = cli_counted(["gif", *argv, "--steps", "16", "--stride", "4",
+                                             "--out", out], need=need, rows=False)
+            for k in total:
+                total[k] += counts[k]
+            info = image.gif_info(out)
+            with open(out, "rb") as f:
+                head = f.read(6)
+            expect(head == b"GIF89a" and info["frames"] == 4 and info["loop"] == 0
+                   and (info["width"], info["height"]) == size
+                   and info["delays_ms"] == [40.0] * 4, f"gif {label}: {info}")
+            log("viewer", f"gif {label}: 4 frames {size[0]} x {size[1]}, {sec:.3f} s "
+                f"({1e3 * sec / 4:.2f} ms a frame, stride 4, kernel build excluded: the "
+                f"library is built); launches {counts} [{card}]")
+
+        # the parts of a config-3 GIF frame: compose (with its host copies)
+        # and the GIF encoding, host ms each
+        scene = Scene(PRESETS["boids-4096"](), device="cuda")
+        state = scene.spawn(0)
+        v = viewer_lib.Viewer(out_dir=path("unused"), size=(270, 480), use_native=False,
+                              follow="centroid")
+        frames, t_compose = [], []
+        for _ in range(8):
+            state, _ = scene.rollout(state, 4)
+            obs = scene.observe(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames.append(v.compose(state, obs))
+            t_compose.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        data = image.gif_bytes(frames, 40.0)
+        t_gif = time.perf_counter() - t0
+        log("viewer", f"config 3 GIF frame (270 x 480 + strip): compose {1e3 * min(t_compose):.2f}"
+            f"-{1e3 * max(t_compose):.2f} ms (median {1e3 * sorted(t_compose)[4]:.2f}), GIF "
+            f"encoding {1e3 * t_gif / 8:.2f} ms a frame ({len(data) / 8 / 1e3:.1f} kB a frame) "
+            f"[{card}]")
+
+        # run --capture --first-person --record at config 2, then replay
+        cfg2 = PRESETS["gravity-vision-1024"]()
+        rows, counts, sec, _ = cli_counted(
+            ["run", "--preset", "gravity-vision-1024", "--steps", "40", "--log-every", "10",
+             "--capture", "10", "--first-person", "--out-dir", path("frames"), "--record",
+             path("r.nentraj")], need=("gravity", "disc_eye"))
+        for k in total:
+            total[k] += counts[k]
+        expect(rows[-1]["t"] == 40, "run --capture: t 40")
+        from nenbody_tpu_torch.utils import native
+
+        ts, pos, vel = native.read_trajectory(path("r.nentraj"))
+        names = sorted(os.listdir(path("frames")))
+        expect(list(ts) == [10, 20, 30, 40] and names == [f"frame_{i:06d}.png" for i in range(4)],
+               f"4 recorded frames and 4 PNGs, got {list(ts)}, {names}")
+        fp_scene = Scene(cfg2, device="cuda")
+        again = viewer_lib.Viewer(out_dir=path("unused"), first_person=True, scene=fp_scene,
+                                  use_native=False)
+        for i, name in enumerate(names):
+            got = image.read_png(path(f"frames/{name}"))
+            st = SceneState(pos=torch.as_tensor(pos[i], device="cuda"),
+                            vel=torch.as_tensor(vel[i], device="cuda"),
+                            t=torch.tensor(int(ts[i]), dtype=torch.int32, device="cuda"))
+            want = again.compose(st, fp_scene.observe(st))
+            expect(got.shape == want.shape == (540 + 4 + 96 + 48, 960, 3)
+                   and np.array_equal(got, want),
+                   f"{name} decodes to the frame composed from the recorded state")
+        log("viewer", f"run --capture 10 --first-person --record at config 2: {sec:.3f} s; 4 PNGs "
+            f"688 x 960 decode (viz.image.read_png) to the frames composed again from the "
+            f"recording, byte for byte; launches {counts} [{card}]")
+        _, counts, sec, _ = cli_counted(["replay", path("r.nentraj"), "--out", path("rp.gif")],
+                                        rows=False)
+        info = image.gif_info(path("rp.gif"))
+        expect(info["frames"] == 4 and (info["width"], info["height"]) == (480, 270)
+               and sum(counts.values()) == 0, f"replay: {info}, launches {counts}")
+        log("viewer", f"replay of the recording: 4 frames 480 x 270 in {sec:.3f} s, no launch")
+
+        # render_eye_view on the card against the plain render_single_row
+        for label, preset, sprite, aa, w in EYE_VIEW_CASES:
+            cfg = PRESETS[preset]()
+            cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+                cfg.vision, sprite_mode=sprite, antialias=aa))
+            scene = Scene(cfg, device="cuda")
+            st, _ = scene.rollout(scene.spawn(1), 3)
+            kernel = "wireframe_eye" if sprite == "wireframe" else "disc_eye"
+            forms = (("bare", None, None),
+                     ("colors", render.default_agent_colors(cfg.n, "cuda"), None),
+                     ("texture", None, render.checker_texture(32, 4, device="cuda")))
+            for form, colors, tex in forms:
+                name = f"render_eye_view {label} W={w} aa={aa} {form}"
+                eye_view_rows(errors, name, scene, st, w, cfg.vision, colors, tex, kernel, total)
+                img, counts = counted(total, lambda: scene.render_eye_view(
+                    st, 7, size=(96, w), colors=colors, texture=tex), (kernel,), name)
+                expect(img.shape == (96, w, 3) and img.dtype == np.uint8, f"{name}: image")
+            one = slice(7, 8)
+            dirs = camera.unit_heading(st.vel)
+            wcfg = dataclasses.replace(cfg.vision, width=w)
+            if sprite == "wireframe":
+                row = lambda: wireframe.wireframe_eye(st.pos[one], dirs[one], st.pos, dirs, wcfg)
+            else:
+                row = lambda: raycast.disc_eye(st.pos[one], dirs[one], st.pos, wcfg)
+            k_ms = graph_ms(row, 20)
+            call_ms = cuda_ms(lambda: scene.render_eye_view(st, 7, size=(96, w)), 10)
+            log("viewer", f"render_eye_view {label} W={w}: {call_ms:.4f} ms a call (96 x {w} "
+                f"frame, host copy and compose included), its {kernel} launch {k_ms:.4f} ms on "
+                f"the card (graph_ms) [{card}]")
+
+        # run_live's whole loop on the kernels under the pyplot stub
+        scene = Scene(cfg2, device="cuda")
+        plt = StubPlt()
+        out, counts = counted(total, lambda: live.run_live(
+            scene, scene.spawn(0), steps_per_frame=10, capture_dir=path("live"), max_frames=20,
+            _plt=plt, _key_source=iter(LIVE_KEYS)), ("gravity", "disc_eye"), "run_live")
+        captured = sorted(os.listdir(path("live")))
+        expect(int(out.t) == 50 and captured == ["frame_000000.png"]
+               and plt.eye_shapes == [(24, 64, 3), (96, 480, 3), (96, 480, 3), (24, 64, 3),
+                                      (24, 64, 3)],
+               f"run_live: t {int(out.t)}, captures {captured}, eye panels {plt.eye_shapes}")
+        log("viewer", f"run_live at config 2 under the stub: 5 frames (select, first person on, "
+            f"capture, off, quit), t 50, 1 capture; launches {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("viewer", f"the viewer ran in {time.perf_counter() - t_phase:.2f} s; launches {total}")
+    return total
+
+
+def phase_cells(card: str) -> dict:
+    """Scene(backend="cells") on the card at config 3 and at N=65,536
+    (CELLS_SHAPES): the capacity from cells_stats over the states held
+    (the largest bucket, so the rules are exact), each of CELLS_STEPS steps
+    from a state of the backend="pallas" (boids.cu) rollout held against
+    that rollout's next state within RING_BOIDS_BOUND (err / max|pallas|),
+    then one step of each timed (CUDA events, alternated) with the cells
+    step's peak device memory; and the cells scene's observe, which must
+    launch the disc eye. Returns the launch counts of the cells calls."""
+    from nenbody_tpu_torch.physics import cells
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    t_phase = time.perf_counter()
+    for label, n in CELLS_SHAPES:
+        cfg = dataclasses.replace(PRESETS["boids-4096"](), n=n, backend="pallas")
+        kernel = Scene(cfg, device="cuda")
+        states = [kernel.spawn(0)]
+        for _ in range(CELLS_STEPS):
+            states.append(kernel.step(states[-1]))
+        r = math.sqrt(cfg.boids.cohesion_dist_sq)
+        stats = [cells.cells_stats(s.pos, r) for s in states]
+        cap = max(s["max_occupancy"] for s in stats)
+        ccfg = dataclasses.replace(cfg, backend="cells",
+                                   boids=dataclasses.replace(cfg.boids, cells_capacity=cap))
+        scene = Scene(ccfg, device="cuda")
+        for i, (s, want) in enumerate(zip(states[:-1], states[1:])):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got, counts = counted(total, lambda: scene.step(s), label=f"cells {label}")
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            expect(sum(counts.values()) == 0, f"cells {label}: the cell list launches nothing")
+            errs = []
+            for k in ("pos", "vel"):
+                a, b = getattr(got, k).double(), getattr(want, k).double()
+                errs.append(((a - b).abs().max() / b.abs().max()).item())
+                expect(bool(torch.isfinite(a).all()) and errs[-1] < RING_BOIDS_BOUND,
+                       f"cells {label} step {i + 1} {k}: err/max|boids.cu| {errs[-1]:.3e} "
+                       f"within {RING_BOIDS_BOUND:.0e}")
+        _, counts = counted(total, lambda: scene.observe(states[-1]), ("disc_eye",),
+                            f"cells {label} observe")
+        p_ms, c_ms = alternate(lambda: kernel.step(states[0]), lambda: scene.step(states[0]),
+                               20 if n <= 4096 else 5, 10 if n <= 4096 else 2)
+        log("cells", f"{label}: capacity {cap} (cells_stats max occupancy over {len(states)} "
+            f"states; table {stats[0]['table_size']}, mean occupancy "
+            f"{stats[0]['mean_occupancy']:.1f}, {stats[0]['used_buckets']} buckets used), "
+            f"{CELLS_STEPS} steps within {RING_BOIDS_BOUND:.0e} of boids.cu (last err/max "
+            f"{max(errs):.3e}); a step {c_ms:.4f} ms against the boids.cu step {p_ms:.4f} "
+            f"({c_ms / p_ms:.1f}x); the cells step's peak device memory {peak:.2f} GiB above "
+            f"its inputs (agent chunks of {max(1, cells.CELLS_PAIR_BUDGET // (9 * cap))}) "
+            f"[{card}]")
+    log("cells", f"the cells backend ran in {time.perf_counter() - t_phase:.2f} s; launches "
+        f"{total}")
+    return total
 
 
 def wf_cfg(cfg: SimConfig, antialias: bool | None = None) -> SimConfig:
@@ -2937,14 +3296,17 @@ def main() -> None:
     runs, training = phase_train()
     more_runs, more_training = phase_more_trainers()
     cli_counts = phase_cli_surface(smi)
+    with torch.no_grad():
+        viewer_counts = phase_viewer(errors, smi)
+        cells_counts = phase_cells(smi)
     wf_runs, wf_training = phase_wireframe_train()
     ring_counts, ring_runs = phase_ring(smi)
     rdma_counts = phase_rdma(errors, smi, rdma_mesh(1))
     with torch.no_grad():
         phase_appearance_kernels(errors, gen)
     appearance_counts = phase_appearance(errors, smi)
-    paths += [training, more_training, cli_counts, wf_training, ring_counts, rdma_counts,
-              appearance_counts]
+    paths += [training, more_training, cli_counts, viewer_counts, cells_counts, wf_training,
+              ring_counts, rdma_counts, appearance_counts]
     with torch.no_grad():
         times, shapes = phase_kernel_times(gen, smi)
         log_wireframe_culls(gen, smi)

@@ -8,7 +8,10 @@ policy, for one env or a batch of envs) and training (REINFORCE, its
 recurrent form, actor-critic, PPO, ES and APG, rl.*, `python -m
 nenbody_tpu_torch train`), with checkpoints, datagen, behaviour cloning and
 a `torch.export` serving artifact (utils.*, rl.datagen, rl.bc, and the
-commands `run`, `eval`, `datagen`, `bc`, `export`), on hand-written
+commands `run`, `eval`, `datagen`, `bc`, `export`), the viewer (viz.*,
+Scene.render_frame and render_eye_view, the commands `gif`, `live`,
+`replay` and `run --capture`) and the cell-list boids backend
+(physics.cells, backend="cells"), on hand-written
 CUDA kernels (nenbody_tpu_torch/csrc, built with nvcc at first use) that
 replace the Pallas kernels of the JAX package, the backward kernels of
 gravity and the eye included; on CPU tensors each kernel's plain PyTorch

@@ -4,6 +4,8 @@
     python -m nenbody_tpu_torch run --n 4096 --checkpoint-dir out/ck --checkpoint-every 500
     python -m nenbody_tpu_torch run --resume out/ck/state_000002000.npz --steps 500
     python -m nenbody_tpu_torch run --n 1024 --controller gravity --vision-width 64 --policy pol.npz
+    python -m nenbody_tpu_torch run --preset gravity-vision-1024 --capture 100 --first-person
+    python -m nenbody_tpu_torch run --preset boids-4096 --backend cells --steps 200
     python -m nenbody_tpu_torch train --algo apg --envs 64 --agents 64 --iters 10 --save pol.npz
     python -m nenbody_tpu_torch train --checkpoint ts.npz --checkpoint-every 50
     python -m nenbody_tpu_torch train --resume ts.npz --iters 10
@@ -11,6 +13,10 @@
     python -m nenbody_tpu_torch eval --policy pol.npz      # deterministic metrics
     python -m nenbody_tpu_torch datagen --out-dir out/ds && python -m nenbody_tpu_torch bc --data out/ds
     python -m nenbody_tpu_torch export --policy pol.npz --out step.pt2 --check
+    python -m nenbody_tpu_torch gif --preset gravity-vision-1024 --steps 400 --first-person
+    python -m nenbody_tpu_torch gif --n 64 --vision-width 32 --policy pol.npz
+    python -m nenbody_tpu_torch replay out/run.nentraj --out out/replay.gif
+    python -m nenbody_tpu_torch live --preset boids-4096     # needs matplotlib and a display
     python -m nenbody_tpu_torch info
 
 Each command runs on the card by default (`--device cuda`, with no
@@ -32,13 +38,17 @@ ending when its metrics reach the host) and `agent_frames` (envs x agents x
 horizon, times 2 x population for es). `--mesh` (DATAxAGENTS, -1 for the
 rest, or auto) runs the sim on a mesh of the visible CUDA devices
 (rl/train.py). `export` writes a torch.export program (`.pt2`;
-utils/export.py).
+utils/export.py). `run --capture K` writes a PNG every K steps (viz.viewer;
+`--first-person` adds the selected eye's viewport, rendered by the eye
+kernel), `gif` a rollout GIF and `replay` a GIF of a `.nentraj` recording,
+with the port's own PNG and GIF writers (viz.image), so no Pillow or
+imageio is needed; `replay` reads a file and composes on the host, so it
+takes no --device. `live` needs matplotlib and an interactive backend, and
+without them exits 2 with the JAX command's message.
 
-Not ported yet (ROADMAP queue 1): `gif`, `live`, `replay`, `run --capture`
-and `--first-person` (item 18, the viewer), `bench` (item 6),
-`export --mesh` (item 17) and `--backend cells` (item 16). JAX train
-checkpoints are not read: a jax.random key and optax state have no torch
-counterpart.
+Not ported yet (ROADMAP queue 1): `bench` (item 6, the port's benchmark)
+and `export --mesh` (item 17). JAX train checkpoints are not read: a
+jax.random key and optax state have no torch counterpart.
 """
 
 from __future__ import annotations
@@ -278,9 +288,6 @@ def cmd_run(args) -> int:
     from .utils import checkpoint as ck
     from .utils.profiling import StepTimer, device_trace
 
-    if args.capture or args.first_person:
-        return _error("--capture and --first-person need the viewer, which is not "
-                      "ported yet (ROADMAP queue 1 item 18)")
     device = _device(args)
     if isinstance(device, int):
         return device
@@ -304,6 +311,12 @@ def cmd_run(args) -> int:
     else:
         state = scene.spawn(seed=args.seed)
 
+    viewer = None
+    if args.capture:
+        from .viz.viewer import Viewer
+
+        viewer = Viewer(out_dir=args.out_dir, first_person=args.first_person,
+                        scene=scene if args.first_person else None)
     recorder = None
     if args.record:
         from .utils import native
@@ -338,6 +351,8 @@ def cmd_run(args) -> int:
             timer.mark(k)
             t_abs = int(state.t.reshape(-1)[0])
             print(timer.report({"t": t_abs}), flush=True)
+            if viewer is not None and done % args.capture < k:
+                viewer.capture(state, scene.observe(state) if cfg.vision else None)
             # absolute sim time, so recordings from --resume'd runs stay
             # consistent with the checkpoint step counter
             if recorder is not None and not recorder.append(t_abs, pos, state.vel.cpu().numpy()):
@@ -349,6 +364,78 @@ def cmd_run(args) -> int:
         if dropped_frames:
             print(f"warning: recorder queue full, {dropped_frames} frames dropped",
                   file=sys.stderr)
+    if viewer is not None:
+        viewer.flush()
+    return 0
+
+
+def _viewer_scene(args):
+    """(scene, spawned state, advance) of the viewer commands' sim and
+    policy flags, or an int rc on a reported error."""
+    from .scene import Scene
+
+    device = _device(args)
+    if isinstance(device, int):
+        return device
+    try:
+        cfg = _build_cfg(args)
+        scene = Scene(cfg, device=device)
+    except ValueError as e:
+        return _error(str(e))
+    advance = None
+    if args.policy:
+        try:
+            advance = _policy_advance(cfg, args.policy, args.net, device)
+        except (ValueError, FileNotFoundError) as e:
+            return _error(str(e))
+    return scene, scene.spawn(seed=args.seed), advance
+
+
+def cmd_gif(args) -> int:
+    from .viz.viewer import record_rollout_gif
+
+    made = _viewer_scene(args)
+    if isinstance(made, int):
+        return made
+    scene, state, advance = made
+    path = record_rollout_gif(
+        scene, state, num_steps=args.steps, path=args.out, stride=args.stride,
+        first_person=args.first_person, advance=advance,
+    )
+    print(f"wrote {path}")
+    return 0
+
+
+def cmd_live(args) -> int:
+    from .viz import live
+
+    made = _viewer_scene(args)
+    if isinstance(made, int):
+        return made
+    scene, state, advance = made
+    try:
+        live.run_live(scene, state, steps_per_frame=args.steps_per_frame, advance=advance)
+    except live.NoDisplayError as e:
+        return _error(str(e))
+    return 0
+
+
+def cmd_replay(args) -> int:
+    """Re-render a recorded .nentraj trajectory to a GIF: checkpoint/replay
+    closes the loop the reference's never-wired capture path left open."""
+    from .utils import native
+    from .viz import frame as frame_lib
+    from .viz import image
+
+    ts, pos, vel = native.read_trajectory(args.trajectory)
+    frames = []
+    for i in range(0, len(ts), max(1, args.stride)):
+        img = frame_lib.render_topdown(pos[i], vel[i], size=(270, 480),
+                                       half_extent=args.half_extent)
+        frames.append(frame_lib.to_uint8(img))
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    image.write_gif(args.out, frames, duration_ms=1000.0 / args.fps, loop=0)
+    print(f"replayed {len(ts)} frames ({len(frames)} rendered) -> {args.out}")
     return 0
 
 
@@ -669,10 +756,9 @@ def main(argv=None) -> int:
     _add_sim_flags(p)
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--log-every", type=int, default=100)
-    p.add_argument("--capture", type=int, default=0,
-                   help="PNG every K steps (the viewer: not ported yet)")
+    p.add_argument("--capture", type=int, default=0, help="PNG every K steps")
     p.add_argument("--first-person", action="store_true",
-                   help="the selected eye's viewport in captures (not ported yet)")
+                   help="add the selected eye's first-person viewport to captures")
     p.add_argument("--out-dir", default="out/frames")
     p.add_argument("--record", default="", help=".nentraj trajectory path")
     p.add_argument("--checkpoint-dir", default="")
@@ -785,6 +871,30 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("gif", help="record a rollout gif (demo-video analog)")
+    _add_sim_flags(p)
+    p.add_argument("--steps", type=int, default=400)
+    p.add_argument("--stride", type=int, default=4)
+    p.add_argument("--out", default="out/rollout.gif")
+    p.add_argument("--first-person", action="store_true",
+                   help="add the selected eye's first-person viewport panel")
+    _add_policy_flags(p)
+    p.set_defaults(fn=cmd_gif)
+
+    p = sub.add_parser("live", help="interactive viewer (needs matplotlib and a display)")
+    _add_sim_flags(p)
+    p.add_argument("--steps-per-frame", type=int, default=10)
+    _add_policy_flags(p)
+    p.set_defaults(fn=cmd_live)
+
+    p = sub.add_parser("replay", help="re-render a .nentraj recording to GIF")
+    p.add_argument("trajectory", help="path to a .nentraj file")
+    p.add_argument("--out", default="out/replay.gif")
+    p.add_argument("--stride", type=int, default=1)
+    p.add_argument("--fps", type=int, default=25)
+    p.add_argument("--half-extent", type=float, default=120.0)
+    p.set_defaults(fn=cmd_replay)
 
     p = sub.add_parser("info", help="devices, presets, native runtime and kernel library status")
     p.set_defaults(fn=cmd_info)

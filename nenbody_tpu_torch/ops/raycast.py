@@ -216,6 +216,16 @@ def render_rows_tiled(
     return disc_eye(pos, camera.unit_heading(vel), tgt, cfg, albedo, texture)
 
 
+def render_lines(state, cfg: VisionConfig) -> torch.Tensor:
+    """`observe()` through the kernel route: [..., N, W] shade rows."""
+    return render_rows_tiled(state.pos, state.vel, cfg)[0]
+
+
+def render_lines_with_depth(state, cfg: VisionConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(shade, depth) [..., N, W] through the kernel route."""
+    return render_rows_tiled(state.pos, state.vel, cfg)
+
+
 def render_rows_vjp_cross_plain(
     pos: torch.Tensor,
     dirs: torch.Tensor,

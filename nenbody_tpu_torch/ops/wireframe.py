@@ -275,6 +275,16 @@ def render_rows_wireframe_tiled(
                          texture)
 
 
+def render_lines(state, cfg: VisionConfig) -> torch.Tensor:
+    """`observe()` through the wireframe kernel route: [..., N, W] shade rows."""
+    return render_rows_wireframe_tiled(state.pos, state.vel, cfg)[0]
+
+
+def render_lines_with_depth(state, cfg: VisionConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(shade, depth) [..., N, W] through the wireframe kernel route."""
+    return render_rows_wireframe_tiled(state.pos, state.vel, cfg)
+
+
 def render_rows_wireframe_diff(
     pos: torch.Tensor,
     vel: torch.Tensor,

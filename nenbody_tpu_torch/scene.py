@@ -16,8 +16,10 @@ Typical use:
 Routing: backend="dense" always runs the plain PyTorch functions;
 "pallas" runs the hand-written CUDA kernels on CUDA tensors (and their plain
 versions on CPU tensors), the disc eye or the exact wireframe eye by
-`cfg.vision.sprite_mode`; "ring" runs the agent-axis ring over a device mesh
-(parallel/ring.py: physics and both eyes, on the same kernels), "gspmd" its
+`cfg.vision.sprite_mode`; "cells" steps boids on the cell list
+(physics/cells.py, plain PyTorch) and renders on the kernel route; "ring"
+runs the agent-axis ring over a device mesh (parallel/ring.py: physics and
+both eyes, on the same kernels), "gspmd" its
 dense cross-check (parallel/auto.py; its eye renders dense, as in the JAX
 package). "auto" is the ring when more than one CUDA device is visible, else
 "pallas". The ring and gspmd take the `mesh` given to Scene, else
@@ -29,6 +31,7 @@ eagerly, so there is no compiled scan to cache.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
@@ -38,19 +41,10 @@ from .config import SimConfig
 from .physics import dense
 from .state import SceneState, spawn, spawn_batch
 
-_UNPORTED_BACKENDS = {
-    "cells": "ROADMAP queue 1 item 16 (the cell-list boids backend)",
-}
-
 
 def _resolve_backend(cfg: SimConfig) -> str:
-    """'dense' (plain torch), 'pallas' (the kernels), 'ring' or 'gspmd';
-    raise for the backends the port does not have yet."""
-    if cfg.backend in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet: "
-            f"{_UNPORTED_BACKENDS[cfg.backend]}"
-        )
+    """'dense' (plain torch), 'pallas' (the kernels), 'cells', 'ring' or
+    'gspmd'."""
     if cfg.backend == "auto":
         # with several cards, shard the agent axis over the ring (the JAX
         # package does so with several TPU chips)
@@ -69,6 +63,16 @@ def make_step_fn(cfg: SimConfig, mesh=None) -> Callable[..., SceneState]:
         from .ops import tiled
 
         return functools.partial(tiled.STEPPERS[cfg.controller], cfg=cfg)
+    if backend == "cells":
+        from .physics import cells
+
+        if cfg.controller not in cells.STEPPERS:
+            raise ValueError(
+                f"backend='cells' is the radius-limited (boids) fast path; "
+                f"controller {cfg.controller!r} is all-pairs — use dense/"
+                f"pallas/ring"
+            )
+        return functools.partial(cells.STEPPERS[cfg.controller], cfg=cfg)
     if backend == "ring":
         from .parallel import ring as steppers
     else:
@@ -86,7 +90,9 @@ def _render_fn(cfg: SimConfig, mesh=None) -> Callable:
     width; each goes through its autograd Function when grad is enabled and
     an input requires grad, and through the forward-only launch otherwise.
     The ring route is parallel.ring.ring_render_rows over `mesh`, either
-    sprite, on the same kernels."""
+    sprite, on the same kernels. The cells backend has no vision analog
+    (the eye reaches cfg.far, not a small radius), so it renders on the
+    kernel route, as the JAX package borrows its pallas route."""
     vcfg = cfg.vision
     backend = _resolve_backend(cfg)
     if backend in ("dense", "gspmd"):
@@ -199,8 +205,128 @@ class Scene:
         if state.pos.dim() != 2:
             raise ValueError("per-agent colors need an unbatched state")
         colors = torch.as_tensor(colors, dtype=torch.float32, device=state.pos.device)
-        backend = "pallas" if _resolve_backend(self.cfg) == "pallas" else "dense"
+        backend = "pallas" if _resolve_backend(self.cfg) in ("pallas", "cells") else "dense"
         return render.render_rows_rgb(state.pos, state.vel, vcfg, colors, backend=backend)
+
+    # -- visualization --------------------------------------------------------
+
+    def render_frame(
+        self,
+        state: SceneState,
+        selected_eye: int = 0,
+        size=(540, 960),
+        half_extent: float = 120.0,
+        with_obs: bool = True,
+    ):
+        """Host-side RGB uint8 frame: top-down view following agent 0 plus
+        the selected agent's eye strip (the reference's screen contents,
+        src/main.rs:940-998). Copies a snapshot off the device; unbatched
+        states only."""
+        from .viz import frame as frame_lib
+        from .viz.viewer import host
+
+        if state.batch_shape:
+            raise ValueError("render_frame takes an unbatched state")
+        scene_img = frame_lib.render_topdown(
+            host(state.pos),
+            host(state.vel),
+            size=size,
+            half_extent=half_extent,
+            selected=selected_eye,
+        )
+        strip = None
+        if with_obs and self._render is not None:
+            with torch.no_grad():
+                row = host(self.observe(state)[selected_eye])
+            strip = frame_lib.eye_strip(row, width=size[1])
+        return frame_lib.to_uint8(frame_lib.compose(scene_img, strip))
+
+    def render_eye_row(
+        self,
+        state: SceneState,
+        eye: int,
+        width: int,
+        colors: Optional[torch.Tensor] = None,
+        texture: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Agent `eye`'s eye line at `width` pixels against all N targets,
+        (shade [W] (or [W, 3] with `colors` [N, 3]), depth [W]), on the
+        scene's device: the first-person viewport's pixels. One eye through
+        the eye kernel of the scene's sprite mode (ops.raycast.disc_eye or
+        ops.wireframe.wireframe_eye, any width) on CUDA tensors, their plain
+        versions (vision.render.render_single_row's rows) on CPU tensors.
+        With `colors`, three channel renders, each with albedo colors[:, c]
+        against the channel's clear color (render.BACKGROUND_RGB); `texture`
+        [Ht, Wt] samples the skin along the row. The config is the scene's
+        vision (VisionConfig() without one) at `width`. Unbatched states
+        only."""
+        from .config import VisionConfig
+        from .ops import raycast, wireframe
+        from .vision import camera, render
+
+        if state.batch_shape:
+            raise ValueError("render_eye_view/render_eye_row take an unbatched state")
+        if not 0 <= eye < self.cfg.n:
+            raise ValueError(f"eye {eye} out of range [0, {self.cfg.n})")
+        vcfg = dataclasses.replace(self.cfg.vision or VisionConfig(), width=width)
+        pos = state.pos
+        dirs = camera.unit_heading(state.vel)
+        as_f32 = lambda x: (None if x is None else  # noqa: E731
+                            torch.as_tensor(x, dtype=torch.float32, device=pos.device).contiguous())
+        colors, texture = as_f32(colors), as_f32(texture)
+        one = slice(eye, eye + 1)
+
+        def row(cfg, albedo):
+            if cfg.sprite_mode == "wireframe":
+                shade, depth = wireframe.wireframe_eye(pos[one], dirs[one], pos, dirs, cfg,
+                                                       albedo, texture)
+            else:
+                shade, depth = raycast.disc_eye(pos[one], dirs[one], pos, cfg, albedo, texture)
+            return shade[0], depth[0]
+
+        with torch.no_grad():
+            if colors is None:
+                return row(vcfg, None)
+            chans = []
+            for c in range(3):
+                ccfg = dataclasses.replace(vcfg, background=float(render.BACKGROUND_RGB[c]))
+                shade, depth = row(ccfg, colors[:, c].contiguous())
+                chans.append(shade)
+            return torch.stack(chans, dim=-1), depth
+
+    def render_eye_view(
+        self,
+        state: SceneState,
+        eye: int = 0,
+        size=(270, 480),
+        thickness="perspective",
+        colors: Optional[torch.Tensor] = None,
+        texture: Optional[torch.Tensor] = None,
+    ):
+        """First-person viewport: the scene re-rendered from agent `eye`'s
+        perspective camera as an RGB uint8 [H, W, 3] frame, the third
+        render the reference's UI shows (selected-eye re-render into the
+        imgui viewport texture, src/main.rs:979-998). Width follows the
+        viewport (horizontal FOV is preserved on resize, gfx.rs:411-418);
+        the planar scene draws on the horizon (viz.frame.first_person_view:
+        thickness="perspective" extends each hit column by the sprite's
+        apparent size at its depth, an int draws the raw thin-line look).
+        The row comes from render_eye_row (the eye kernel on the card);
+        `colors` [N, 3] gives per-agent appearance, `texture` samples the
+        skin along the viewport row. Unbatched states only."""
+        from .config import VisionConfig
+        from .viz import frame as frame_lib
+        from .viz.viewer import host
+
+        h, w = size
+        shade, depth = self.render_eye_row(state, eye, w, colors, texture)
+        vcfg = self.cfg.vision or VisionConfig()
+        img = frame_lib.first_person_view(
+            host(shade), host(depth), size=size, far=vcfg.far,
+            sprite_albedo=vcfg.sprite_albedo, thickness=thickness,
+            sprite_radius=vcfg.sprite_radius, hfov_deg=vcfg.hfov_deg,
+        )
+        return frame_lib.to_uint8(img)
 
     # -- rollouts ------------------------------------------------------------
 

@@ -184,13 +184,10 @@ def test_record_frames_cross_between_the_packages(tmp_path, jax_recorder_on_the_
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--capture", "5"], "ROADMAP queue 1 item 18"),
-    (["--first-person"], "ROADMAP queue 1 item 18"),
     (["--resume", "no/such/file.npz"], "checkpoint not found"),
-    (["--backend", "cells"], "item 16"),
     (["--policy", "no/such/params.npz", "--vision-width", "8"], "policy params not found"),
     (["--policy", "x.npz"], "--policy needs vision"),
-], ids=["capture", "first-person", "missing-resume", "cells", "missing-policy", "no-vision"])
+], ids=["missing-resume", "missing-policy", "no-vision"])
 def test_run_refusals(tmp_path, capsys, argv, message):
     if argv[-1] == "x.npz":
         argv = argv[:-1] + [jck.save_pytree(str(tmp_path / "x.npz"), {"a": jnp.zeros(1)})]

@@ -1334,3 +1334,77 @@ def test_exported_step_equals_the_live_step(cuda, sprite_mode):
         nxt = env.dynamics(state, action)
     for g, w in zip(got, (nxt.pos, nxt.vel, action)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("sprite,w,aa", [("disc", 512, False), ("disc", 480, True),
+                                         ("wireframe", 1024, True), ("wireframe", 480, False)])
+@pytest.mark.parametrize("form", ["bare", "colors", "texture"])
+def test_render_eye_view_launches_the_eye_kernel(cuda, sprite, w, aa, form):
+    """Scene.render_eye_row/render_eye_view on the card: one launch of the
+    sprite's eye kernel a channel, against the plain render_single_row on
+    the card: equal at a power-of-two width, else within the eye's
+    tolerances (ROADMAP queue 3, pixel centres on the card), hits equal."""
+    n = 300
+    cfg = SimConfig(n=n, controller="gravity",
+                    vision=VisionConfig(width=64, sprite_mode=sprite, antialias=aa))
+    scene = Scene(cfg, device=cuda)
+    st = scene.spawn(seed=3)
+    colors = render.default_agent_colors(n, cuda) if form == "colors" else None
+    texture = render.checker_texture(16, 4, device=cuda) if form == "texture" else None
+    common.reset_launch_counts()
+    shade, depth = scene.render_eye_row(st, 7, w, colors, texture)
+    kernel = "wireframe_eye" if sprite == "wireframe" else "disc_eye"
+    counts = common.launch_counts()
+    assert counts[kernel] == (3 if form == "colors" else 1)
+    assert sum(counts.values()) == counts[kernel]
+    vcfg = dataclasses.replace(cfg.vision, width=w)
+    chans = []
+    for c in range(3 if form == "colors" else 1):
+        ccfg = (dataclasses.replace(vcfg, background=render.BACKGROUND_RGB[c])
+                if form == "colors" else vcfg)
+        s, d = render.render_single_row(st.pos, st.vel, 7, ccfg,
+                                        None if colors is None else colors[:, c].contiguous(),
+                                        texture)
+        chans.append(s)
+    want = (torch.stack(chans, -1) if form == "colors" else chans[0], d)
+    torch.cuda.synchronize()
+    assert torch.equal(depth < vcfg.far, want[1] < vcfg.far)
+    if w & (w - 1) == 0 and form != "texture":
+        assert torch.equal(depth, want[1]) and torch.equal(shade, want[0])
+    # the shade: the wireframe's 2e-4, the texture's 3e-4 (its texel picks
+    # are threshold tests), the disc's 1e-5, 1e-4 with AA (coverage moves
+    # with the pixel centre: ROADMAP queue 3)
+    tol = 2e-4 if sprite == "wireframe" else (3e-4 if form == "texture" else
+                                               1e-4 if aa else 1e-5)
+    _close(depth, want[1], 1e-5, 1e-4 if sprite == "disc" else 2e-4)
+    _close(shade, want[0], 1e-5, tol)
+    img = scene.render_eye_view(st, 7, size=(96, w), colors=colors, texture=texture)
+    assert img.shape == (96, w, 3) and img.dtype.name == "uint8"
+
+
+@pytest.mark.parametrize("n", [512, 4096])
+def test_scene_cells_matches_the_boids_kernel(cuda, n):
+    """Scene(backend="cells") on the card at a capacity cells_stats sizes,
+    against backend="pallas" (boids.cu), a few steps, within the smoke's
+    RING_BOIDS_BOUND scaled error (err / max|pallas| < 1e-5); the cell list
+    launches no kernel."""
+    from nenbody_tpu_torch.physics import cells
+
+    cfg = SimConfig(n=n, controller="boids", backend="pallas")
+    kernel = Scene(cfg, device=cuda)
+    st = kernel.spawn(seed=1)
+    states = [st]
+    for _ in range(3):
+        states.append(kernel.step(states[-1]))
+    r = math.sqrt(cfg.boids.cohesion_dist_sq)
+    cap = max(cells.cells_stats(s.pos, r)["max_occupancy"] for s in states)
+    cells_scene = Scene(dataclasses.replace(cfg, backend="cells", boids=dataclasses.replace(
+        cfg.boids, cells_capacity=cap)), device=cuda)
+    for s, want in zip(states[:-1], states[1:]):
+        common.reset_launch_counts()
+        got = cells_scene.step(s)
+        assert sum(common.launch_counts().values()) == 0
+        for a, b in ((got.pos, want.pos), (got.vel, want.vel)):
+            torch.cuda.synchronize()
+            err = float((a.double() - b.double()).abs().max() / b.double().abs().max())
+            assert err < 1e-5, err

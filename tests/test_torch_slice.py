@@ -146,11 +146,9 @@ def test_random_controller_and_unported_backends():
     torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=0)  # seeded stream
     assert int(a.t) == 2
     # the mesh backends step the random controller on plain torch, as the
-    # JAX package does; the cell-list backend is not ported yet
+    # JAX package does
     mesh = make_mesh({"agents": 2}, devices=["cpu"] * 2)
     for backend in ("ring", "gspmd"):
         sc = Scene(dataclasses.replace(cfg, backend=backend), device="cpu", mesh=mesh)
         c, _ = sc.rollout(sc.spawn(3), 2)
         torch.testing.assert_close(c.pos, a.pos, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scene(dataclasses.replace(cfg, backend="cells"), device="cpu")
