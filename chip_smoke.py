@@ -100,6 +100,22 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 against one device's; the launch counts set to 0 just
                 before each ring call and read just after it, peak device
                 memory.
+     multichip — the multi-device half, each part's launch counts set to 0
+                just before it and read just after: dryrun_multichip(8) on
+                a mesh that repeats cuda:0 (REINFORCE, APG diff_vision,
+                PPO, MAPPO on (data 2, agents 4); the wireframe REINFORCE on
+                a data-only mesh), its summary line logged; the fleet step
+                (utils/export.py) at config-5 width on {"data": 2,
+                "agents": 2} over cuda:0, its .pt2 step bit-equal to the
+                live fleet step, ms per step beside the one-device .pt2
+                step, peak memory; then two processes (this script with
+                --multichip-worker, started after the kernels are built),
+                two shards of cuda:0 each on gloo, the agent ring across
+                them: ring gravity at config 4, ring boids at N=65,536,
+                the disc and wireframe eye rings at config 2, each held
+                against the one-device kernels (phase_ring's bounds) and
+                timed beside one process on 4 shards; a worker's non-zero
+                exit fails the smoke, its launch counts join the line.
      rdma     — the RDMA ring (nenbody_tpu_torch.parallel.rdma, one launch
                 per card walking every hop) on the same 4-shard mesh:
                 gravity at config 4 and at config-5 width, boids at
@@ -2139,6 +2155,262 @@ def hold_mesh_grads(label: str, env: VisionEnv, mesh) -> None:
     expect(rel < RING_GRAD_BOUND, f"{label}: the mesh's gradients agree with one device's")
 
 
+# The multichip phase: the kernels each part must launch
+MULTICHIP = {"dryrun_multichip(8)": ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd",
+                                     "wireframe_eye"),
+             "fleet step": ("gravity", "disc_eye"),
+             "two processes": ("gravity", "boids_partials", "disc_eye", "wireframe_eye")}
+MULTICHIP_WORKER_S = 300  # the most seconds the two worker processes may take together
+MULTICHIP_REPS = 5  # timed calls of each ring call, after the counted one
+MULTICHIP_STEPS = 20  # chained fleet steps a timing
+# The fleet step's action against the one-device step's: the bf16
+# policy-head allowance (ROADMAP queue 3); its pos and vel are held to
+# RING_GRAVITY_BOUND (err / max|one device|)
+FLEET_ACTION_ATOL = 5e-3
+
+
+def host_ms(fn, reps: int) -> float:
+    """ms per call of fn on the host clock, ending in a synchronize (a
+    ring across processes waits on the host for each exchange)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def ring_inputs():
+    """The ring calls' inputs, the same on every process (one seed on the
+    card): config 4's positions and velocities (N=65,536) and a config-2
+    spawn."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg4 = PRESETS["gravity-65536"]()
+    pos, vel = uniform(gen, (cfg4.n, 2), -100, 100), uniform(gen, (cfg4.n, 2), 0, 0.1)
+    cfg2 = PRESETS["gravity-vision-1024"]()
+    return cfg4, pos, vel, cfg2, Scene(cfg2, device="cuda").spawn(0)
+
+
+def ring_calls(mesh, cfg4, pos, vel, cfg2, s2, lift=lambda x: x):
+    """{label: ring call} of the multichip phase's two-process part: ring
+    gravity at config 4, ring boids at N=65,536, and the disc and
+    wireframe eye rings at config 2, on `mesh`; `lift` makes an input the
+    mesh's (a process's block as a global tensor), once, before any call."""
+    bcfg = SimConfig(n=cfg4.n, controller="boids")
+    pos, vel, pos2, vel2 = lift(pos), lift(vel), lift(s2.pos), lift(s2.vel)
+    calls = {"ring gravity config 4": lambda: ring.ring_gravity_forces(pos, cfg4, mesh=mesh),
+             "ring boids N=65,536": lambda: ring.ring_boids_velocity(pos, vel, bcfg, mesh=mesh)}
+    for sprite in ("disc", "wireframe"):
+        vcfg = dataclasses.replace(cfg2.vision, sprite_mode=sprite)
+        calls[f"ring_render_rows {sprite} config 2"] = (
+            lambda vcfg=vcfg: ring.ring_render_rows(pos2, vel2, vcfg, mesh=mesh))
+    return calls
+
+
+def multichip_worker(rank: str, port: str, out: str) -> None:
+    """`chip_smoke.py --multichip-worker RANK PORT OUT`: one of the
+    multichip phase's two processes. Two shards of cuda:0 each, joined on
+    gloo (NCCL refuses two ranks on one card), form a 4-shard agent ring
+    across the process boundary; each process holds its half of the agents
+    of ring_calls' inputs, runs each call once with the launch counts set to
+    0 just before and read just after, holds its block against the
+    one-device kernels (phase_ring's bounds), times MULTICHIP_REPS more
+    calls, and writes counts and times as JSON to OUT."""
+    import torch.distributed as dist
+
+    from nenbody_tpu_torch.parallel import mesh as mesh_lib
+
+    rank = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.init_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=rank,
+                              local_device_ids=[0, 0], backend="gloo")
+    mesh = make_mesh({"agents": 4})
+    log("multichip", f"p{rank}: {mesh}; transport {dist.get_backend()} (CUDA blocks staged "
+        f"through pinned host memory, the partials on the card)")
+    cfg4, pos, vel, cfg2, s2 = ring_inputs()
+
+    def lift(x):
+        n = x.shape[-2]
+        return mesh_lib.lift(x[rank * n // 2:(rank + 1) * n // 2].contiguous(), mesh,
+                             ("agents", None))
+
+    result = {"counts": {}, "ms": {}}
+    with torch.no_grad():
+        for label, call in ring_calls(mesh, cfg4, pos, vel, cfg2, s2, lift).items():
+            dist.barrier()
+            torch.cuda.synchronize()
+            common.reset_launch_counts()
+            got = call()
+            torch.cuda.synchronize()
+            result["counts"][label] = common.launch_counts()
+            n = pos.shape[0] if "config 4" in label or "N=65,536" in label else s2.pos.shape[0]
+            lo, hi = rank * n // 2, (rank + 1) * n // 2
+            if label.startswith("ring gravity"):
+                hold_scaled(f"p{rank} {label} (2 processes x 2 shards)", got.local,
+                            pairwise.gravity_forces_tiled(pos, cfg4.gravity)[lo:hi],
+                            RING_GRAVITY_BOUND)
+            elif label.startswith("ring boids"):
+                hold_scaled(f"p{rank} {label} (2 processes x 2 shards)", got.local,
+                            boids_ops.boids_velocity_tiled(
+                                pos, vel, SimConfig(n=pos.shape[0], controller="boids").boids)[lo:hi],
+                            RING_BOIDS_BOUND)
+            else:
+                sprite = label.split()[1]
+                vcfg = dataclasses.replace(cfg2.vision, sprite_mode=sprite)
+                one = (wireframe.render_rows_wireframe_tiled(s2.pos, s2.vel, vcfg)
+                       if sprite == "wireframe" else raycast.render_rows_tiled(s2.pos, s2.vel, vcfg))
+                hold_rows(f"p{rank} {label} (2 processes x 2 shards)",
+                          (got[0].local, got[1].local), (one[0][lo:hi], one[1][lo:hi]), vcfg)
+            dist.barrier()
+            result["ms"][label] = host_ms(call, MULTICHIP_REPS)
+    with open(out, "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def two_processes(card: str, single_ms: dict) -> dict:
+    """The multichip phase's part (c): two worker processes
+    (multichip_worker) started with sys.executable after this process has
+    built the kernel library; either's non-zero exit or a timeout fails the
+    smoke. Returns their launch counts, summed."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs("build/chip_smoke_multichip", exist_ok=True)
+    outs = [f"build/chip_smoke_multichip/p{rank}.json" for rank in range(2)]
+    procs = [subprocess.Popen([sys.executable, __file__, "--multichip-worker", str(rank),
+                               str(port), outs[rank]], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    deadline, logs = time.monotonic() + MULTICHIP_WORKER_S, []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            print(f"  [p{rank}] {line}", flush=True)
+        expect(p.returncode == 0, f"multichip worker process {rank} exits 0 (got {p.returncode})")
+    results = []
+    for out in outs:
+        with open(out) as f:
+            results.append(json.load(f))
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    for label in results[0]["ms"]:
+        for r in results:
+            for k, v in r["counts"][label].items():
+                total[k] += v
+        log("multichip", f"{label} on 2 processes x 2 shards of cuda:0 (gloo): "
+            f"{', '.join('%.3f' % r['ms'][label] for r in results)} ms per call (each process, "
+            f"host clock, {MULTICHIP_REPS} calls); one process x 4 shards {single_ms[label]:.3f} "
+            f"ms; launches {[{k: v for k, v in r['counts'][label].items() if v} for r in results]} "
+            f"[{card}]")
+    return total
+
+
+def phase_multichip(card: str) -> dict:
+    """The multi-device half that spans processes and the fleet step, each
+    part's launch counts set to 0 just before it and read just after: (a)
+    dryrun_multichip(8) on a mesh that repeats cuda:0; (b) the fleet step
+    at config-5 width (4,096 envs x 256 agents x 64 px) on {"data": 2,
+    "agents": 2} over cuda:0, its .pt2 step bit-equal to the live one,
+    held against the one-device .pt2 step (pos and vel at
+    RING_GRAVITY_BOUND, the action at FLEET_ACTION_ATOL) and timed beside
+    it; (c) two processes
+    (two_processes). Returns the launch counts of all three."""
+    from nenbody_tpu_torch.entry import dryrun_multichip
+    from nenbody_tpu_torch.rl.policy import init_mlp_policy
+    from nenbody_tpu_torch.state import spawn_batch
+    from nenbody_tpu_torch.utils import export as export_lib
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        counts = counted(total, lambda: dryrun_multichip(8), MULTICHIP["dryrun_multichip(8)"],
+                         "dryrun_multichip(8)")[1]
+    line = printed.getvalue().strip().splitlines()[-1]
+    expect(line.startswith("dryrun_multichip ok: mesh=(data=2, agents=4)"), "the dry run's line")
+    log("multichip", f"{line}; launches {({k: v for k, v in counts.items() if v})}; "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    cuda = torch.device("cuda", 0)
+    mesh22 = make_mesh({"data": 2, "agents": 2}, devices=[cuda] * 4)
+    env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity",
+                              vision=VisionConfig(width=TRAIN_WIDTH)))
+    policy = init_mlp_policy(env.obs_width, 0).to(cuda)
+    t1 = time.perf_counter()
+    fleet = export_lib.load_policy_step(
+        export_lib.export_policy_step(env, policy, num_envs=TRAIN_ENVS, mesh=mesh22))
+    one = export_lib.load_policy_step(
+        export_lib.export_policy_step(env, policy, num_envs=TRAIN_ENVS))
+    export_s = time.perf_counter() - t1
+    live = export_lib.make_fleet_step(env, policy, mesh22)
+    s = spawn_batch(env.cfg, torch.Generator(device="cuda").manual_seed(3), TRAIN_ENVS, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    got, counts = counted(total, lambda: fleet(s.pos, s.vel), MULTICHIP["fleet step"],
+                          "the fleet step")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        want = live(s.pos, s.vel)
+    finite_cuda("the fleet step", *got)
+    for name, g, w in zip(("pos", "vel", "action"), got, want):
+        expect(torch.equal(g, w), f"the fleet .pt2 step's {name} equals the live fleet step's")
+    with torch.no_grad():
+        base = one(s.pos, s.vel)
+    err_pos, err_vel = (hold_scaled(f"the fleet step's {name} against the one-device .pt2 step",
+                                    g, w, RING_GRAVITY_BOUND)
+                        for name, g, w in zip(("pos", "vel"), got, base))
+    d_action = (got[2].double() - base[2].double()).abs().max().item()
+    expect(d_action <= FLEET_ACTION_ATOL,
+           f"the fleet step's action within {FLEET_ACTION_ATOL} of the one-device step's")
+
+    def chained(fn):
+        pos, vel = s.pos, s.vel
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MULTICHIP_STEPS):
+            pos, vel, _ = fn(pos, vel)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / MULTICHIP_STEPS
+
+    chained(one)
+    chained(fleet)
+    one_a, fleet_a, fleet_b, one_b = chained(one), chained(fleet), chained(fleet), chained(one)
+    log("multichip", f"fleet step at config-5 width ({TRAIN_ENVS} envs x {TRAIN_AGENTS} agents "
+        f"x {TRAIN_WIDTH} px) on {{'data': 2, 'agents': 2}} over cuda:0: the .pt2 step equals "
+        f"the live fleet step bit for bit; against the one-device .pt2 step err/max| | pos "
+        f"{err_pos:.3e}, vel {err_vel:.3e} (bound {RING_GRAVITY_BOUND:.0e}), max|d action| "
+        f"{d_action:.3e} (bound {FLEET_ACTION_ATOL:.0e}); {fleet_a:.4f}, {fleet_b:.4f} ms per step against the "
+        f"one-device .pt2 step's {one_a:.4f}, {one_b:.4f} ({MULTICHIP_STEPS} chained steps, CUDA "
+        f"events); launches per step {({k: v for k, v in counts.items() if v})}; peak device "
+        f"memory of the fleet step {peak:.2f} GiB; both exports and loads {export_s:.1f} s [{card}]")
+
+    mesh4 = make_mesh({"agents": 4}, devices=[cuda] * 4)
+    single_ms = {}
+    with torch.no_grad():
+        for label, call in ring_calls(mesh4, *ring_inputs()).items():
+            call()
+            single_ms[label] = host_ms(call, MULTICHIP_REPS)
+    t2 = time.perf_counter()
+    for k, v in two_processes(card, single_ms).items():
+        total[k] += v
+    missing = [k for k in MULTICHIP["two processes"] if total[k] == 0]
+    if missing:
+        raise AssertionError(f"the two processes never launched {missing}")
+    log("multichip", f"two processes ran in {time.perf_counter() - t2:.2f} s; the phase in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return total
+
+
 def rdma_mesh(cards: int):
     """The RDMA phases' agent axis: 4 shards of cuda:0 (cards=1), or one
     shard on each of the first `cards` cards."""
@@ -3253,6 +3525,8 @@ def main_kernel_times(gen, smi: str) -> None:
 
 def main() -> None:
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--multichip-worker"]:
+        return multichip_worker(*sys.argv[2:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     kind = torch.cuda.get_device_name(0)
@@ -3301,12 +3575,13 @@ def main() -> None:
         cells_counts = phase_cells(smi)
     wf_runs, wf_training = phase_wireframe_train()
     ring_counts, ring_runs = phase_ring(smi)
+    multichip_counts = phase_multichip(smi)
     rdma_counts = phase_rdma(errors, smi, rdma_mesh(1))
     with torch.no_grad():
         phase_appearance_kernels(errors, gen)
     appearance_counts = phase_appearance(errors, smi)
     paths += [training, more_training, cli_counts, viewer_counts, cells_counts, wf_training,
-              ring_counts, rdma_counts, appearance_counts]
+              ring_counts, multichip_counts, rdma_counts, appearance_counts]
     with torch.no_grad():
         times, shapes = phase_kernel_times(gen, smi)
         log_wireframe_culls(gen, smi)

@@ -38,7 +38,9 @@ ending when its metrics reach the host) and `agent_frames` (envs x agents x
 horizon, times 2 x population for es). `--mesh` (DATAxAGENTS, -1 for the
 rest, or auto) runs the sim on a mesh of the visible CUDA devices
 (rl/train.py). `export` writes a torch.export program (`.pt2`;
-utils/export.py). `run --capture K` writes a PNG every K steps (viz.viewer;
+utils/export.py); with `--mesh` (and `--policy`, `--envs`) the fleet
+step, the envs over data and the agent-axis ring over agents in one
+program. `run --capture K` writes a PNG every K steps (viz.viewer;
 `--first-person` adds the selected eye's viewport, rendered by the eye
 kernel), `gif` a rollout GIF and `replay` a GIF of a `.nentraj` recording,
 with the port's own PNG and GIF writers (viz.image), so no Pillow or
@@ -46,9 +48,9 @@ imageio is needed; `replay` reads a file and composes on the host, so it
 takes no --device. `live` needs matplotlib and an interactive backend, and
 without them exits 2 with the JAX command's message.
 
-Not ported yet (ROADMAP queue 1): `bench` (item 6, the port's benchmark)
-and `export --mesh` (item 17). JAX train checkpoints are not read: a
-jax.random key and optax state have no torch counterpart.
+Not ported yet (ROADMAP queue 1): `bench` (item 6, the port's benchmark).
+JAX train checkpoints are not read: a jax.random key and optax state have
+no torch counterpart.
 """
 
 from __future__ import annotations
@@ -682,12 +684,14 @@ def cmd_export(args) -> int:
     from .config import SimConfig
     from .utils import export as export_lib
 
-    if args.mesh:
-        return _error("--mesh export (the multi-device fleet step) is not ported yet "
-                      "(ROADMAP queue 1 item 17)")
     device = _device(args)
     if isinstance(device, int):
         return device
+    mesh = _mesh_from_args(args)
+    if isinstance(mesh, int):
+        return mesh
+    if mesh is not None and not args.policy:
+        return _error("--mesh export serializes the policy fleet step; pass --policy")
     num_envs = args.envs if args.envs > 0 else None
     try:
         if args.policy:
@@ -696,7 +700,8 @@ def cmd_export(args) -> int:
                 return 2
             cfg = env.cfg
             pol = _load_policy(env, args.policy, args.net, device)
-            blob = export_lib.export_policy_step(env, pol, num_envs=num_envs, steps=args.steps)
+            blob = export_lib.export_policy_step(env, pol, num_envs=num_envs, steps=args.steps,
+                                                 mesh=mesh)
         else:
             cfg = SimConfig(n=args.agents, controller=args.controller)
             blob = export_lib.export_sim_step(cfg, num_envs=num_envs, steps=args.steps,
@@ -721,7 +726,7 @@ def cmd_export(args) -> int:
         "out": args.out, "bytes": len(blob), "device": str(device),
         "mode": "policy" if args.policy else f"sim:{args.controller}",
         "agents": args.agents, "steps": args.steps,
-        "envs": num_envs, "mesh": None,
+        "envs": num_envs, "mesh": args.mesh or None,
         "checked": bool(args.check),
     }))
     return 0
@@ -865,7 +870,8 @@ def main(argv=None) -> int:
                    help="leading env-batch dim baked into the artifact (0 = unbatched)")
     p.add_argument("--out", default="policy_step.pt2")
     p.add_argument("--mesh", default="",
-                   help="the multi-device fleet step (not ported yet: refused)")
+                   help="export the fleet step on a device mesh: DATAxAGENTS (e.g. 2x4) or "
+                   "'auto'; needs --policy and --envs")
     p.add_argument("--check", action="store_true",
                    help="reload the artifact and run one step on fresh spawns")
     p.add_argument("--seed", type=int, default=0)

@@ -189,7 +189,8 @@ class SimConfig:
                 code edit at src/main.rs:925; boids is the active one)
     backend:    force/vision compute path — "dense" (plain PyTorch O(N^2),
                 the oracle), "pallas" (the hand-written CUDA kernels on CUDA
-                tensors), "ring", "gspmd" and "cells" (not ported yet), or
+                tensors), "ring" and "gspmd" (the mesh backends,
+                parallel/), "cells" (the cell list, physics/cells.py), or
                 "auto" (= "pallas" in the port).
     """
 

@@ -8,7 +8,9 @@ compiler, so the same program is written out: each shard takes its block of
 i-rows and the whole position set, gathered to its device, and evaluates the
 dense cross forms of physics.dense there. It materializes [N/D, N] pair
 tensors per shard, and is the ring's independent cross-check (the two must
-agree; tests/test_torch_ring.py).
+agree; tests/test_torch_ring.py). On a mesh across processes it takes
+mesh.GlobalTensors: each process evaluates its own shards' rows against
+the whole arrays, all-gathered over the process group (dist.all_gather).
 """
 
 from __future__ import annotations
@@ -20,30 +22,46 @@ import torch
 from ..config import SimConfig
 from ..physics import dense
 from ..state import SceneState
-from .mesh import AGENT_AXIS, Mesh, data_axis_of, default_mesh, gather_blocks, on_device
-from .mesh import split_blocks
-from .ring import _check_divisible
+from .mesh import AGENT_AXIS, Mesh, data_axis_of, default_mesh, gather_blocks, gather_global
+from .mesh import local_mesh, on_device, split_blocks
+from .ring import _check_divisible, _global_inputs
 
 
 def _rows_against_all(arrays, mesh: Mesh, axis: str, data_axis: Optional[str], fn):
     """fn(i-row blocks, whole arrays, row offset) on each shard's device, its
-    output gathered back to arrays[0]'s device."""
+    output gathered back to arrays[0]'s device. Global tensors (a mesh
+    across processes): this process's shards only, the whole arrays
+    all-gathered over the group (mesh.gather_global, what XLA inserts for
+    the JAX gspmd backend), and the result global again."""
     _check_divisible(arrays[0], mesh, data_axis)
-    home = arrays[0].device
+    glob = arrays[0] if _global_inputs(arrays, mesh) else None
     batch_dim = 0 if data_axis is not None and arrays[0].dim() >= 3 else None
-    grid = mesh.grid(data_axis if batch_dim is not None else None, axis)
-    rows = [split_blocks(x, grid, batch_dim) for x in arrays]
-    whole = [split_blocks(x, grid, batch_dim, agent_dim=None) for x in arrays]
+    row_axis = data_axis if batch_dim is not None else None
+    grid = mesh.grid(row_axis, axis)
+    rows, cols = mesh.own(row_axis, axis)
+    sub = [[grid[r][c] for c in cols] for r in rows]
+    whole, offset0 = arrays, 0
+    if glob is not None:
+        whole = [gather_global(x) for x in arrays]
+        if batch_dim is not None:  # this process's envs
+            b = glob.local.shape[0]
+            whole = [x[b // len(rows) * rows.start:][:b] for x in whole]
+        arrays = [x.local for x in arrays]
+        offset0 = cols.start * (arrays[0].shape[-2] // len(cols))
+    home = arrays[0].device
+    row_blocks = [split_blocks(x, sub, batch_dim) for x in arrays]
+    whole = [split_blocks(x, sub, batch_dim, agent_dim=None) for x in whole]
     out = []
-    for r, devs in enumerate(grid):
-        offset, row = 0, []
+    for r, devs in enumerate(sub):
+        offset, row = offset0, []
         for c, dev in enumerate(devs):
-            mine = [b[r][c] for b in rows]
+            mine = [b[r][c] for b in row_blocks]
             with on_device(dev):
                 row.append(fn(mine, [w[r][c] for w in whole], offset))
             offset += mine[0].shape[-2]
         out.append(row)
-    return gather_blocks(out, home, batch_dim)
+    result = gather_blocks(out, home, batch_dim)
+    return result if glob is None else glob.with_local(result)
 
 
 def auto_gravity_forces(
@@ -77,14 +95,14 @@ def auto_boids_velocity(
 
 def gravity_step(state: SceneState, cfg: SimConfig, generator=None,
                  mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = mesh or default_mesh()
+    mesh = local_mesh(mesh, "the gspmd backend's stepper")
     g = auto_gravity_forces(state.pos, cfg, mesh=mesh, data_axis=data_axis_of(mesh))
     return dense.gravity_integrate(state, g, cfg)
 
 
 def boids_step(state: SceneState, cfg: SimConfig, generator=None,
                mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = mesh or default_mesh()
+    mesh = local_mesh(mesh, "the gspmd backend's stepper")
     nv = auto_boids_velocity(state.pos, state.vel, cfg, mesh=mesh, data_axis=data_axis_of(mesh))
     return dense.boids_integrate(state, nv, cfg)
 

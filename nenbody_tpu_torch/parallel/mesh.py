@@ -1,30 +1,42 @@
 """Device meshes for the port's multi-device backends (counterpart of
 nenbody_tpu/parallel/mesh.py).
 
-The port is single-controller, as the JAX package is: one process holds
-GLOBAL tensors, and the ring (parallel/ring.py) and the compiler-free gspmd
-twin (parallel/auto.py) split them into blocks, one per device of a named
-`Mesh`, run each block on its device, and gather the results back to the
-tensors' device. A block moves between devices with `send`, a non-blocking
-peer copy (within one node, the NVLink copy NCCL's send/recv would make).
+Within one process the port is single-controller, as the JAX package is:
+the process holds GLOBAL tensors, and the ring (parallel/ring.py) and the
+compiler-free gspmd twin (parallel/auto.py) split them into blocks, one per
+device of a named `Mesh`, run each block on its device, and gather the
+results back to the tensors' device. A block moves between devices with
+`send`, a non-blocking peer copy (within one node, the NVLink copy NCCL's
+send/recv would make).
 
 A mesh may name the same device more than once: the counterpart of
 `jax_num_cpu_devices=8` in tests/conftest.py, with which the CPU tests and
 chip_smoke.py run 2-4 ring hops on one device. `default_mesh()` and the
 CLI's `--mesh` use the visible CUDA devices only, and raise where there is
-none. Multi-host meshes (`init_distributed`, `global_state`,
-`host_local_state` of the JAX package, over torch.distributed) are not
-ported yet (ROADMAP queue 1 item 17).
+none.
+
+Across processes (SURVEY.md section 5.8's cross-host half) a process group
+takes the place of jax.distributed: `init_distributed()` once per process
+joins torch.distributed (NCCL for CUDA devices, gloo for CPU ones) and
+records every process's devices, after which `make_mesh()` spans them all
+in rank-major order (each device of the mesh knows the rank that owns it).
+`global_state` lifts a process's local block of a SceneState into
+`GlobalTensor`s on such a mesh and `host_local_state` takes the block back;
+the ring and the gspmd backend take GlobalTensors, run the hops of their
+own process's shards, and move blocks across a process boundary over the
+group (`exchange`, `gather_global`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..state import SceneState
 
@@ -43,35 +55,86 @@ def _device(d) -> torch.device:
 class Mesh:
     """A named grid of devices (jax.sharding.Mesh's counterpart): `devices`
     in row-major order over `axis_names`; `shape` maps each axis name to its
-    size."""
+    size. `ranks` (None on a one-process mesh) names the process that owns
+    each device: a device of another rank is a label here, never used."""
 
-    def __init__(self, devices: Sequence, axis_names: Sequence[str], sizes: Sequence[int]):
+    def __init__(self, devices: Sequence, axis_names: Sequence[str], sizes: Sequence[int],
+                 ranks: Optional[Sequence[int]] = None):
         if math.prod(sizes) != len(devices):
             raise ValueError(f"{len(devices)} devices for axis sizes {tuple(sizes)}")
         self.devices = [_device(d) for d in devices]
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
+        self.ranks = list(ranks) if ranks is not None else None
 
-    def grid(self, data_axis: Optional[str], agent_axis: Optional[str]) -> List[List[torch.device]]:
-        """The devices as rows over `data_axis` and columns over
-        `agent_axis` (one row or column where the axis is None), every other
-        axis at index 0."""
+    @property
+    def distributed(self) -> bool:
+        """True when the mesh spans more than one process."""
+        return self.ranks is not None and len(set(self.ranks)) > 1
+
+    def _coords(self, flat: int) -> Dict[str, int]:
+        coords = {}
+        for name in reversed(self.axis_names):
+            flat, coords[name] = divmod(flat, self.shape[name])
+        return coords
+
+    def span(self, axis: str, rank: Optional[int] = None) -> range:
+        """The indices along `axis` of the devices that process `rank`
+        (this one by default) owns: the whole axis on a one-process mesh.
+        Raises where they are not contiguous."""
+        if not self.distributed:
+            return range(self.shape[axis])
+        rank = dist.get_rank() if rank is None else rank
+        idx = sorted({self._coords(i)[axis] for i, r in enumerate(self.ranks) if r == rank})
+        if not idx or idx[-1] - idx[0] + 1 != len(idx):
+            raise ValueError(f"process {rank}'s devices are not one block of mesh axis {axis!r}")
+        return range(idx[0], idx[-1] + 1)
+
+    def _grid(self, items: list, data_axis: Optional[str], agent_axis: Optional[str]) -> list:
         rows = self.shape[data_axis] if data_axis is not None else 1
         cols = self.shape[agent_axis] if agent_axis is not None else 1
         strides, s = {}, 1
         for name in reversed(self.axis_names):
             strides[name] = s
             s *= self.shape[name]
+        # every other axis at this process's first index (0 on one process)
+        base = sum(strides[name] * self.span(name).start for name in self.axis_names
+                   if name not in (data_axis, agent_axis))
 
-        def at(r: int, c: int) -> torch.device:
-            flat = (r * strides[data_axis] if data_axis is not None else 0) + (
+        def at(r: int, c: int):
+            flat = base + (r * strides[data_axis] if data_axis is not None else 0) + (
                 c * strides[agent_axis] if agent_axis is not None else 0)
-            return self.devices[flat]
+            return items[flat]
 
         return [[at(r, c) for c in range(cols)] for r in range(rows)]
 
+    def grid(self, data_axis: Optional[str], agent_axis: Optional[str]) -> List[List[torch.device]]:
+        """The devices as rows over `data_axis` and columns over
+        `agent_axis` (one row or column where the axis is None), every other
+        axis at index 0 (on a distributed mesh, at this process's first
+        index along it)."""
+        return self._grid(self.devices, data_axis, agent_axis)
+
+    def rank_grid(self, data_axis: Optional[str], agent_axis: Optional[str]) -> List[List[int]]:
+        """The owning rank of each device of grid(data_axis, agent_axis)."""
+        ranks = self.ranks if self.ranks is not None else [0] * len(self.devices)
+        return self._grid(ranks, data_axis, agent_axis)
+
+    def own(self, data_axis: Optional[str], agent_axis: Optional[str]) -> Tuple[range, range]:
+        """(rows, columns) of grid(data_axis, agent_axis) that this process
+        owns: one block, all of the grid on a one-process mesh."""
+        rows = self.span(data_axis) if data_axis is not None else range(1)
+        cols = self.span(agent_axis) if agent_axis is not None else range(1)
+        if self.distributed:
+            me, ranks = dist.get_rank(), self.rank_grid(data_axis, agent_axis)
+            if any(ranks[r][c] != me for r in rows for c in cols):
+                raise ValueError(f"process {me}'s devices are not one block of the mesh's "
+                                 f"({data_axis}, {agent_axis}) grid")
+        return rows, cols
+
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
+        ranks = f", ranks={self.ranks}" if self.ranks is not None else ""
+        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]}{ranks})"
 
 
 def visible_devices() -> List[torch.device]:
@@ -85,12 +148,237 @@ def visible_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(count)]
 
 
+# -- processes ----------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Group:
+    """What init_distributed records: the group's backend and every
+    process's devices, by rank."""
+
+    backend: str
+    devices: Tuple[Tuple[torch.device, ...], ...]
+
+
+_GROUP: Optional[_Group] = None  # torch.distributed's default group is per process too
+
+
+def _local_devices(local_device_ids) -> List[torch.device]:
+    if local_device_ids is None:
+        return visible_devices()
+    return [torch.device("cuda", d) if isinstance(d, int) else _device(d)
+            for d in local_device_ids]
+
+
+def init_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence] = None,
+    backend: Optional[str] = None,
+) -> None:
+    """Join the process group (jax.distributed.initialize's counterpart,
+    over torch.distributed.init_process_group).
+
+    coordinator_address: "host:port" of rank 0 (a tcp:// init), with
+    num_processes (the world size) and process_id (this rank); None reads
+    the env:// variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) that
+    torchrun sets. local_device_ids: this process's devices on the mesh, in
+    order: ints name CUDA devices, a str or torch.device any device (["cpu",
+    "cpu"] for two CPU shards); a device may repeat. Default: every visible
+    card, and an error where there is none (no silent move to the CPU).
+    backend: default "nccl" for CUDA devices, "gloo" for CPU ones. Under
+    NCCL a process takes one card (a mesh device may repeat it): the ring's
+    hop sends from its last shard and receives into its first in one
+    batch, which NCCL refuses across two cards of one process; so with
+    several cards a process, pass one per rank (torchrun's LOCAL_RANK) or
+    backend="gloo". NCCL also refuses two ranks on one card: pass
+    backend="gloo" there, which moves CUDA blocks through pinned host
+    memory (the transport only; every partial still runs on the card).
+    After this, make_mesh() spans every process's devices in rank-major
+    order."""
+    global _GROUP
+    local = _local_devices(local_device_ids)
+    if backend is None:
+        backend = "nccl" if local[0].type == "cuda" else "gloo"
+    if backend == "nccl" and any(d.type != "cuda" for d in local):
+        raise ValueError(f"the nccl backend moves CUDA tensors only; devices {local}")
+    if backend == "nccl" and len(set(local)) > 1:
+        raise ValueError(f"under the nccl backend a process takes one card, got {local}: pass "
+                         f"local_device_ids=[this rank's card], or backend='gloo'")
+    if local[0].type == "cuda":
+        torch.cuda.set_device(local[0])
+    init_method = "env://"
+    if coordinator_address is not None:
+        init_method = (coordinator_address if "://" in coordinator_address
+                       else f"tcp://{coordinator_address}")
+    kwargs = {}
+    if num_processes is not None:
+        kwargs["world_size"] = num_processes
+    if process_id is not None:
+        kwargs["rank"] = process_id
+    dist.init_process_group(backend, init_method=init_method, **kwargs)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, [str(d) for d in local])
+    _GROUP = _Group(backend, tuple(tuple(torch.device(d) for d in ds) for ds in every))
+
+
+def is_distributed() -> bool:
+    """True once init_distributed has joined a group of more than one
+    process."""
+    return _GROUP is not None and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _staged(x: torch.Tensor) -> bool:
+    """gloo moves host tensors: a CUDA tensor goes through pinned host
+    memory."""
+    return x.is_cuda and _GROUP is not None and _GROUP.backend == "gloo"
+
+
+def _to_wire(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    if _staged(x):
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host
+    return x
+
+
+def _wire_buffer(like: torch.Tensor, device: torch.device) -> torch.Tensor:
+    if device.type == "cuda" and _GROUP is not None and _GROUP.backend == "gloo":
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+    return torch.empty(like.shape, dtype=like.dtype, device=device)
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
+             recvs: Sequence[Tuple[torch.Tensor, torch.device, int, int]]) -> List[torch.Tensor]:
+    """One dist.batch_isend_irecv: each (tensor, peer rank, tag) of `sends`
+    goes out, and each (tensor like the one expected, device, peer rank,
+    tag) of `recvs` comes back on `device`, all at once, so no rank waits
+    on another's order. A failed transfer raises (Work.wait)."""
+    wire = [_to_wire(x) for x, _, _ in sends]
+    bufs = [_wire_buffer(like, dev) for like, dev, _, _ in recvs]
+    ops = [dist.P2POp(dist.isend, x, peer, tag=tag) for x, (_, peer, tag) in zip(wire, sends)]
+    ops += [dist.P2POp(dist.irecv, b, peer, tag=tag) for b, (_, _, peer, tag) in zip(bufs, recvs)]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(dev, non_blocking=True) for b, (_, dev, _, _) in zip(bufs, recvs)]
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalTensor:
+    """A tensor split over the processes of a distributed mesh (a global
+    jax.Array's counterpart): `local` is this process's block, `spec` the
+    mesh axis each dimension is split over (shard_state_specs' form), and
+    `shape` the global shape. The port's own small type rather than a
+    DTensor: a process here owns several devices of the mesh (two shards of
+    one card, or of the CPU), where a DTensor's DeviceMesh has one device
+    per rank."""
+
+    local: torch.Tensor
+    mesh: Mesh
+    spec: tuple
+    shape: torch.Size
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def with_local(self, local: torch.Tensor) -> "GlobalTensor":
+        """Another global tensor of this layout whose block is `local` (its
+        last dimension may differ)."""
+        return GlobalTensor(local, self.mesh, self.spec,
+                            torch.Size((*self.shape[:-1], local.shape[-1])))
+
+
+def _block(mesh: Mesh, spec: tuple, shape: Sequence[int], rank: Optional[int] = None):
+    """The slices of a global `shape` that process `rank` holds."""
+    return tuple(slice(None) if axis is None else
+                 slice(size // mesh.shape[axis] * mesh.span(axis, rank).start,
+                       size // mesh.shape[axis] * mesh.span(axis, rank).stop)
+                 for axis, size in zip(spec, shape))
+
+
+def lift(local: torch.Tensor, mesh: Mesh, spec: tuple) -> GlobalTensor:
+    """`local`, this process's block, as a GlobalTensor split per `spec`
+    (each process contributes its block; a collective: every process
+    calls it). Each split dimension must divide evenly over the devices
+    of its axis, and every process's block must have one shape, as the JAX
+    global arrays require."""
+    if not mesh.distributed:
+        raise ValueError("global tensors need a mesh that spans processes (init_distributed, "
+                         "then make_mesh())")
+    spec = tuple(spec) + (None,) * (local.dim() - len(spec))
+    shapes = [None] * dist.get_world_size()
+    dist.all_gather_object(shapes, tuple(local.shape))
+    if len(set(shapes)) > 1:
+        raise ValueError(f"the processes' blocks differ in shape {shapes}: the split "
+                         f"dimensions must divide evenly over the processes")
+    size = []
+    for axis, n in zip(spec, local.shape):
+        if axis is None:
+            size.append(n)
+            continue
+        own = len(mesh.span(axis))
+        if n % own:
+            raise ValueError(f"a block of {n} does not divide evenly over this process's "
+                             f"{own} devices of mesh axis {axis!r}")
+        size.append(n // own * mesh.shape[axis])
+    return GlobalTensor(local, mesh, spec, torch.Size(size))
+
+
+def gather_global(x: GlobalTensor) -> torch.Tensor:
+    """The whole of `x` on every process, on its block's device (an
+    all-gather over the group: every process calls it)."""
+    wire = _to_wire(x.local)
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, wire)
+    out = torch.empty(x.shape, dtype=wire.dtype, device=wire.device)
+    for rank, part in enumerate(parts):
+        out[_block(x.mesh, x.spec, x.shape, rank)] = part
+    return out.to(x.local.device)
+
+
+def _map_state(state, fn, batch: bool, data_axis: Optional[str]) -> SceneState:
+    specs = shard_state_specs(batch=batch, data_axis=data_axis)
+    return SceneState(**{name: fn(getattr(state, name), spec) for name, spec in specs.items()})
+
+
+def global_state(state: SceneState, mesh: Mesh, batch: bool = False,
+                 data_axis: Optional[str] = None) -> SceneState:
+    """Lift a per-process SceneState into one of GlobalTensors: each
+    process contributes its local block of the agent axis (and of the env
+    axis over `data_axis` when `batch`), split per shard_state_specs. The
+    inverse of host_local_state. The port's state has no random key, so
+    JAX's typed-key branch has no counterpart here."""
+    return _map_state(state, lambda x, spec: lift(x, mesh, spec), batch, data_axis)
+
+
+def host_local_state(state: SceneState, mesh: Mesh, batch: bool = False,
+                     data_axis: Optional[str] = None) -> SceneState:
+    """Project a SceneState of GlobalTensors back to this process's local
+    blocks (for host-side logging and checkpoints): global_state's exact
+    inverse."""
+    def lower(x: GlobalTensor, spec) -> torch.Tensor:
+        if x.mesh is not mesh:
+            raise ValueError("host_local_state: the state lives on another mesh")
+        return x.local
+
+    return _map_state(state, lower, batch, data_axis)
+
+
 def make_mesh(axis_sizes: Optional[dict] = None, devices: Optional[Sequence] = None) -> Mesh:
     """Build a named mesh. Default: every visible CUDA device on the agent
-    axis.
+    axis; after init_distributed, every process's devices in rank-major
+    order (a mesh across processes).
 
     axis_sizes: ordered {axis_name: size} (-1 for "all remaining devices"),
-    e.g. {"data": 2, "agents": 4}. `devices` may repeat a device."""
+    e.g. {"data": 2, "agents": 4}. `devices` (this process's only) may
+    repeat a device."""
+    ranks = None
+    if devices is None and is_distributed():
+        devices = [d for ds in _GROUP.devices for d in ds]
+        ranks = [r for r, ds in enumerate(_GROUP.devices) for _ in ds]
     devices = list(devices if devices is not None else visible_devices())
     if axis_sizes is None:
         axis_sizes = {AGENT_AXIS: len(devices)}
@@ -103,13 +391,28 @@ def make_mesh(axis_sizes: Optional[dict] = None, devices: Optional[Sequence] = N
     if total > len(devices):
         raise ValueError(f"mesh {dict(zip(names, sizes))} needs {total} devices, "
                          f"have {len(devices)}")
-    return Mesh(devices[:total], names, sizes)
+    return Mesh(devices[:total], names, sizes, ranks[:total] if ranks is not None else None)
 
 
 @functools.lru_cache(maxsize=1)
 def default_mesh() -> Mesh:
     """All visible CUDA devices on the agent axis (cached)."""
     return make_mesh()
+
+
+def local_mesh(mesh: Optional[Mesh], what: str) -> Mesh:
+    """`mesh`, else default_mesh(), for `what`, which runs on one process
+    (Scene's backends, the trainers, the fleet step): raises where the mesh
+    spans processes, as the default mesh does after init_distributed. Only
+    the ring's and gspmd's entry points take a mesh across processes, with
+    GlobalTensors."""
+    mesh = mesh or default_mesh()
+    if mesh.distributed:
+        raise ValueError(f"{what} runs on one process, and this mesh spans "
+                         f"{len(set(mesh.ranks))}: pass a mesh of this process's devices "
+                         f"(make_mesh(devices=...)), or GlobalTensors to the ring's and "
+                         f"gspmd's entry points")
+    return mesh
 
 
 def data_axis_of(mesh: Optional[Mesh]) -> Optional[str]:
@@ -141,9 +444,14 @@ def send(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     repeats a device), else a non-blocking copy that the destination's
     stream orders after the work that produced `x` (an event recorded on the
     source's current stream, waited on by the destination's). Autograd's
-    transpose of the copy is the copy back."""
+    transpose of the copy is the copy back. Under torch.export, which
+    cannot trace the events, the same copy as ops/library.py's custom op."""
     if x.device == device:
         return x
+    if torch.compiler.is_exporting():
+        from ..ops import library
+
+        return library.to_device(x, device)
     if x.is_cuda and device.type == "cuda":
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(x.device))

@@ -20,6 +20,16 @@ is given. N need not divide the agent axis: far sentinels pad it
 (_pad_agents). On CUDA tensors every partial is a kernel launch; on CPU
 tensors its plain version.
 
+On a mesh across processes (mesh.init_distributed) the entry points take
+mesh.GlobalTensors (mesh.global_state) and return them: each process runs
+the hops of its own shards on its local block, the shift between two of
+its shards stays a copy, and the shift from its last shard to the next
+process's first is one dist.batch_isend_irecv per hop (mesh.exchange), so
+no rank waits on another's order. There N must divide the agent axis, as
+the JAX global arrays require, and no input may require grad: autograd
+across a process boundary is not ported (the forward only, as the JAX
+multi-host test runs it).
+
 Gradients come from autograd, not from a second hand-built ring: each hop's
 partial goes through its autograd Function (GravityForcesDiff on hop 0,
 GravityForcesCrossDiff later, RenderRowsDiff or RenderRowsWireframeDiff for
@@ -39,12 +49,12 @@ import torch
 
 from ..config import SimConfig, VisionConfig
 from ..ops import boids as boids_ops
-from ..ops import pairwise, raycast, wireframe
+from ..ops import library, pairwise, raycast, wireframe
 from ..physics import dense
 from ..state import SceneState
 from ..vision import camera, render
-from .mesh import AGENT_AXIS, Mesh, data_axis_of, default_mesh, gather_blocks, on_device, send
-from .mesh import split_blocks
+from .mesh import AGENT_AXIS, GlobalTensor, Mesh, data_axis_of, default_mesh, exchange
+from .mesh import gather_blocks, local_mesh, on_device, send, split_blocks
 
 
 def _check_divisible(pos: torch.Tensor, mesh: Mesh, data_axis: Optional[str]) -> None:
@@ -74,31 +84,98 @@ def _pad_agents(arrays: Sequence[torch.Tensor], n: int, d: int):
                       dim=-2) for a in arrays], n_pad
 
 
-def _ring(mesh: Mesh, axis: str, data_axis: Optional[str], own: Sequence[torch.Tensor],
+def _global_inputs(arrays: Sequence, mesh: Mesh) -> bool:
+    """True where the inputs are GlobalTensors on `mesh`, False where they
+    are plain tensors on a one-process mesh. A mesh across processes takes
+    GlobalTensors only: a plain tensor there would be cut into this
+    process's shards whole, and each row would add up every block twice."""
+    glob = [isinstance(x, GlobalTensor) for x in arrays]
+    if mesh.distributed and not all(glob):
+        raise ValueError("a mesh across processes takes GlobalTensors (mesh.global_state or "
+                         "mesh.lift of this process's block), got a plain tensor")
+    if any(glob) and not all(x.mesh is mesh for x in arrays):
+        raise ValueError("the ring's global inputs live on another mesh")
+    return any(glob)
+
+
+def _prepare(arrays: Sequence, mesh: Mesh, axis: str, data_axis: Optional[str]):
+    """(arrays padded to the agent axis, n): global tensors unpadded, whose
+    N must divide the axis."""
+    _check_divisible(arrays[0], mesh, data_axis)
+    n, d = arrays[0].shape[-2], mesh.shape[axis]
+    if _global_inputs(arrays, mesh):
+        if n % d:
+            raise ValueError(f"agent count {n} must divide evenly over mesh axis {axis!r} "
+                             f"(size {d}) across processes")
+        return list(arrays), n
+    return _pad_agents(arrays, n, d)[0], n
+
+
+def _trim(x, n: int):
+    """A padded result's first n agents (a global tensor has no padding)."""
+    return x if isinstance(x, GlobalTensor) else x[..., :n, :]
+
+
+def _shift(circ, rows, cols, grid, ranks, d: int):
+    """Each shard's circulating blocks to the next shard of its row (i ->
+    i + 1 mod d): `send` between two shards of this process, and from this
+    process's last shard to the next process's first one exchange for all
+    rows, so that no rank deadlocks."""
+    out, sends, recvs = [], [], []
+    for i, r in enumerate(rows):
+        if len(cols) == d:  # the whole row is this process's
+            out.append([tuple(send(x, grid[r][c]) for x in circ[i][j - 1])
+                        for j, c in enumerate(cols)])
+            continue
+        out.append([None] + [tuple(send(x, grid[r][c]) for x in circ[i][j - 1])
+                             for j, c in enumerate(cols) if j > 0])
+        nxt, prv = ranks[r][cols.stop % d], ranks[r][(cols.start - 1) % d]
+        m = len(circ[i][-1])
+        sends += [(x, nxt, r * m + t) for t, x in enumerate(circ[i][-1])]
+        recvs += [(x, grid[r][cols.start], prv, r * m + t) for t, x in enumerate(circ[i][0])]
+    got = iter(exchange(sends, recvs))
+    for i, row in enumerate(out):
+        if row[0] is None:
+            row[0] = tuple(next(got) for _ in circ[i][0])
+    return out
+
+
+def _ring(mesh: Mesh, axis: str, data_axis: Optional[str], own: Sequence,
           n_circ: int, hop: Callable, finish: Callable = lambda acc: acc):
     """The hop loop. `own` [(B,) N, ...] split into each shard's blocks; the
     first `n_circ` of them circulate. acc = hop(k, own_blocks, circulating,
     acc) on each shard at each hop, on the shard's device; finish(acc) gives
-    the shard's outputs (a tuple), gathered back to own[0]'s device."""
+    the shard's outputs (a tuple), gathered back to own[0]'s device. Global
+    tensors: this process's shards only, its local blocks in and out."""
+    glob = own[0] if _global_inputs(own, mesh) else None
+    if glob is not None:
+        own = [x.local for x in own]
+        if any(x.requires_grad for x in own):
+            raise NotImplementedError(
+                "autograd through the ring across processes is not ported: the distributed "
+                "ring runs the forward only (detach the inputs, or run on one process)")
     home = own[0].device
     batch_dim = 0 if data_axis is not None and own[0].dim() >= 3 else None
-    grid = mesh.grid(data_axis if batch_dim is not None else None, axis)
+    row_axis = data_axis if batch_dim is not None else None
+    grid, ranks = mesh.grid(row_axis, axis), mesh.rank_grid(row_axis, axis)
+    rows, cols = mesh.own(row_axis, axis)
     d = len(grid[0])
-    blocks = [split_blocks(x, grid, batch_dim) for x in own]
-    outs = []
-    for r, devs in enumerate(grid):
-        mine = [tuple(b[r][c] for b in blocks) for c in range(d)]
-        circ = [m[:n_circ] for m in mine]
-        acc = [None] * d
-        for k in range(d):
-            for c in range(d):
-                with on_device(devs[c]):
-                    acc[c] = hop(k, mine[c], circ[c], acc[c])
-            if k < d - 1:
-                circ = [tuple(send(x, devs[c]) for x in circ[c - 1]) for c in range(d)]
-        outs.append([finish(a) for a in acc])
-    return tuple(gather_blocks([[o[i] for o in row] for row in outs], home, batch_dim)
-                 for i in range(len(outs[0][0])))
+    blocks = [split_blocks(x, [[grid[r][c] for c in cols] for r in rows], batch_dim)
+              for x in own]
+    mine = [[tuple(b[i][j] for b in blocks) for j in range(len(cols))] for i in range(len(rows))]
+    circ = [[m[:n_circ] for m in row] for row in mine]
+    acc = [[None] * len(cols) for _ in rows]
+    for k in range(d):
+        for i, r in enumerate(rows):
+            for j, c in enumerate(cols):
+                with on_device(grid[r][c]):
+                    acc[i][j] = hop(k, mine[i][j], circ[i][j], acc[i][j])
+        if k < d - 1:
+            circ = _shift(circ, rows, cols, grid, ranks, d)
+    outs = [[finish(a) for a in row] for row in acc]
+    result = tuple(gather_blocks([[o[i] for o in row] for row in outs], home, batch_dim)
+                   for i in range(len(outs[0][0])))
+    return result if glob is None else tuple(glob.with_local(x) for x in result)
 
 
 # -- gravity ------------------------------------------------------------------
@@ -114,20 +191,27 @@ def ring_gravity_forces(
     """Forces for pos [(B,) N, 2] with agents over mesh[axis]. Hop 0 takes
     the self form (gravity_forces_tiled(pos_l), whose VJP kernel takes
     u_j - u_k before any product, DESIGN.md section 4b); hops >= 1 the cross
-    form. Differentiable when pos requires grad."""
+    form. Differentiable when pos requires grad. Under torch.export the
+    hops go through ops/library.py's custom ops (the same kernels, so the
+    same bits; utils/export.py's fleet step)."""
     mesh = mesh or default_mesh()
-    _check_divisible(pos, mesh, data_axis)
-    n = pos.shape[-2]
-    (pos,), _ = _pad_agents([pos], n, mesh.shape[axis])
+    (pos,), n = _prepare([pos], mesh, axis, data_axis)
     gcfg = cfg.gravity
+    if torch.compiler.is_exporting():
+        self_form, cross_form = library.gravity_forces, library.gravity_forces_cross
+    else:
+        self_form = pairwise.gravity_forces_tiled
+
+        def cross_form(p, pj, c):
+            return pairwise.gravity_forces_tiled(p, c, pos_j=pj)
 
     def hop(k, mine, circ, acc):
         if k == 0:
-            return pairwise.gravity_forces_tiled(mine[0], gcfg)
-        return acc + pairwise.gravity_forces_tiled(mine[0], gcfg, pos_j=circ[0])
+            return self_form(mine[0], gcfg)
+        return acc + cross_form(mine[0], circ[0], gcfg)
 
     (g,) = _ring(mesh, axis, data_axis, (pos,), 1, hop, lambda acc: (acc,))
-    return g[..., :n, :]
+    return _trim(g, n)
 
 
 # -- boids --------------------------------------------------------------------
@@ -147,9 +231,7 @@ def ring_boids_velocity(
     only), and dense.boids_finalize takes the guarded means once. Rule 3 is
     the full masked fold: global_alignment is the single-device kernel's."""
     mesh = mesh or default_mesh()
-    _check_divisible(pos, mesh, data_axis)
-    n = pos.shape[-2]
-    (pos, vel), _ = _pad_agents([pos, vel], n, mesh.shape[axis])
+    (pos, vel), n = _prepare([pos, vel], mesh, axis, data_axis)
     bcfg = cfg.boids
 
     def hop(k, mine, circ, acc):
@@ -159,7 +241,7 @@ def ring_boids_velocity(
 
     (v,) = _ring(mesh, axis, data_axis, (pos, vel), 2, hop,
                  lambda acc: (dense.boids_finalize(acc, bcfg),))
-    return v[..., :n, :]
+    return _trim(v, n)
 
 
 # -- vision -------------------------------------------------------------------
@@ -174,16 +256,26 @@ def _render_ring(pos, vel, vcfg: VisionConfig, mesh: Mesh, axis: str, data_axis,
     is elementwise). `diff` applies the eyes' autograd Functions whatever
     grad mode says. A texture is replicated: each hop samples its copy on
     the shard's device, and a pixel's merged shade is the one hop's that
-    won it."""
-    _check_divisible(pos, mesh, data_axis)
-    n = pos.shape[-2]
-    (pos, vel), _ = _pad_agents([pos, vel], n, mesh.shape[axis])
-    dirs = camera.unit_heading(vel)
+    won it. Under torch.export the hops go through the eyes' custom ops,
+    the forward without a texture."""
+    exporting = torch.compiler.is_exporting()
+    if exporting and (diff or texture is not None):
+        raise ValueError("the exported eye ring is the forward without a texture")
+    (pos, vel), n = _prepare([pos, vel], mesh, axis, data_axis)
+    if isinstance(vel, GlobalTensor):
+        if diff:
+            raise NotImplementedError("ring_render_rows_diff across processes is not ported: "
+                                      "the distributed ring runs the forward only")
+        dirs = vel.with_local(camera.unit_heading(vel.local))
+    else:
+        dirs = camera.unit_heading(vel)
     wf = vcfg.sprite_mode == "wireframe"
 
     copies = {}  # the replicated texture, one copy per device
 
     def partial(eye_pos, eye_dir, circ):
+        if exporting:
+            return library.eye_against(eye_pos, eye_dir, circ[0], circ[-1], vcfg)
         tex = None
         if texture is not None:
             tex = copies.setdefault(eye_pos.device, texture.to(eye_pos.device))
@@ -203,7 +295,7 @@ def _render_ring(pos, vel, vcfg: VisionConfig, mesh: Mesh, axis: str, data_axis,
         return part if acc is None else render.merge_rows(acc, part)
 
     shade, depth = _ring(mesh, axis, data_axis, (pos, dirs), 2 if wf else 1, hop)
-    return shade[..., :n, :], depth[..., :n, :]
+    return _trim(shade, n), _trim(depth, n)
 
 
 def ring_render_rows(
@@ -221,7 +313,8 @@ def ring_render_rows(
     sliced off). `texture` [Ht, Wt] is the skin every hop samples (the JAX
     ring's replicated texture; it takes no per-agent albedo, nor does this
     one). Differentiable when pos or vel requires grad (the wireframe with
-    a texture too)."""
+    a texture too). Under torch.export as ring_gravity_forces' (no
+    texture)."""
     return _render_ring(pos, vel, vcfg, mesh or default_mesh(), axis, data_axis, diff=False,
                         texture=texture)
 
@@ -258,21 +351,21 @@ def ring_render_rows_diff(
 
 def gravity_step(state: SceneState, cfg: SimConfig, generator=None,
                  mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = mesh or default_mesh()
+    mesh = local_mesh(mesh, "the ring backend's stepper")
     g = ring_gravity_forces(state.pos, cfg, mesh=mesh, data_axis=data_axis_of(mesh))
     return dense.gravity_integrate(state, g, cfg)
 
 
 def boids_step(state: SceneState, cfg: SimConfig, generator=None,
                mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = mesh or default_mesh()
+    mesh = local_mesh(mesh, "the ring backend's stepper")
     new_vel = ring_boids_velocity(state.pos, state.vel, cfg, mesh=mesh,
                                   data_axis=data_axis_of(mesh))
     return dense.boids_integrate(state, new_vel, cfg)
 
 
 def render_lines(state: SceneState, cfg: VisionConfig, mesh: Optional[Mesh] = None):
-    mesh = mesh or default_mesh()
+    mesh = local_mesh(mesh, "the ring backend's render")
     return ring_render_rows(state.pos, state.vel, cfg, mesh=mesh, data_axis=data_axis_of(mesh))[0]
 
 

@@ -65,9 +65,12 @@ def _reinforce_advantages(rets: torch.Tensor, standardize: bool) -> torch.Tensor
 
 def check_mesh_envs(mesh, num_envs: int) -> None:
     """The ring pads the agent axis to any N, but the env batch must divide
-    the mesh's data axis: raise that before any rollout."""
-    from ..parallel.mesh import data_axis_of
+    the mesh's data axis: raise that before any rollout. The trainers run
+    on one process: a mesh across processes raises."""
+    from ..parallel.mesh import data_axis_of, local_mesh
 
+    if mesh is not None:
+        local_mesh(mesh, "training on a mesh")
     da = data_axis_of(mesh)
     if da is not None and num_envs % mesh.shape[da]:
         raise ValueError(
@@ -138,11 +141,13 @@ def mesh_env_fns(env: VisionEnv, mesh, diff: bool = False):
     """(observe, dynamics) over batched states [B, N, 2]: the env's own
     without a mesh; with an agent axis the ring's (the JAX
     `_batched_env_fns`; the eye through ring_render_rows_diff with `diff`);
-    on a data-only mesh the env's on each data shard (`_dp_mesh_env_fns`)."""
-    from ..parallel.mesh import agent_axis_of
+    on a data-only mesh the env's on each data shard (`_dp_mesh_env_fns`).
+    A mesh across processes raises (the trainers run on one process)."""
+    from ..parallel.mesh import agent_axis_of, local_mesh
 
     if mesh is None:
         return env.observe, env.dynamics
+    local_mesh(mesh, "training on a mesh")
     if agent_axis_of(mesh) is None:
         return (lambda s: _on_data_shards(mesh, lambda b: (b, env.observe(b)), s)[1],
                 lambda s, a: _on_data_shards(mesh, lambda b, x: (env.dynamics(b, x),),

@@ -23,7 +23,9 @@ both eyes, on the same kernels), "gspmd" its
 dense cross-check (parallel/auto.py; its eye renders dense, as in the JAX
 package). "auto" is the ring when more than one CUDA device is visible, else
 "pallas". The ring and gspmd take the `mesh` given to Scene, else
-parallel.mesh.default_mesh() (every visible CUDA device). Batched states
+parallel.mesh.default_mesh() (every visible CUDA device), and refuse a
+mesh across processes (parallel.mesh.local_mesh): a Scene runs on one
+process. Batched states
 ([B, N, 2] leaves from `spawn_envs`) go to the kernels and the ring whole,
 the env axis a grid dimension. Rollouts are a Python loop; PyTorch runs
 eagerly, so there is no compiled scan to cache.
@@ -104,7 +106,7 @@ def _render_fn(cfg: SimConfig, mesh=None) -> Callable:
         from .parallel import ring
 
         def ring_rows(pos, vel, texture=None):
-            m = mesh or mesh_lib.default_mesh()
+            m = mesh_lib.local_mesh(mesh, "Scene's ring backend")
             return ring.ring_render_rows(pos, vel, vcfg, mesh=m, data_axis=mesh_lib.data_axis_of(m),
                                          texture=texture)
 

@@ -2,8 +2,8 @@
 closed-loop step exported with torch.export as a `.pt2` program, the
 kernels inside it as custom ops (ops/library.py), loadable and exact
 without the checkpoint, net or env at the serving site. Mirrors
-tests/test_export.py; its mesh case (the fleet step) becomes the port's
-refusal.
+tests/test_export.py; its mesh case (the fleet step) is in
+test_torch_fleet_export.py.
 
 Tolerance: none. The program calls the same wrappers (here their plain
 versions on the CPU) and the same ATen ops as the live step, so the
@@ -20,6 +20,8 @@ import torch
 
 from nenbody_tpu_torch import Scene, SceneState, SimConfig, VisionConfig, cli
 from nenbody_tpu_torch.ops import common
+from nenbody_tpu_torch.parallel import make_mesh
+from nenbody_tpu_torch.parallel import mesh as mesh_lib
 from nenbody_tpu_torch.rl.env import VisionEnv
 from nenbody_tpu_torch.rl.policy import ConvPolicy, flax_from_state_dict, init_mlp_policy, seeded
 from nenbody_tpu_torch.state import spawn, spawn_batch
@@ -121,11 +123,12 @@ def test_export_refusals():
         export_lib.export_policy_step(env, policy, steps=0)
     with pytest.raises(ValueError, match="steps"):
         export_lib.export_sim_step(SimConfig(n=8, controller="gravity"), steps=-1, device="cpu")
-    with pytest.raises(ValueError, match="item 17"):
-        export_lib.export_policy_step(env, policy, num_envs=2, mesh=object())
+    with pytest.raises(ValueError, match="num_envs"):  # a fleet step needs its env batch
+        export_lib.export_policy_step(
+            env, policy, mesh=make_mesh({"data": 2, "agents": 4}, devices=["cpu"] * 8))
 
 
-def test_export_cli(tmp_path, capsys):
+def test_export_cli(tmp_path, capsys, monkeypatch):
     env, policy = _env_and_policy()
     pol = ck.save_pytree(str(tmp_path / "pol.npz"), flax_from_state_dict(policy))
     out = str(tmp_path / "step.pt2")
@@ -140,8 +143,9 @@ def test_export_cli(tmp_path, capsys):
     with pytest.raises(SystemExit):  # gru stays on the live playback path
         cli.main(base + ["--policy", pol, "--net", "gru", "--out", out])
     capsys.readouterr()
+    monkeypatch.setattr(mesh_lib, "visible_devices", lambda: [torch.device("cpu")] * 8)
     for argv, message in ((["--policy", str(tmp_path / "nope.npz")], "not found"),
-                          (["--mesh", "2x4", "--policy", pol], "item 17"),
+                          (["--mesh", "2x4", "--policy", pol], "num_envs"),
                           (["--steps", "0"], "steps must be >= 1")):
         assert cli.main(base + argv + ["--out", out]) == 2
         assert message in capsys.readouterr().err
