@@ -114,8 +114,18 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 them: ring gravity at config 4, ring boids at N=65,536,
                 the disc and wireframe eye rings at config 2, each held
                 against the one-device kernels (phase_ring's bounds) and
-                timed beside one process on 4 shards; a worker's non-zero
-                exit fails the smoke, its launch counts join the line.
+                timed beside one process on 4 shards; then training across
+                them at config-5 width (TWO_PROCESS_TRAIN: APG diff_vision
+                with each sprite at horizon 1, PPO with the central critic
+                and REINFORCE at horizon 8, float32 nets), each step's loss
+                and gradients held against the same step on one process on
+                4 shards of cuda:0 (RING_LOSS_RTOL, RING_GRAD_BOUND), the
+                two processes' parameters equal bit for bit, then each
+                timed at horizon 8 with the default nets (s/iteration and
+                peak memory per process); the gravity VJP and both eye
+                backward kernels launch across the boundary; a worker's
+                non-zero exit fails the smoke, its launch counts join the
+                line.
      rdma     — the RDMA ring (nenbody_tpu_torch.parallel.rdma, one launch
                 per card walking every hop) on the same 4-shard mesh:
                 gravity at config 4 and at config-5 width, boids at
@@ -2159,8 +2169,16 @@ def hold_mesh_grads(label: str, env: VisionEnv, mesh) -> None:
 MULTICHIP = {"dryrun_multichip(8)": ("gravity", "disc_eye", "gravity_vjp", "disc_eye_bwd",
                                      "wireframe_eye"),
              "fleet step": ("gravity", "disc_eye"),
-             "two processes": ("gravity", "boids_partials", "disc_eye", "wireframe_eye")}
+             "two processes": ("gravity", "boids_partials", "disc_eye", "wireframe_eye",
+                               "gravity_vjp", "disc_eye_bwd", "wireframe_eye_bwd")}
 MULTICHIP_WORKER_S = 300  # the most seconds the two worker processes may take together
+# The two-process part's training steps at config-5 width, each held
+# against the same step on one process on 4 shards of cuda:0 (the loss at
+# RING_LOSS_RTOL, the gradients at RING_GRAD_BOUND of their norm), then
+# timed at TRAIN_HORIZON: TWO_PROCESS_ITERS iterations after one warm-up
+TWO_PROCESS_TRAIN = ("apg diff_vision disc", "apg diff_vision wireframe", "ppo central critic",
+                     "reinforce")
+TWO_PROCESS_ITERS = 2
 MULTICHIP_REPS = 5  # timed calls of each ring call, after the counted one
 MULTICHIP_STEPS = 20  # chained fleet steps a timing
 # The fleet step's action against the one-device step's: the bf16
@@ -2207,6 +2225,95 @@ def ring_calls(mesh, cfg4, pos, vel, cfg2, s2, lift=lambda x: x):
     return calls
 
 
+def two_process_step(label: str, mesh, hold: bool):
+    """(train state, step) of one of TWO_PROCESS_TRAIN at config-5 width on
+    `mesh`. With `hold`: float32 nets (a bf16 layer rounds each process's
+    partial weight gradient to bfloat16, ROADMAP queue 3), APG at horizon 1
+    (where its gradients are well conditioned, hold_mesh_grads) and PPO on
+    SGD (its later minibatches' gradients then move linearly with the
+    earlier ones'); else the trainers' defaults at TRAIN_HORIZON."""
+    from nenbody_tpu_torch.rl import ppo
+    from nenbody_tpu_torch.rl.policy import CentralValueMLP, init_mlp_policy, seeded
+
+    algo = label.split()[0]
+    sprite = label.split()[-1] if algo == "apg" else "disc"
+    vcfg = VisionConfig(width=TRAIN_WIDTH, sprite_mode=sprite, antialias=algo == "apg")
+    env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity", vision=vcfg),
+                    reward_mode="visibility" if algo == "apg" else "cohesion")
+    policy = init_mlp_policy(env.obs_width, 0, use_bf16=not hold)
+    if algo == "apg":
+        ts = apg.init_apg_state(env, seed=0, policy=policy, device="cuda", mesh=mesh)
+        return ts, apg.make_apg_step(env, horizon=1 if hold else TRAIN_HORIZON,
+                                     num_envs=TRAIN_ENVS, mesh=mesh, diff_vision=True)
+    if algo == "ppo":
+        value = seeded(1, lambda: CentralValueMLP(env.obs_width, use_bf16=not hold))
+        ts = ppo.init_ppo_state(env, seed=0, policy=policy, value=value, device="cuda",
+                                optimizer=torch.optim.SGD if hold else torch.optim.Adam,
+                                mesh=mesh)
+        return ts, ppo.make_ppo_step(env, horizon=TRAIN_HORIZON, num_envs=TRAIN_ENVS, mesh=mesh,
+                                     central_critic=True)
+    ts = train.init_train_state(env, TRAIN_ENVS, seed=0, policy=policy, device="cuda", mesh=mesh)
+    return ts, train.make_train_step(env, horizon=TRAIN_HORIZON, mesh=mesh)
+
+
+def train_across(mesh) -> dict:
+    """Each of TWO_PROCESS_TRAIN on `mesh` (this process's block where it
+    spans processes): the held step's metrics and the flat gradients and
+    parameters after it (on the host), then the timed iterations' seconds
+    each and the peak device memory of the timed runs."""
+    out = {}
+    for label in TWO_PROCESS_TRAIN:
+        ts, step = two_process_step(label, mesh, hold=True)
+        ts, metrics = step(ts)
+        modules = [ts.policy] + ([ts.value] if hasattr(ts, "value") else [])
+        params = [p for m in modules for p in m.parameters()]
+        out[label] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                      "grads": torch.cat([p.grad.flatten() for p in params]).cpu(),
+                      "params": torch.cat([p.detach().flatten() for p in params]).cpu()}
+        del ts, step, params, modules
+        ts, step = two_process_step(label, mesh, hold=False)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ts, metrics = step(ts)  # warm-up
+        secs = []
+        for _ in range(TWO_PROCESS_ITERS):
+            t0 = time.perf_counter()
+            ts, metrics = step(ts)
+            expect(all(math.isfinite(float(v)) for v in metrics.values()),
+                   f"{label}: finite metrics")
+            secs.append(time.perf_counter() - t0)
+        out[label].update(sec=secs, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del ts, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def held_metric(label: str) -> str:
+    """The metric a two-process step's loss hold reads: the loss, but
+    REINFORCE's return_mean. REINFORCE's loss, mean(log p * advantage) with
+    standardized advantages, is about 1/1,250 of the mean |term| at init
+    (measured at 256 envs on the CPU), so float32 summation alone moves it
+    by 2e-5 relative: no bound at RING_LOSS_RTOL holds it in another
+    order, and its gradients, held below, carry the same sums."""
+    return "return_mean" if label == "reinforce" else "loss"
+
+
+def hold_trained(label: str, got: dict, want: dict) -> tuple:
+    """(held_metric's |difference| / |one process|, gradients' |difference|
+    / |one process|) of a two-process step against one process's; each
+    within its bound."""
+    key = held_metric(label)
+    g, w = got["metrics"][key], want["metrics"][key]
+    rel_loss = abs(g - w) / abs(w)
+    rel_grad = ((got["grads"] - want["grads"]).norm() / want["grads"].norm()).item()
+    expect(all(math.isfinite(v) for v in got["metrics"].values()), f"{label}: finite metrics")
+    expect(want["grads"].norm().item() > 0, f"{label}: nonzero gradients")
+    expect(rel_loss < RING_LOSS_RTOL, f"{label}: {key} {g} agrees with one process's {w}")
+    expect(rel_grad < RING_GRAD_BOUND, f"{label}: the gradients agree with one process's "
+           f"({rel_grad:.3e} of their norm)")
+    return rel_loss, rel_grad
+
+
 def multichip_worker(rank: str, port: str, out: str) -> None:
     """`chip_smoke.py --multichip-worker RANK PORT OUT`: one of the
     multichip phase's two processes. Two shards of cuda:0 each, joined on
@@ -2215,7 +2322,9 @@ def multichip_worker(rank: str, port: str, out: str) -> None:
     of ring_calls' inputs, runs each call once with the launch counts set to
     0 just before and read just after, holds its block against the
     one-device kernels (phase_ring's bounds), times MULTICHIP_REPS more
-    calls, and writes counts and times as JSON to OUT."""
+    calls, and writes counts and times as JSON to OUT. Then the training
+    part (train_across) with the launch counts set to 0 just before it and
+    read just after, its results written beside OUT (`.train.pt`)."""
     import torch.distributed as dist
 
     from nenbody_tpu_torch.parallel import mesh as mesh_lib
@@ -2264,16 +2373,33 @@ def multichip_worker(rank: str, port: str, out: str) -> None:
                           (got[0].local, got[1].local), (one[0][lo:hi], one[1][lo:hi]), vcfg)
             dist.barrier()
             result["ms"][label] = host_ms(call, MULTICHIP_REPS)
+    del pos, vel, s2
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.synchronize()
+    common.reset_launch_counts()
+    trained = train_across(mesh)
+    torch.cuda.synchronize()
+    result["counts"]["training"] = common.launch_counts()
+    for label, r in trained.items():
+        log("multichip", f"p{rank}: {label} across 2 processes, loss {r['metrics']['loss']:.8e}; "
+            f"s/iteration {', '.join('%.4f' % t for t in r['sec'])} at horizon {TRAIN_HORIZON}; "
+            f"peak device memory {r['peak_gib']:.2f} GiB")
+    torch.save(trained, out + ".train.pt")
     with open(out, "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
 
 
-def two_processes(card: str, single_ms: dict) -> dict:
+def two_processes(card: str, single_ms: dict, single_train: dict) -> dict:
     """The multichip phase's part (c): two worker processes
     (multichip_worker) started with sys.executable after this process has
     built the kernel library; either's non-zero exit or a timeout fails the
-    smoke. Returns their launch counts, summed."""
+    smoke. Their ring calls are logged beside one process's times
+    (`single_ms`), their training steps held against one process's
+    (`single_train`, train_across on 4 shards of cuda:0) and their two
+    replicas' parameters against each other, bit for bit. Returns their
+    launch counts, summed."""
     import os
     import socket
 
@@ -2303,6 +2429,32 @@ def two_processes(card: str, single_ms: dict) -> dict:
         with open(out) as f:
             results.append(json.load(f))
     total = dict.fromkeys(KERNEL_INFO, 0)
+    for r in results:
+        for k, v in r["counts"]["training"].items():
+            total[k] += v
+    trains = [torch.load(out + ".train.pt") for out in outs]
+    for label in TWO_PROCESS_TRAIN:
+        want = single_train[label]
+        held = [hold_trained(f"p{rank} {label}", t[label], want) for rank, t in enumerate(trains)]
+        expect(torch.equal(trains[0][label]["params"], trains[1][label]["params"]),
+               f"{label}: both processes' parameters are equal bit for bit after the step")
+        log("multichip", f"{label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH} on 2 processes "
+            f"x 2 shards of cuda:0 (gloo), held at horizon "
+            f"{1 if label.startswith('apg') else TRAIN_HORIZON} with float32 nets: "
+            f"{held_metric(label)} |difference| / |one process| "
+            f"{', '.join('%.3e' % h[0] for h in held)} (bound "
+            f"{RING_LOSS_RTOL:.0e}), gradients {', '.join('%.3e' % h[1] for h in held)} of "
+            f"their norm (bound {RING_GRAD_BOUND:.0e}); parameters of the two processes equal bit "
+            f"for bit; loss {', '.join('%.8e' % t[label]['metrics']['loss'] for t in trains)}, "
+            f"one process {want['metrics']['loss']:.8e}; s/iteration at horizon {TRAIN_HORIZON} "
+            f"(default nets) "
+            f"{'; '.join(', '.join('%.4f' % x for x in t[label]['sec']) for t in trains)} "
+            f"(each process), one process x 4 shards "
+            f"{', '.join('%.4f' % x for x in want['sec'])}; peak device memory "
+            f"{', '.join('%.2f' % t[label]['peak_gib'] for t in trains)} GiB (one process "
+            f"{want['peak_gib']:.2f}) [{card}]")
+    log("multichip", f"the two processes' training launches "
+        f"{[{k: v for k, v in r['counts']['training'].items() if v} for r in results]} [{card}]")
     for label in results[0]["ms"]:
         for r in results:
             for k, v in r["counts"][label].items():
@@ -2324,7 +2476,10 @@ def phase_multichip(card: str) -> dict:
     held against the one-device .pt2 step (pos and vel at
     RING_GRAVITY_BOUND, the action at FLEET_ACTION_ATOL) and timed beside
     it; (c) two processes
-    (two_processes). Returns the launch counts of all three."""
+    (two_processes): the ring calls, then REINFORCE, APG diff_vision (both
+    sprites) and PPO with the central critic at config-5 width across them,
+    held against one process (train_across). Returns the launch counts of
+    all three."""
     from nenbody_tpu_torch.entry import dryrun_multichip
     from nenbody_tpu_torch.rl.policy import init_mlp_policy
     from nenbody_tpu_torch.state import spawn_batch
@@ -2400,12 +2555,16 @@ def phase_multichip(card: str) -> dict:
         for label, call in ring_calls(mesh4, *ring_inputs()).items():
             call()
             single_ms[label] = host_ms(call, MULTICHIP_REPS)
+    single_train = train_across(mesh4)
+    del fleet, one, live, s, got, want, base
+    torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    for k, v in two_processes(card, single_ms).items():
-        total[k] += v
-    missing = [k for k in MULTICHIP["two processes"] if total[k] == 0]
+    two = two_processes(card, single_ms, single_train)
+    missing = [k for k in MULTICHIP["two processes"] if two[k] == 0]
     if missing:
         raise AssertionError(f"the two processes never launched {missing}")
+    for k, v in two.items():
+        total[k] += v
     log("multichip", f"two processes ran in {time.perf_counter() - t2:.2f} s; the phase in "
         f"{time.perf_counter() - t0:.2f} s")
     return total

@@ -10,7 +10,10 @@ dense cross forms of physics.dense there. It materializes [N/D, N] pair
 tensors per shard, and is the ring's independent cross-check (the two must
 agree; tests/test_torch_ring.py). On a mesh across processes it takes
 mesh.GlobalTensors: each process evaluates its own shards' rows against
-the whole arrays, all-gathered over the process group (dist.all_gather).
+the whole arrays, all-gathered over the process group (dist.all_gather);
+there the eye's rows are rendered so too (auto_render_rows, the dense eye
+Scene's gspmd route takes), and the steppers take GlobalTensor states
+(parallel/ring.py's mesh_of).
 """
 
 from __future__ import annotations
@@ -19,17 +22,19 @@ from typing import Optional
 
 import torch
 
-from ..config import SimConfig
+from ..config import SimConfig, VisionConfig
 from ..physics import dense
 from ..state import SceneState
-from .mesh import AGENT_AXIS, Mesh, data_axis_of, default_mesh, gather_blocks, gather_global
-from .mesh import local_mesh, on_device, split_blocks
-from .ring import _check_divisible, _global_inputs
+from ..vision import render
+from .mesh import AGENT_AXIS, Mesh, default_mesh, gather_blocks, gather_global, on_device
+from .mesh import split_blocks
+from .ring import _check_divisible, _global_inputs, integrate_blocks, mesh_of, random_step
 
 
 def _rows_against_all(arrays, mesh: Mesh, axis: str, data_axis: Optional[str], fn):
     """fn(i-row blocks, whole arrays, row offset) on each shard's device, its
-    output gathered back to arrays[0]'s device. Global tensors (a mesh
+    output (a tensor or a tuple of them) gathered back to arrays[0]'s
+    device. Global tensors (a mesh
     across processes): this process's shards only, the whole arrays
     all-gathered over the group (mesh.gather_global, what XLA inserts for
     the JAX gspmd backend), and the result global again."""
@@ -60,8 +65,13 @@ def _rows_against_all(arrays, mesh: Mesh, axis: str, data_axis: Optional[str], f
                 row.append(fn(mine, [w[r][c] for w in whole], offset))
             offset += mine[0].shape[-2]
         out.append(row)
-    result = gather_blocks(out, home, batch_dim)
-    return result if glob is None else glob.with_local(result)
+    single = isinstance(out[0][0], torch.Tensor)
+    parts = [out] if single else [[[o[i] for o in row] for row in out]
+                                  for i in range(len(out[0][0]))]
+    results = [gather_blocks(p, home, batch_dim) for p in parts]
+    if glob is not None:
+        results = [glob.with_local(x) for x in results]
+    return results[0] if single else tuple(results)
 
 
 def auto_gravity_forces(
@@ -93,22 +103,40 @@ def auto_boids_velocity(
     return _rows_against_all([pos, vel], mesh or default_mesh(), axis, data_axis, rows)
 
 
+def auto_render_rows(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    vcfg: VisionConfig,
+    mesh: Optional[Mesh] = None,
+    axis: str = AGENT_AXIS,
+    data_axis: Optional[str] = None,
+    texture: Optional[torch.Tensor] = None,
+):
+    """(shade, depth) [(B,) N, W]: each shard's eyes against every agent on
+    the dense eye (vision.render.render_rows' targets), the eye rows split
+    over mesh[axis]."""
+    return _rows_against_all(
+        [pos, vel], mesh or default_mesh(), axis, data_axis,
+        lambda mine, whole, offset: render.render_rows(
+            mine[0], mine[1], vcfg, targets=whole[0], target_vel=whole[1], texture=texture))
+
+
 def gravity_step(state: SceneState, cfg: SimConfig, generator=None,
                  mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = local_mesh(mesh, "the gspmd backend's stepper")
-    g = auto_gravity_forces(state.pos, cfg, mesh=mesh, data_axis=data_axis_of(mesh))
-    return dense.gravity_integrate(state, g, cfg)
+    mesh, data_axis = mesh_of(state.pos, mesh, "the gspmd backend's stepper")
+    g = auto_gravity_forces(state.pos, cfg, mesh=mesh, data_axis=data_axis)
+    return integrate_blocks(dense.gravity_integrate, state, g, cfg)
 
 
 def boids_step(state: SceneState, cfg: SimConfig, generator=None,
                mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = local_mesh(mesh, "the gspmd backend's stepper")
-    nv = auto_boids_velocity(state.pos, state.vel, cfg, mesh=mesh, data_axis=data_axis_of(mesh))
-    return dense.boids_integrate(state, nv, cfg)
+    mesh, data_axis = mesh_of(state.pos, mesh, "the gspmd backend's stepper")
+    nv = auto_boids_velocity(state.pos, state.vel, cfg, mesh=mesh, data_axis=data_axis)
+    return integrate_blocks(dense.boids_integrate, state, nv, cfg)
 
 
 STEPPERS = {
     "gravity": gravity_step,
     "boids": boids_step,
-    "random": dense.random_step,
+    "random": random_step,
 }

@@ -25,6 +25,16 @@ in rank-major order (each device of the mesh knows the rank that owns it).
 the ring and the gspmd backend take GlobalTensors, run the hops of their
 own process's shards, and move blocks across a process boundary over the
 group (`exchange`, `gather_global`).
+
+The collectives the trainers need there are differentiable, as XLA's are
+for the JAX package: `exchange` is an autograd Function whose backward is
+the same exchange the other way (each received block's cotangent goes back
+to the rank that sent it), and `all_reduce_sum` sums over the ranks of a
+mesh row, a column or the whole mesh (its backward all-reduces the
+cotangent over the same ranks; `Mesh.process_group` builds the groups once
+a mesh). `all_reduce_grads` sums a replicated module's gradients after
+backward() and `broadcast_module` copies rank 0's parameters at init, as
+DDP does.
 """
 
 from __future__ import annotations
@@ -66,6 +76,7 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
         self.ranks = list(ranks) if ranks is not None else None
+        self._groups = None  # process_group's, built on first use
 
     @property
     def distributed(self) -> bool:
@@ -131,6 +142,44 @@ class Mesh:
                 raise ValueError(f"process {me}'s devices are not one block of the mesh's "
                                  f"({data_axis}, {agent_axis}) grid")
         return rows, cols
+
+    def process_group(self, axis: Optional[str]):
+        """The process group of the ranks whose devices differ from this
+        process's only along `axis` (a mesh row for AGENT_AXIS, a column for
+        DATA_AXIS; every rank of the mesh for None), or None where that is
+        this process alone (nothing to reduce; so for an axis the mesh does
+        not have). A collective on first use: every process builds every
+        group of the mesh, in one order."""
+        if not self.distributed or (axis is not None and axis not in self.shape):
+            return None
+        if self._groups is None:
+            self._groups = self._make_groups()
+        return self._groups[axis]
+
+    def _make_groups(self) -> dict:
+        lines = {}  # (axis, the other axes' coordinates) -> ranks along the axis
+        for axis in (*self.axis_names, None):
+            for i, r in enumerate(self.ranks):
+                key = () if axis is None else tuple(
+                    v for k, v in self._coords(i).items() if k != axis)
+                lines.setdefault((axis, key), set()).add(r)
+        every = sorted(set(self.ranks))
+        made = {}
+        for ranks in sorted({tuple(sorted(r)) for r in lines.values()}):
+            if len(ranks) == 1:
+                made[ranks] = None
+            elif list(ranks) == every and len(every) == dist.get_world_size():
+                made[ranks] = dist.group.WORLD
+            else:  # dist.new_group is called by every process, for every group
+                made[ranks] = dist.new_group(list(ranks))
+        me, groups = dist.get_rank(), {}
+        for (axis, _), ranks in lines.items():
+            if me in ranks:
+                ranks = tuple(sorted(ranks))
+                if groups.setdefault(axis, ranks) != ranks:
+                    raise ValueError(f"process {me}'s devices meet different ranks along mesh "
+                                     f"axis {axis!r}: no one group reduces over it")
+        return {axis: made[ranks] for axis, ranks in groups.items()}
 
     def __repr__(self) -> str:
         ranks = f", ranks={self.ranks}" if self.ranks is not None else ""
@@ -238,16 +287,57 @@ def _staged(x: torch.Tensor) -> bool:
 def _to_wire(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     if _staged(x):
+        # a non-blocking copy on x's stream, then a sync of that stream: the
+        # autograd engine runs a CUDA backward on its own thread, whose
+        # exchanges must not wait on the host thread's stream
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x)
+        host.copy_(x, non_blocking=True)
+        torch.cuda.current_stream(x.device).synchronize()
         return host
     return x
 
 
-def _wire_buffer(like: torch.Tensor, device: torch.device) -> torch.Tensor:
+def _wire_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
     if device.type == "cuda" and _GROUP is not None and _GROUP.backend == "gloo":
-        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
-    return torch.empty(like.shape, dtype=like.dtype, device=device)
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _exchange(sends, recvs) -> List[torch.Tensor]:
+    """sends (tensor, peer, tag); recvs (shape, dtype, device, peer, tag)."""
+    wire = [_to_wire(x) for x, _, _ in sends]
+    bufs = [_wire_buffer(shape, dtype, dev) for shape, dtype, dev, _, _ in recvs]
+    ops = [dist.P2POp(dist.isend, x, peer, tag=tag) for x, (_, peer, tag) in zip(wire, sends)]
+    ops += [dist.P2POp(dist.irecv, b, peer, tag=tag)
+            for b, (_, _, _, peer, tag) in zip(bufs, recvs)]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(dev, non_blocking=True) for b, (_, _, dev, _, _) in zip(bufs, recvs)]
+
+
+class _Exchange(torch.autograd.Function):
+    """exchange as an autograd node: the transpose of sending a block to a
+    peer is receiving its cotangent from that peer, so the backward is the
+    same exchange with sends and receives swapped (the JAX backward ring's
+    circulating `gblk`). Every process reaches its nodes in one order: each
+    hop's node depends on the previous hop's outputs."""
+
+    @staticmethod
+    def forward(ctx, send_to, recvs, *xs):
+        # an output that got no gradient still sends its zeros back
+        ctx.set_materialize_grads(True)
+        ctx.send_to, ctx.recvs = send_to, recvs
+        ctx.sent = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(_exchange([(x, peer, tag) for x, (peer, tag) in zip(xs, send_to)], recvs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = _exchange(
+            [(g, peer, tag) for g, (_, _, _, peer, tag) in zip(grads, ctx.recvs)],
+            [(shape, dtype, dev, peer, tag)
+             for (shape, dtype, dev), (peer, tag) in zip(ctx.sent, ctx.send_to)])
+        return (None, None, *back)
 
 
 def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
@@ -255,15 +345,94 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
     """One dist.batch_isend_irecv: each (tensor, peer rank, tag) of `sends`
     goes out, and each (tensor like the one expected, device, peer rank,
     tag) of `recvs` comes back on `device`, all at once, so no rank waits
-    on another's order. A failed transfer raises (Work.wait)."""
-    wire = [_to_wire(x) for x, _, _ in sends]
-    bufs = [_wire_buffer(like, dev) for like, dev, _, _ in recvs]
-    ops = [dist.P2POp(dist.isend, x, peer, tag=tag) for x, (_, peer, tag) in zip(wire, sends)]
-    ops += [dist.P2POp(dist.irecv, b, peer, tag=tag) for b, (_, _, peer, tag) in zip(bufs, recvs)]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return [b.to(dev, non_blocking=True) for b, (_, dev, _, _) in zip(bufs, recvs)]
+    on another's order. A failed transfer raises (Work.wait).
+    Differentiable (_Exchange) when a sent tensor requires grad: every
+    process must then take part in the backward, as in the forward."""
+    send_to = tuple((peer, tag) for _, peer, tag in sends)
+    meta = tuple((like.shape, like.dtype, dev, peer, tag) for like, dev, peer, tag in recvs)
+    xs = [x for x, _, _ in sends]
+    if recvs and torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return list(_Exchange.apply(send_to, meta, *xs))
+    return _exchange([(x, peer, tag) for x, (peer, tag) in zip(xs, send_to)], meta)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group`, a new tensor on x's device."""
+    wire = _to_wire(x)
+    if wire.data_ptr() == x.data_ptr():
+        wire = wire.clone()
+    dist.all_reduce(wire, group=group)
+    return wire.to(x.device, non_blocking=True)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """y = the sum of x over a group, on every member: each member's x
+    reaches every member's y, so x's cotangent is the sum of the y
+    cotangents over the same group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> torch.Tensor:
+    """x summed over the processes of `mesh` that share this process's
+    place but for `axis` (Mesh.process_group: AGENT_AXIS sums a mesh row's
+    agent blocks, DATA_AXIS a column's env blocks, None every process's);
+    x itself where that is this process alone. Differentiable. A collective:
+    every process of the group calls it."""
+    group = mesh.process_group(axis)
+    if group is None:
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[torch.Tensor]]:
+    out: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        out.setdefault(t.dtype, []).append(t)
+    return out
+
+
+def all_reduce_grads(params, mesh: Optional[Mesh]) -> None:
+    """Sum the gradients of a replicated module's parameters over every
+    process of `mesh`, after backward(): each process's loss is its share
+    of the global mean, so the sum is the gradient of the whole. A missing
+    gradient counts as zero, so every process reduces the same buffers (one
+    flat all-reduce per dtype). Nothing on one process."""
+    if mesh is None or not mesh.distributed:
+        return
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    group = mesh.process_group(None)
+    for grads in _by_dtype([p.grad for p in params]).values():
+        flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+
+def broadcast_module(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
+    """Copy the parameters and buffers of the mesh's first rank into every
+    process's replica (DDP's broadcast at construction), so that replicas
+    built from one seed stay equal bit for bit whatever each process's
+    init drew. Nothing on one process."""
+    if mesh is None or not mesh.distributed:
+        return
+    group, src = mesh.process_group(None), min(mesh.ranks)
+    with torch.no_grad():
+        for ts in _by_dtype([*module.parameters(), *module.buffers()]).values():
+            wire = _to_wire(torch.cat([t.reshape(-1) for t in ts]))
+            dist.broadcast(wire, src, group=group)
+            flat = wire.to(ts[0].device)
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view_as(t))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,17 +571,47 @@ def default_mesh() -> Mesh:
 
 def local_mesh(mesh: Optional[Mesh], what: str) -> Mesh:
     """`mesh`, else default_mesh(), for `what`, which runs on one process
-    (Scene's backends, the trainers, the fleet step): raises where the mesh
-    spans processes, as the default mesh does after init_distributed. Only
-    the ring's and gspmd's entry points take a mesh across processes, with
-    GlobalTensors."""
+    (datagen and BC, whose chunks reach the host whole, as the JAX
+    `_drain` fetches them; the fleet step; plain tensors): raises where the
+    mesh spans processes, as the default mesh does after init_distributed.
+    The ring's and gspmd's entry points, Scene and the trainers take a mesh
+    across processes, with GlobalTensors or each process's block."""
     mesh = mesh or default_mesh()
     if mesh.distributed:
         raise ValueError(f"{what} runs on one process, and this mesh spans "
                          f"{len(set(mesh.ranks))}: pass a mesh of this process's devices "
-                         f"(make_mesh(devices=...)), or GlobalTensors to the ring's and "
-                         f"gspmd's entry points")
+                         f"(make_mesh(devices=...))")
     return mesh
+
+
+def local_blocks(state: SceneState) -> SceneState:
+    """This process's blocks of a SceneState of GlobalTensors (a state of
+    plain tensors as it is)."""
+    return SceneState(**{f.name: getattr(getattr(state, f.name), "local", getattr(state, f.name))
+                         for f in dataclasses.fields(state)})
+
+
+def like_global(local: SceneState, like: SceneState) -> SceneState:
+    """`local`'s leaves as GlobalTensors of `like`'s layout, their blocks
+    of one shape (`local` itself where `like` is plain)."""
+    def leaf(name: str):
+        x, y = getattr(local, name), getattr(like, name)
+        return GlobalTensor(x, y.mesh, y.spec, y.shape) if isinstance(y, GlobalTensor) else x
+
+    return SceneState(**{f.name: leaf(f.name) for f in dataclasses.fields(local)})
+
+
+def stack_global(xs: Sequence, like=None):
+    """torch.stack of tensors or of GlobalTensors (their blocks stacked, a
+    new leading dimension kept whole); `like` gives an empty stack's
+    layout."""
+    first = xs[0] if xs else like
+    if not isinstance(first, GlobalTensor):
+        return torch.stack(xs) if xs else first.new_empty((0, *first.shape))
+    local = (torch.stack([x.local for x in xs]) if xs
+             else first.local.new_empty((0, *first.local.shape)))
+    return GlobalTensor(local, first.mesh, (None, *first.spec),
+                        torch.Size((len(xs), *first.shape)))
 
 
 def data_axis_of(mesh: Optional[Mesh]) -> Optional[str]:

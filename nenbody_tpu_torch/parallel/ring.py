@@ -26,19 +26,25 @@ the hops of its own shards on its local block, the shift between two of
 its shards stays a copy, and the shift from its last shard to the next
 process's first is one dist.batch_isend_irecv per hop (mesh.exchange), so
 no rank waits on another's order. There N must divide the agent axis, as
-the JAX global arrays require, and no input may require grad: autograd
-across a process boundary is not ported (the forward only, as the JAX
-multi-host test runs it).
+the JAX global arrays require. The exchange is an autograd Function (one
+node a hop for all rows), so a gradient crosses the boundary too: every
+process runs backward at once, and each hop's node sends the cotangents of
+the blocks it received back to their sender, in reverse hop order.
 
 Gradients come from autograd, not from a second hand-built ring: each hop's
 partial goes through its autograd Function (GravityForcesDiff on hop 0,
 GravityForcesCrossDiff later, RenderRowsDiff or RenderRowsWireframeDiff for
 the eyes, each saving its own hop's winner index); merge_rows is a
 torch.where, so each hop's backward gets the cotangents of exactly the
-pixels its block won; and the transpose of a peer copy is the copy back, so
-block gradients return home as the JAX backward ring's circulating `gblk`
-does. `ring_render_rows_diff` runs the eye Functions whatever grad mode
-says.
+pixels its block won; and the transpose of a peer copy (or of an exchange
+across processes) is the copy back, so block gradients return home as the
+JAX backward ring's circulating `gblk` does. `ring_render_rows_diff` runs
+the eye Functions whatever grad mode says.
+
+The steppers (Scene's backend="ring") take states of plain tensors on a
+one-process mesh, or of GlobalTensors (mesh.global_state) on their own
+mesh, which may span processes: the ring runs across it, the integration
+on each process's block.
 """
 
 from __future__ import annotations
@@ -53,8 +59,9 @@ from ..ops import library, pairwise, raycast, wireframe
 from ..physics import dense
 from ..state import SceneState
 from ..vision import camera, render
-from .mesh import AGENT_AXIS, GlobalTensor, Mesh, data_axis_of, default_mesh, exchange
-from .mesh import gather_blocks, local_mesh, on_device, send, split_blocks
+from .mesh import AGENT_AXIS, GlobalTensor, Mesh, _block, data_axis_of, default_mesh, exchange
+from .mesh import gather_blocks, like_global, local_blocks, local_mesh, on_device, send
+from .mesh import split_blocks
 
 
 def _check_divisible(pos: torch.Tensor, mesh: Mesh, data_axis: Optional[str]) -> None:
@@ -150,10 +157,6 @@ def _ring(mesh: Mesh, axis: str, data_axis: Optional[str], own: Sequence,
     glob = own[0] if _global_inputs(own, mesh) else None
     if glob is not None:
         own = [x.local for x in own]
-        if any(x.requires_grad for x in own):
-            raise NotImplementedError(
-                "autograd through the ring across processes is not ported: the distributed "
-                "ring runs the forward only (detach the inputs, or run on one process)")
     home = own[0].device
     batch_dim = 0 if data_axis is not None and own[0].dim() >= 3 else None
     row_axis = data_axis if batch_dim is not None else None
@@ -263,9 +266,6 @@ def _render_ring(pos, vel, vcfg: VisionConfig, mesh: Mesh, axis: str, data_axis,
         raise ValueError("the exported eye ring is the forward without a texture")
     (pos, vel), n = _prepare([pos, vel], mesh, axis, data_axis)
     if isinstance(vel, GlobalTensor):
-        if diff:
-            raise NotImplementedError("ring_render_rows_diff across processes is not ported: "
-                                      "the distributed ring runs the forward only")
         dirs = vel.with_local(camera.unit_heading(vel.local))
     else:
         dirs = camera.unit_heading(vel)
@@ -349,28 +349,64 @@ def ring_render_rows_diff(
 # -- steppers (Scene backend="ring") ------------------------------------------
 
 
+def mesh_of(x, mesh: Optional[Mesh], what: str) -> Tuple[Mesh, Optional[str]]:
+    """(mesh, data axis) for a stepper or render of `what` on `x`: a
+    GlobalTensor's own mesh (`mesh`, if given, must be it) with its env
+    axis split as its spec says; for a plain tensor local_mesh(mesh) and its
+    data axis."""
+    if isinstance(x, GlobalTensor):
+        if mesh is not None and mesh is not x.mesh:
+            raise ValueError(f"{what}: the state lives on another mesh than {mesh}")
+        return x.mesh, (x.spec[0] if x.dim() >= 3 else None)
+    mesh = local_mesh(mesh, what)
+    return mesh, data_axis_of(mesh)
+
+
+def integrate_blocks(integrate: Callable, state: SceneState, update, cfg: SimConfig) -> SceneState:
+    """integrate(state, update, cfg), elementwise, on each process's block
+    of a GlobalTensor state (the state itself where it is plain)."""
+    out = integrate(local_blocks(state), getattr(update, "local", update), cfg)
+    return like_global(out, state)
+
+
 def gravity_step(state: SceneState, cfg: SimConfig, generator=None,
                  mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = local_mesh(mesh, "the ring backend's stepper")
-    g = ring_gravity_forces(state.pos, cfg, mesh=mesh, data_axis=data_axis_of(mesh))
-    return dense.gravity_integrate(state, g, cfg)
+    mesh, data_axis = mesh_of(state.pos, mesh, "the ring backend's stepper")
+    g = ring_gravity_forces(state.pos, cfg, mesh=mesh, data_axis=data_axis)
+    return integrate_blocks(dense.gravity_integrate, state, g, cfg)
 
 
 def boids_step(state: SceneState, cfg: SimConfig, generator=None,
                mesh: Optional[Mesh] = None) -> SceneState:
-    mesh = local_mesh(mesh, "the ring backend's stepper")
-    new_vel = ring_boids_velocity(state.pos, state.vel, cfg, mesh=mesh,
-                                  data_axis=data_axis_of(mesh))
-    return dense.boids_integrate(state, new_vel, cfg)
+    mesh, data_axis = mesh_of(state.pos, mesh, "the ring backend's stepper")
+    new_vel = ring_boids_velocity(state.pos, state.vel, cfg, mesh=mesh, data_axis=data_axis)
+    return integrate_blocks(dense.boids_integrate, state, new_vel, cfg)
+
+
+def random_step(state: SceneState, cfg: SimConfig, generator=None,
+                mesh: Optional[Mesh] = None) -> SceneState:
+    """dense.random_step (no pairwise interaction to ring). On a
+    GlobalTensor state the walk's noise is drawn whole from `generator`
+    (every process's alike) and this process's block kept: the draws of
+    one process's run."""
+    vel = state.vel
+    if not isinstance(vel, GlobalTensor):
+        return dense.random_step(state, cfg, generator)
+    a = cfg.random_walk.accel
+    u = torch.rand(vel.shape, generator=generator, device=vel.local.device,
+                   dtype=vel.local.dtype)[_block(vel.mesh, vel.spec, vel.shape)]
+    local = local_blocks(state)
+    new_vel = local.vel + (u * (2.0 * a) - a)
+    return like_global(local.replace(pos=local.pos + new_vel, vel=new_vel, t=local.t + 1), state)
 
 
 def render_lines(state: SceneState, cfg: VisionConfig, mesh: Optional[Mesh] = None):
-    mesh = local_mesh(mesh, "the ring backend's render")
-    return ring_render_rows(state.pos, state.vel, cfg, mesh=mesh, data_axis=data_axis_of(mesh))[0]
+    mesh, data_axis = mesh_of(state.pos, mesh, "the ring backend's render")
+    return ring_render_rows(state.pos, state.vel, cfg, mesh=mesh, data_axis=data_axis)[0]
 
 
 STEPPERS = {
     "gravity": gravity_step,
     "boids": boids_step,
-    "random": dense.random_step,  # no pairwise interaction to ring
+    "random": random_step,
 }

@@ -24,7 +24,12 @@ on the agent-axis ring (parallel/ring.py) and the gradient flows back
 through it by autograd: each hop's gravity Function, and with diff_vision
 ring_render_rows_diff, whose hops each pull back their own winners; envs
 split over the data axis when the mesh has one. A data-only mesh runs the
-env on each data shard (rl.train's data-only path).
+env on each data shard (rl.train's data-only path). Across processes
+(rl/spmd.py) each process rolls out its block, the gradient crosses the
+process boundary through the ring's exchanges (remat's recomputation
+included: every process recomputes in one order), the loss is each
+process's share of the global mean, and the gradients are all-reduced
+before grad_norm and the step.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ..state import SceneState, spawn_batch
 from .env import VisionEnv
 from .policy import init_mlp_policy
+from .spmd import Spmd
 from .train import check_mesh_envs, mesh_env_fns
 
 
@@ -65,6 +71,7 @@ def make_apg_step(
     from_obs = env.reward_mode == "visibility"
     if mesh is not None:
         check_mesh_envs(mesh, num_envs)
+    spmd = Spmd(mesh, env.cfg.n)
     observe, dynamics = mesh_env_fns(env, mesh, diff=diff_vision)
 
     def see(states: SceneState) -> torch.Tensor:
@@ -93,17 +100,18 @@ def make_apg_step(
                 action, _ = policy(obs)
                 states = dyn(states, action)
                 obs = see(states)
-                rewards.append(env.reward_obs(obs).mean())
+                rewards.append(spmd.share(env.reward_obs(obs)))
         else:
             # state reward: render at each iteration's start, horizon renders
             for _ in range(horizon):
                 action, _ = policy(see(states))
                 states = dyn(states, action)
-                rewards.append(env.reward(states).mean())
+                rewards.append(spmd.share(env.reward(states, spmd.agent_sum)))
         return -torch.stack(rewards).mean()
 
     def apg_step(ts: APGState) -> Tuple[APGState, dict]:
-        states = spawn_batch(env.cfg, ts.generator, num_envs, ts.generator.device)
+        states = spmd.block_state(spawn_batch(env.cfg, ts.generator, num_envs,
+                                              ts.generator.device))
         loss = loss_fn(ts.policy, states)
         ts.optimizer.zero_grad(set_to_none=True)
         if loss.requires_grad:  # not so for semi-APG with a visibility reward
@@ -112,10 +120,11 @@ def make_apg_step(
         for p in params:
             if p.grad is None:  # a zero gradient, as jax.grad gives it
                 p.grad = torch.zeros_like(p)
+        spmd.sync_grads(params)
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
         ts.optimizer.step()
-        loss = loss.detach()
+        loss = spmd.total(loss.detach())
         metrics = {"loss": loss, "reward_mean": -loss, "grad_norm": grad_norm}
         return dataclasses.replace(ts, iteration=ts.iteration + 1), metrics
 
@@ -128,10 +137,13 @@ def init_apg_state(
     lr: float = 1e-3,
     policy: Optional[nn.Module] = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> APGState:
     """A policy (the MLP by default, weights from `seed`) with an Adam
-    optimizer on `device`, and the spawn generator seeded with `seed`."""
+    optimizer on `device`, and the spawn generator seeded with `seed`;
+    across processes (`mesh`) rank 0's policy in every replica."""
     device = torch.device(device)
     policy = (policy or init_mlp_policy(env.obs_width, seed)).to(device)
+    Spmd(mesh, env.cfg.n).broadcast(policy)
     optimizer = torch.optim.Adam(policy.parameters(), lr=lr)
     return APGState(policy, optimizer, torch.Generator(device=device).manual_seed(seed))

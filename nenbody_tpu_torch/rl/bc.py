@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import local_mesh
 from ..state import spawn_batch
 from .env import VisionEnv
 from .policy import gaussian_log_prob, init_mlp_policy
@@ -149,6 +150,7 @@ def distill(
     [iters * bc_steps_per_iter])."""
     device = torch.device(device)
     if mesh is not None:
+        local_mesh(mesh, "BC")
         check_mesh_envs(mesh, num_envs)
     observe_b, step_b = batched_env_fns(env, mesh)
     ts = _bc_state(env, seed, lr, policy, device)
@@ -203,6 +205,7 @@ def fit_streaming(
 
     device = torch.device(device)
     if mesh is not None:
+        local_mesh(mesh, "BC")
         check_mesh_envs(mesh, num_envs)
     collect_fn = make_collect_fn(env, behavior, horizon=horizon, mesh=mesh)
     ts = _bc_state(env, seed, lr, policy, device)

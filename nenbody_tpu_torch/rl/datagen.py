@@ -24,6 +24,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import local_mesh
 from ..state import SceneState, spawn_batch
 from .env import VisionEnv
 from .policy import sample_action
@@ -47,7 +48,11 @@ def make_collect_fn(
     reward}), without autograd. With policy=None, actions are uniform
     random in [-max_accel, max_accel] (pure exploration data); otherwise
     sampled from the policy with the generator's noise. `mesh` runs the sim
-    on it (rl/train.py's batched_env_fns)."""
+    on it (rl/train.py's batched_env_fns), one process's: each chunk
+    reaches the host whole, which a batch split across processes cannot
+    (the JAX `_drain` fetches its chunks so too)."""
+    if mesh is not None:
+        local_mesh(mesh, "datagen")
     observe_b, step_b = batched_env_fns(env, mesh)
 
     @torch.no_grad()

@@ -135,7 +135,7 @@ class VisionEnv:
             return next_state, obs, self.reward_obs(obs)
         return next_state, obs, self.reward(next_state)
 
-    def reward(self, state: SceneState) -> torch.Tensor:
+    def reward(self, state: SceneState, agent_sum=None) -> torch.Tensor:
         """[..., N] per-agent reward, by reward_mode:
 
         cohesion   (default) -|x_i - centroid|^2 / 1e4.
@@ -148,21 +148,33 @@ class VisionEnv:
                    = S - N|d_i|^2/(N-1).
         visibility observation-defined (see reward_obs).
 
-        A quadratic speed cost subtracts from every mode when set."""
+        A quadratic speed cost subtracts from every mode when set.
+
+        `agent_sum(x, dim)` (keepdim) sums over the agent axis of an env
+        where `state` is this process's block of agents split across
+        processes (rl/spmd.py; differentiable): the centroid, G and S are
+        then global, over cfg.n agents."""
         if self.reward_mode == "visibility":
             return self.reward_obs(self.observe(state))
-        centroid = state.pos.mean(dim=-2, keepdim=True)
+        if agent_sum is None:
+            n = state.pos.shape[-2]
+            total = lambda x, dim: x.sum(dim=dim, keepdim=True)  # noqa: E731
+            mean = lambda x, dim: x.mean(dim=dim, keepdim=True)  # noqa: E731
+        else:
+            n = self.cfg.n
+            total = agent_sum
+            mean = lambda x, dim: agent_sum(x, dim) / n  # noqa: E731
+        centroid = mean(state.pos, -2)
         d = state.pos - centroid
         d2 = (d * d).sum(dim=-1)
         if self.reward_mode == "cohesion":
             r = -d2 / 1e4
         else:
-            n = state.pos.shape[-2]
-            team = -d2.mean(dim=-1, keepdim=True) / 1e4  # G, [..., 1]
+            team = -mean(d2, -1) / 1e4  # G, [..., 1]
             if self.reward_mode == "team":
                 r = team.expand(d2.shape)
             else:  # difference rewards
-                s = d2.sum(dim=-1, keepdim=True)
+                s = total(d2, -1)
                 g_without = -(s - n * d2 / (n - 1)) / ((n - 1) * 1e4)
                 r = team - g_without
         if self.speed_penalty:

@@ -16,7 +16,11 @@ members into one env batch would launch each kernel once a step instead of
 256 agents a member) one member's batch already fills the card, and the
 fold multiplies the working set by 2P; the loop is also what the JAX
 trainer does under a mesh (lax.map), so one path serves both. The noise is
-drawn through the module-level `_noise`, which a test can replace.
+drawn through the module-level `_noise`, which a test can replace. Across
+processes (rl/spmd.py) each member's rollout runs on every process's
+block and its fitness is the global mean, so every process ranks the
+members alike; the perturbations, drawn from the shared generator, are
+replicated, so the update needs no all-reduce.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch.func import functional_call
 from ..state import SceneState, spawn_batch
 from .env import VisionEnv
 from .policy import init_mlp_policy
+from .spmd import Spmd
 from .train import batched_env_fns, check_mesh_envs
 
 
@@ -61,31 +66,34 @@ def make_es_step(
     member's rollout runs on it (rl/train.py's batched_env_fns)."""
     if mesh is not None:
         check_mesh_envs(mesh, num_envs)
+    spmd = Spmd(mesh, env.cfg.n)
     observe_b, step_b = batched_env_fns(env, mesh)
 
     def fitness(policy: nn.Module, params: Dict[str, torch.Tensor],
                 env_states: SceneState) -> torch.Tensor:
+        """The member's mean reward (across processes this process's share)."""
         obs = observe_b(env_states)
         rewards = []
         for _ in range(horizon):
             action, _ = functional_call(policy, params, (obs,))
             env_states, obs, reward = step_b(env_states, action)
-            rewards.append(reward.mean())
+            rewards.append(spmd.share(reward))
         return torch.stack(rewards).mean()
 
     @torch.no_grad()
     def es_step(es: ESState) -> Tuple[ESState, dict]:
-        env_states = spawn_batch(env.cfg, es.generator, num_envs, es.generator.device)
+        env_states = spmd.block_state(spawn_batch(env.cfg, es.generator, num_envs,
+                                                  es.generator.device))
         names, params = zip(*es.policy.named_parameters())
         eps = _noise(list(params), population, es.generator)
 
         def member(i: int, sign: float) -> Dict[str, torch.Tensor]:
             return {n: p + sign * sigma * e[i] for n, p, e in zip(names, params, eps)}
 
-        f_plus = torch.stack([fitness(es.policy, member(i, 1.0), env_states)
-                              for i in range(population)])
-        f_minus = torch.stack([fitness(es.policy, member(i, -1.0), env_states)
-                               for i in range(population)])
+        f_plus = spmd.total(torch.stack([fitness(es.policy, member(i, 1.0), env_states)
+                                         for i in range(population)]))
+        f_minus = spmd.total(torch.stack([fitness(es.policy, member(i, -1.0), env_states)
+                                          for i in range(population)]))
         weights = 0.5 * (f_plus - f_minus) / (population * sigma)  # [P]
         for p, e in zip(params, eps):
             p.grad = -torch.tensordot(weights, e, dims=1).to(p.dtype)
@@ -108,11 +116,14 @@ def init_es_state(
     lr: float = 1e-3,
     policy: Optional[nn.Module] = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> ESState:
     """A policy (the MLP by default, weights from `seed`) with an Adam
     optimizer on `device`, and the generator seeded with `seed`. The env
-    batch is make_es_step's."""
+    batch is make_es_step's. Across processes (`mesh`) rank 0's policy in
+    every replica."""
     device = torch.device(device)
     policy = (policy or init_mlp_policy(env.obs_width, seed)).to(device)
+    Spmd(mesh, env.cfg.n).broadcast(policy)
     return ESState(policy, torch.optim.Adam(policy.parameters(), lr=lr),
                    torch.Generator(device=device).manual_seed(seed))

@@ -117,7 +117,9 @@ class CentralValueMLP(nn.Module):
     agent axis (permutation-invariant, any N), then the value head; the
     value broadcasts back over the agents. obs [..., N, obs_dim] -> V
     [..., N], one value for every agent of an env. Inputs keep the agent
-    axis (PPO's central_critic keeps it through minibatching)."""
+    axis (PPO's central_critic keeps it through minibatching). Where the
+    agents are split across processes, `agent_mean(x, dim)` (keepdim) is
+    the mean over the global agent axis (rl/spmd.py)."""
 
     def __init__(self, obs_dim: int, embed: Sequence[int] = (128,),
                  head: Sequence[int] = (128,), use_bf16: bool = True):
@@ -129,11 +131,13 @@ class CentralValueMLP(nn.Module):
         self.head = nn.Linear(pooled[-1], 1)
         _flax_init_(*self.embed, *self.hidden, self.head)
 
-    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+    def forward(self, obs: torch.Tensor, agent_mean=None) -> torch.Tensor:
         dtype = _dtype(self.use_bf16)
         x = _tanh_layers(obs.to(dtype), self.embed, dtype)
         # jnp.mean of bf16 sums in f32 and rounds the mean back to bf16
-        g = _tanh_layers(x.float().mean(dim=-2).to(dtype), self.hidden, dtype)
+        pooled = (x.float().mean(dim=-2) if agent_mean is None
+                  else agent_mean(x.float(), -2).squeeze(-2))
+        g = _tanh_layers(pooled.to(dtype), self.hidden, dtype)
         v = self.head(g.float())[..., 0]
         return v[..., None].expand(obs.shape[:-1])
 

@@ -13,7 +13,10 @@ runs on it (rl/train.py's batched_env_fns) and the minibatches are drawn
 along the time axis, as the JAX trainer draws them there (its (B, N)
 shardings pass through the loss whole). The random draws go through
 module-level helpers (`_permutation`, policy.sample_action) that a test can
-replace.
+replace. Across processes (rl/spmd.py) each process rolls out its block,
+the advantages are normalized and the losses averaged over the whole
+batch, the minibatch order comes from the shared generator (the same on
+every process) and the gradients are all-reduced before each step.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 from ..state import SceneState, spawn_batch
 from .env import VisionEnv
 from .policy import ValueMLP, gaussian_log_prob, init_mlp_policy, sample_action, seeded
+from .spmd import Spmd
 from .train import batched_env_fns, check_mesh_envs
 
 
@@ -100,33 +104,40 @@ def make_ppo_step(
         )
     if mesh is not None:
         check_mesh_envs(mesh, num_envs)
+    spmd = Spmd(mesh, env.cfg.n)
     observe_b, step_b = batched_env_fns(env, mesh)
+
+    def sample(ts: PPOState, obs):
+        if spmd.on:
+            return spmd.sample_action(ts.policy, obs, ts.generator)
+        return sample_action(ts.policy, obs, ts.generator)
 
     def rollout(ts: PPOState, env_states: SceneState):
         obs = observe_b(env_states)
         steps = []
         for _ in range(horizon):
-            action, logp = sample_action(ts.policy, obs, ts.generator)
-            value = ts.value(obs)
+            action, logp = sample(ts, obs)
+            value = spmd.value(ts.value, obs)
             env_states, next_obs, reward = step_b(env_states, action)
             steps.append((obs, action, logp, value, reward))
             obs = next_obs
         traj = [torch.stack(x) for x in zip(*steps)]
-        return env_states, traj, ts.value(obs)
+        return env_states, traj, spmd.value(ts.value, obs)
 
     def loss_fn(ts: PPOState, obs, action, logp_old, adv, ret) -> torch.Tensor:
         mean, log_std = ts.policy(obs)
         ratio = torch.exp(gaussian_log_prob(action, mean, log_std) - logp_old)
         clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv
-        pg_loss = -torch.minimum(ratio * adv, clipped).mean()
-        v_loss = ((ts.value(obs) - ret) ** 2).mean()
+        pg_loss = -spmd.share(torch.minimum(ratio * adv, clipped))
+        v_loss = spmd.share((spmd.value(ts.value, obs) - ret) ** 2)
         # the diagonal Gaussian's entropy: sum(log_std) + const
-        return pg_loss + vf_coef * v_loss - ent_coef * log_std.sum()
+        return pg_loss + vf_coef * v_loss - ent_coef * spmd.replicated(log_std.sum())
 
     def ppo_step(ts: PPOState) -> Tuple[PPOState, dict]:
         start = ts.env_states
         if episodic or start is None:
-            start = spawn_batch(env.cfg, ts.generator, num_envs, ts.generator.device)
+            start = spmd.block_state(spawn_batch(env.cfg, ts.generator, num_envs,
+                                                 ts.generator.device))
         with torch.no_grad():
             env_states, (obs, action, logp_old, value, reward), last_value = rollout(ts, start)
             adv, ret = gae(reward, value, last_value, gamma, lam)
@@ -139,7 +150,8 @@ def make_ppo_step(
             n_perm = batch[0].shape[0]
             mb = n_perm // num_minibatches
             adv_f = batch[3]
-            batch[3] = (adv_f - adv_f.mean()) / (adv_f.std(correction=0) + 1e-8)
+            batch[3] = (adv_f - spmd.mean(adv_f)) / (spmd.std(adv_f) + 1e-8)
+        params = [p for group in ts.optimizer.param_groups for p in group["params"]]
         losses = []
         for _ in range(epochs):
             perm = _permutation(n_perm, ts.generator)
@@ -148,13 +160,14 @@ def make_ppo_step(
                 loss = loss_fn(ts, *(x[idx] for x in batch))
                 ts.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                spmd.sync_grads(params)
                 ts.optimizer.step()
                 losses.append(loss.detach())
         metrics = {
-            "loss": torch.stack(losses).mean(),
-            "reward_mean": reward.mean(),
-            "return_mean": ret.mean(),
-            "value_mean": value.mean(),
+            "loss": spmd.total(torch.stack(losses)).mean(),
+            "reward_mean": spmd.mean(reward),
+            "return_mean": spmd.mean(ret),
+            "value_mean": spmd.mean(value),
         }
         return dataclasses.replace(ts, iteration=ts.iteration + 1,
                                    env_states=None if episodic else env_states), metrics
@@ -170,14 +183,17 @@ def init_ppo_state(
     value: Optional[nn.Module] = None,
     optimizer: type = torch.optim.Adam,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> PPOState:
     """A policy (the MLP by default) and a value head (a ValueMLP by
     default; weights from `seed` and `seed + 1`) on `device` with one
     `optimizer(params, lr=lr)` over both, and the generator seeded with
-    `seed`. The env batch is make_ppo_step's."""
+    `seed`. The env batch is make_ppo_step's. Across processes (`mesh`)
+    rank 0's modules in every replica."""
     device = torch.device(device)
     policy = (policy or init_mlp_policy(env.obs_width, seed)).to(device)
     value = (value or seeded(seed + 1, lambda: ValueMLP(env.obs_width))).to(device)
+    Spmd(mesh, env.cfg.n).broadcast(policy, value)
     params = [*policy.parameters(), *value.parameters()]
     return PPOState(policy, value, optimizer(params, lr=lr),
                     torch.Generator(device=device).manual_seed(seed))

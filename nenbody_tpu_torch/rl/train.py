@@ -17,6 +17,13 @@ mesh splits the env batch over its devices and runs each block through the
 env on its device. The controller keeps the env states and the policy on
 their device (single-controller, as the JAX trainers): the ring moves the
 blocks to the mesh's devices and gathers the results back.
+
+On a mesh across processes (parallel.mesh.init_distributed, then
+make_mesh()) every process runs the same step on its block of the env
+states and a replica of the policy (rl/spmd.py): spawns and action noise
+drawn whole from the shared generator, the reductions and the loss's
+means global, the gradients all-reduced after backward(), so every
+process ends the step with the same loss, metrics and policy.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..state import SceneState, spawn_batch
 from .env import VisionEnv
 from .policy import (GRUPolicy, gaussian_log_prob, init_mlp_policy, sample_action,
                      sample_gaussian, seeded)
+from .spmd import Spmd
 
 
 class Trajectory(NamedTuple):
@@ -47,30 +55,38 @@ class TrainState:
     generator: torch.Generator  # spawns and action noise, on the envs' device
 
 
-def start_states(env: VisionEnv, ts, episodic: bool) -> SceneState:
+def start_states(env: VisionEnv, ts, episodic: bool, spmd: Spmd) -> SceneState:
     """The env states an iteration starts from: fresh spawns from the
-    state's generator (as many as it holds) when `episodic`, else its own."""
+    state's generator (as many as it holds; across processes the whole
+    batch, of which this process keeps its block) when `episodic`, else its
+    own."""
     if not episodic:
         return ts.env_states
     pos = ts.env_states.pos
-    return spawn_batch(env.cfg, ts.generator, pos.shape[0], pos.device)
+    return spmd.block_state(spawn_batch(env.cfg, ts.generator, spmd.num_envs(pos.shape[0]),
+                                        pos.device))
 
 
-def _reinforce_advantages(rets: torch.Tensor, standardize: bool) -> torch.Tensor:
+def _reinforce_advantages(rets: torch.Tensor, standardize: bool, spmd: Spmd) -> torch.Tensor:
     """Returns-to-go minus their mean, over their std when `standardize`
-    (jnp.std's ddof 0: torch.std's default ddof 1 would change the loss)."""
-    adv = rets - rets.mean()
-    return adv / (adv.std(correction=0) + 1e-6) if standardize else adv
+    (jnp.std's ddof 0: torch.std's default ddof 1 would change the loss);
+    both of the whole batch."""
+    adv = rets - spmd.mean(rets)
+    return adv / (spmd.std(adv) + 1e-6) if standardize else adv
+
+
+def _sample(policy, obs, generator, spmd: Spmd):
+    """sample_action; across processes with the whole batch's noise."""
+    if spmd.on:
+        return spmd.sample_action(policy, obs, generator)
+    return sample_action(policy, obs, generator)
 
 
 def check_mesh_envs(mesh, num_envs: int) -> None:
     """The ring pads the agent axis to any N, but the env batch must divide
-    the mesh's data axis: raise that before any rollout. The trainers run
-    on one process: a mesh across processes raises."""
-    from ..parallel.mesh import data_axis_of, local_mesh
+    the mesh's data axis: raise that before any rollout."""
+    from ..parallel.mesh import data_axis_of
 
-    if mesh is not None:
-        local_mesh(mesh, "training on a mesh")
     da = data_axis_of(mesh)
     if da is not None and num_envs % mesh.shape[da]:
         raise ValueError(
@@ -80,48 +96,56 @@ def check_mesh_envs(mesh, num_envs: int) -> None:
 
 
 def _on_data_shards(mesh, fn, states: SceneState, *tensors):
-    """fn(state block, *tensor blocks) on each device of a data-only mesh,
-    the env batch split over it; its outputs (a state, then tensors)
-    gathered back to the states' device."""
-    from ..parallel.mesh import DATA_AXIS, gather_blocks, gather_state, on_device
-    from ..parallel.mesh import place_state_on_mesh, split_blocks
+    """fn(state block, *tensor blocks) on each of this process's devices of
+    a data-only mesh, its env batch split over them; its outputs (a state,
+    then tensors) gathered back to the states' device."""
+    from ..parallel.mesh import DATA_AXIS, gather_blocks, on_device, split_blocks
 
     if DATA_AXIS not in mesh.axis_names:
         raise ValueError(
             "a mesh without an agent axis needs a data axis to split envs "
             f"over; got axes {mesh.axis_names}"
         )
-    check_mesh_envs(mesh, states.pos.shape[0])
-    grid = mesh.grid(DATA_AXIS, None)
-    blocks = place_state_on_mesh(states, mesh)
-    extra = [split_blocks(t, grid, 0, agent_dim=None) for t in tensors]
+    rows, _ = mesh.own(DATA_AXIS, None)
+    grid = [mesh.grid(DATA_AXIS, None)[r] for r in rows]
+    if states.pos.shape[0] % len(grid):
+        raise ValueError(f"env batch {states.pos.shape[0]} must divide evenly over this "
+                         f"process's {len(grid)} devices of mesh axis {DATA_AXIS!r}")
+    names = ("pos", "vel", "t")
+    blocks = [split_blocks(x, grid, 0, agent_dim=None)
+              for x in (*(getattr(states, k) for k in names), *tensors)]
     outs = []
     for r, (dev,) in enumerate(grid):
         with on_device(dev):
-            outs.append(fn(blocks[r][0], *(x[r][0] for x in extra)))
+            state = SceneState(**{k: b[r][0] for k, b in zip(names, blocks)})
+            outs.append(fn(state, *(b[r][0] for b in blocks[len(names):])))
     home = states.pos.device
-    state = gather_state([[o[0]] for o in outs], mesh, home)
-    rest = [gather_blocks([[o[i]] for o in outs], home, 0, agent_dim=None)
-            for i in range(1, len(outs[0]))]
-    return (state, *rest)
+
+    def gather(parts):
+        return gather_blocks([[p] for p in parts], home, 0, agent_dim=None)
+
+    state = SceneState(**{k: gather([getattr(o[0], k) for o in outs]) for k in names})
+    return (state, *(gather([o[i] for o in outs]) for i in range(1, len(outs[0]))))
 
 
-def ring_dynamics(env: VisionEnv, mesh):
+def ring_dynamics(env: VisionEnv, mesh, spmd: Spmd):
     """`(states, action) -> states`: env.dynamics with the forces on the
-    agent-axis ring (differentiable: each hop's gravity Function)."""
+    agent-axis ring (differentiable: each hop's gravity Function, and
+    across processes each hop's exchange)."""
     from ..parallel import ring
     from ..parallel.mesh import data_axis_of
 
     data_axis = data_axis_of(mesh)
 
     def dynamics(states: SceneState, action: torch.Tensor) -> SceneState:
-        g = ring.ring_gravity_forces(states.pos, env.cfg, mesh=mesh, data_axis=data_axis)
-        return env.integrate(states, action, g)
+        g = ring.ring_gravity_forces(spmd.lift(states.pos), env.cfg, mesh=mesh,
+                                     data_axis=data_axis)
+        return env.integrate(states, action, spmd.local(g))
 
     return dynamics
 
 
-def ring_observe(env: VisionEnv, mesh, diff: bool = False):
+def ring_observe(env: VisionEnv, mesh, spmd: Spmd, diff: bool = False):
     """`states -> obs [B, N, W+2]`: env.observe with the eye on the
     agent-axis ring (ring_render_rows_diff with `diff`)."""
     from ..parallel import ring
@@ -131,8 +155,9 @@ def ring_observe(env: VisionEnv, mesh, diff: bool = False):
     vcfg, data_axis = env.cfg.vision, data_axis_of(mesh)
 
     def observe(states: SceneState) -> torch.Tensor:
-        lines = render_ring(states.pos, states.vel, vcfg, mesh=mesh, data_axis=data_axis)[0]
-        return torch.cat([lines, states.vel], dim=-1)
+        lines = render_ring(spmd.lift(states.pos), spmd.lift(states.vel), vcfg, mesh=mesh,
+                            data_axis=data_axis)[0]
+        return torch.cat([spmd.local(lines), states.vel], dim=-1)
 
     return observe
 
@@ -142,31 +167,33 @@ def mesh_env_fns(env: VisionEnv, mesh, diff: bool = False):
     without a mesh; with an agent axis the ring's (the JAX
     `_batched_env_fns`; the eye through ring_render_rows_diff with `diff`);
     on a data-only mesh the env's on each data shard (`_dp_mesh_env_fns`).
-    A mesh across processes raises (the trainers run on one process)."""
-    from ..parallel.mesh import agent_axis_of, local_mesh
+    Across processes the states are this process's block (rl/spmd.py)."""
+    from ..parallel.mesh import agent_axis_of
 
     if mesh is None:
         return env.observe, env.dynamics
-    local_mesh(mesh, "training on a mesh")
     if agent_axis_of(mesh) is None:
         return (lambda s: _on_data_shards(mesh, lambda b: (b, env.observe(b)), s)[1],
                 lambda s, a: _on_data_shards(mesh, lambda b, x: (env.dynamics(b, x),),
                                              s, a)[0])
-    return ring_observe(env, mesh, diff), ring_dynamics(env, mesh)
+    spmd = Spmd(mesh, env.cfg.n)
+    return ring_observe(env, mesh, spmd, diff), ring_dynamics(env, mesh, spmd)
 
 
 def batched_env_fns(env: VisionEnv, mesh):
     """(observe, step) over batched states [B, N, 2] on `mesh`
     (mesh_env_fns). Visibility rewards read the observation the step
-    rendered."""
+    rendered; the state rewards reduce over the global agent axis."""
     if mesh is None:
         return env.observe, env.step
+    agent_sum = Spmd(mesh, env.cfg.n).agent_sum
     observe, dynamics = mesh_env_fns(env, mesh)
 
     def step(states, action):
         nxt = dynamics(states, action)
         obs = observe(nxt)
-        reward = env.reward_obs(obs) if env.reward_mode == "visibility" else env.reward(nxt)
+        reward = (env.reward_obs(obs) if env.reward_mode == "visibility"
+                  else env.reward(nxt, agent_sum))
         return nxt, obs, reward
 
     return observe, step
@@ -183,14 +210,14 @@ def discounted_returns(rewards: torch.Tensor, gamma: float) -> torch.Tensor:
 
 
 def sampled_rollout(policy, observe_b, step_b, env_states: SceneState, generator,
-                    horizon: int) -> Tuple[SceneState, Trajectory]:
+                    horizon: int, spmd: Spmd) -> Tuple[SceneState, Trajectory]:
     """`horizon` steps of actions sampled from `policy` (call under
     torch.no_grad(): the actions are the data the loss scores): (the last
     env states, the trajectory)."""
     obs = observe_b(env_states)
     obs_t, act_t, rew_t = [], [], []
     for _ in range(horizon):
-        action, _ = sample_action(policy, obs, generator)
+        action, _ = _sample(policy, obs, generator, spmd)
         env_states, next_obs, reward = step_b(env_states, action)
         obs_t.append(obs)
         act_t.append(action)
@@ -214,32 +241,36 @@ def make_train_step(
     does: persistent states drift away from the spawn distribution); set
     False for deliberate continuing-task training. With `mesh` the sim runs
     on it (module docstring)."""
+    spmd = Spmd(mesh, env.cfg.n)
     observe_b, step_b = batched_env_fns(env, mesh)
 
     def train_step(ts: TrainState) -> Tuple[TrainState, dict]:
         with torch.no_grad():
             env_states, traj = sampled_rollout(ts.policy, observe_b, step_b,
-                                               start_states(env, ts, episodic), ts.generator,
-                                               horizon)
+                                               start_states(env, ts, episodic, spmd),
+                                               ts.generator, horizon, spmd)
             rets = discounted_returns(traj.reward, gamma)
-            adv = _reinforce_advantages(rets, standardize_adv)
+            adv = _reinforce_advantages(rets, standardize_adv, spmd)
         mean, log_std = ts.policy(traj.obs)
-        loss = -(gaussian_log_prob(traj.action, mean, log_std) * adv).mean()
-        return _reinforce_update(ts, loss, env_states, traj, rets)
+        loss = -spmd.share(gaussian_log_prob(traj.action, mean, log_std) * adv)
+        return _reinforce_update(ts, loss, env_states, traj, rets, spmd)
 
     return train_step
 
 
 def _reinforce_update(ts: TrainState, loss: torch.Tensor, env_states: SceneState,
-                      traj: Trajectory, rets: torch.Tensor) -> Tuple[TrainState, dict]:
-    """One optimizer step on `loss`; the REINFORCE metrics."""
+                      traj: Trajectory, rets: torch.Tensor,
+                      spmd: Spmd) -> Tuple[TrainState, dict]:
+    """One optimizer step on `loss` (this process's share; the gradients
+    summed over the processes); the REINFORCE metrics."""
     ts.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    spmd.sync_grads(ts.policy.parameters())
     ts.optimizer.step()
     metrics = {
-        "loss": loss.detach(),
-        "reward_mean": traj.reward.mean(),
-        "return_mean": rets.mean(),
+        "loss": spmd.total(loss.detach()),
+        "reward_mean": spmd.mean(traj.reward),
+        "return_mean": spmd.mean(rets),
     }
     return dataclasses.replace(ts, env_states=env_states), metrics
 
@@ -257,7 +288,8 @@ def init_train_state(
     `seed`) with an Adam optimizer (default eps: optax.adam's update) on
     `device`; the random stream is a generator seeded with `seed`. With a
     mesh the env batch must divide its data axis; states and policy stay on
-    `device`, the controller's (module docstring)."""
+    `device`, the controller's (module docstring). Across processes the
+    state holds this process's block of the envs and rank 0's policy."""
     policy = policy or init_mlp_policy(env.obs_width, seed)
     return _train_state(env, num_envs, seed, lr, policy, device, mesh)
 
@@ -266,16 +298,18 @@ def spawn_envs(env: VisionEnv, num_envs: int, seed: int, device: str | torch.dev
                mesh=None) -> Tuple[SceneState, torch.Generator]:
     """`num_envs` envs spawned on `device` from a generator seeded with
     `seed` there, and that generator; with a mesh the env batch must divide
-    its data axis."""
+    its data axis, and across processes this process keeps its block."""
     if mesh is not None:
         check_mesh_envs(mesh, num_envs)
     generator = torch.Generator(device=device).manual_seed(seed)
-    return spawn_batch(env.cfg, generator, num_envs, device), generator
+    states = spawn_batch(env.cfg, generator, num_envs, device)
+    return Spmd(mesh, env.cfg.n).block_state(states), generator
 
 
 def _train_state(env, num_envs, seed, lr, policy, device, mesh) -> TrainState:
     env_states, generator = spawn_envs(env, num_envs, seed, device, mesh)
     policy = policy.to(device)
+    Spmd(mesh, env.cfg.n).broadcast(policy)
     return TrainState(policy, torch.optim.Adam(policy.parameters(), lr=lr), env_states, generator)
 
 
@@ -294,7 +328,13 @@ def make_recurrent_train_step(
     backpropagation through time over the horizon. The carry starts at
     zero each iteration (with episodic=False: truncated BPTT, the envs
     persist and the memory does not). `mesh` as make_train_step's."""
+    spmd = Spmd(mesh, env.cfg.n)
     observe_b, step_b = batched_env_fns(env, mesh)
+
+    def gaussian(mean, log_std, generator):
+        if spmd.on:
+            return mean + torch.exp(log_std) * spmd.noise(generator, mean)
+        return sample_gaussian(mean, log_std, generator)
 
     def rollout(policy, env_states: SceneState, generator) -> Tuple[SceneState, Trajectory]:
         obs = observe_b(env_states)
@@ -302,7 +342,7 @@ def make_recurrent_train_step(
         obs_t, act_t, rew_t = [], [], []
         for _ in range(horizon):
             h, (mean, log_std) = policy(h, obs)
-            action = sample_gaussian(mean, log_std, generator)
+            action = gaussian(mean, log_std, generator)
             env_states, next_obs, reward = step_b(env_states, action)
             obs_t.append(obs)
             act_t.append(action)
@@ -311,18 +351,18 @@ def make_recurrent_train_step(
         return env_states, Trajectory(torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t))
 
     def train_step(ts: TrainState) -> Tuple[TrainState, dict]:
-        start = start_states(env, ts, episodic)
+        start = start_states(env, ts, episodic, spmd)
         with torch.no_grad():
             env_states, traj = rollout(ts.policy, start, ts.generator)
             rets = discounted_returns(traj.reward, gamma)
-            adv = _reinforce_advantages(rets, standardize_adv)
+            adv = _reinforce_advantages(rets, standardize_adv, spmd)
         h = ts.policy.initial_carry(start.pos.shape[:-1], start.pos.device)
         logp = []
         for obs, action in zip(traj.obs, traj.action):
             h, (mean, log_std) = ts.policy(h, obs)
             logp.append(gaussian_log_prob(action, mean, log_std))
-        loss = -(torch.stack(logp) * adv).mean()
-        return _reinforce_update(ts, loss, env_states, traj, rets)
+        loss = -spmd.share(torch.stack(logp) * adv)
+        return _reinforce_update(ts, loss, env_states, traj, rets, spmd)
 
     return train_step
 

@@ -23,9 +23,13 @@ both eyes, on the same kernels), "gspmd" its
 dense cross-check (parallel/auto.py; its eye renders dense, as in the JAX
 package). "auto" is the ring when more than one CUDA device is visible, else
 "pallas". The ring and gspmd take the `mesh` given to Scene, else
-parallel.mesh.default_mesh() (every visible CUDA device), and refuse a
-mesh across processes (parallel.mesh.local_mesh): a Scene runs on one
-process. Batched states
+parallel.mesh.default_mesh() (every visible CUDA device), for states of
+plain tensors, and refuse a mesh across processes for them
+(parallel.mesh.local_mesh). A state of GlobalTensors
+(parallel.mesh.global_state: each process's block) runs on its own mesh,
+which may span processes, as the JAX Scene runs global arrays: step,
+observe and rollout, forward only; the gspmd eye then renders each
+process's rows against the all-gathered agents. Batched states
 ([B, N, 2] leaves from `spawn_envs`) go to the kernels and the ring whole,
 the env axis a grid dimension. Rollouts are a Python loop; PyTorch runs
 eagerly, so there is no compiled scan to cache.
@@ -59,7 +63,7 @@ def make_step_fn(cfg: SimConfig, mesh=None) -> Callable[..., SceneState]:
     config; it takes unbatched and batched states alike. `mesh` serves the
     ring and gspmd backends (default: parallel.mesh.default_mesh())."""
     backend = _resolve_backend(cfg)
-    if backend == "dense" or cfg.controller == "random":
+    if backend == "dense":
         return functools.partial(dense.STEPPERS[cfg.controller], cfg=cfg)
     if backend == "pallas":
         from .ops import tiled
@@ -97,17 +101,29 @@ def _render_fn(cfg: SimConfig, mesh=None) -> Callable:
     kernel route, as the JAX package borrows its pallas route."""
     vcfg = cfg.vision
     backend = _resolve_backend(cfg)
-    if backend in ("dense", "gspmd"):
+    if backend == "dense":
         from .vision import render
 
         return lambda pos, vel, texture=None: render.render_rows(pos, vel, vcfg, texture=texture)
+    if backend == "gspmd":
+        from .parallel import auto, ring
+        from .parallel.mesh import GlobalTensor
+        from .vision import render
+
+        def gspmd_rows(pos, vel, texture=None):
+            if not isinstance(pos, GlobalTensor):
+                return render.render_rows(pos, vel, vcfg, texture=texture)
+            m, data_axis = ring.mesh_of(pos, mesh, "Scene's gspmd backend")
+            return auto.auto_render_rows(pos, vel, vcfg, mesh=m, data_axis=data_axis,
+                                         texture=texture)
+
+        return gspmd_rows
     if backend == "ring":
-        from .parallel import mesh as mesh_lib
         from .parallel import ring
 
         def ring_rows(pos, vel, texture=None):
-            m = mesh_lib.local_mesh(mesh, "Scene's ring backend")
-            return ring.ring_render_rows(pos, vel, vcfg, mesh=m, data_axis=mesh_lib.data_axis_of(m),
+            m, data_axis = ring.mesh_of(pos, mesh, "Scene's ring backend")
+            return ring.ring_render_rows(pos, vel, vcfg, mesh=m, data_axis=data_axis,
                                          texture=texture)
 
         return ring_rows
@@ -361,12 +377,19 @@ class Scene:
                 out["vel"].append(state.vel)
             if "obs" in record:
                 out["obs"].append(self.observe(state))
-        if num_steps > 0:
-            return state, {k: torch.stack(v) for k, v in out.items()}
+        from .parallel.mesh import stack_global
 
-        def empty_stack(k: str) -> torch.Tensor:
-            shape = (state.pos.shape[:-1] + (self.cfg.vision.width,) if k == "obs"
-                     else getattr(state, k).shape)
-            return state.pos.new_empty((0,) + shape)
+        if num_steps > 0:
+            return state, {k: stack_global(v) for k, v in out.items()}
+
+        def empty_stack(k: str):
+            """An empty stack of key k (of the state's layout where its
+            leaves are GlobalTensors)."""
+            if k != "obs":
+                return stack_global([], getattr(state, k))
+            pos, width = state.pos, self.cfg.vision.width
+            local = getattr(pos, "local", pos)
+            obs = local.new_empty(local.shape[:-1] + (width,))
+            return stack_global([], pos.with_local(obs) if local is not pos else obs)
 
         return state, {k: empty_stack(k) for k in record}

@@ -9,7 +9,11 @@ ring boids, the disc and wireframe eye rings and gspmd gravity on the same
 numpy inputs, and writes its local blocks; here they are held against the
 JAX package's dense functions on those inputs. Tolerances: the JAX
 worker's, gravity and boids rtol 3e-5 / atol 1e-6, the disc eye atol
-3e-5; the wireframe eye test_torch_ring_train.py's shade atol 2e-4.
+3e-5; the wireframe eye test_torch_ring_train.py's shade atol 2e-4; the
+gradients through the ring across the boundary against one process's
+test_torch_ring_train.py's, rtol 1e-4 / atol 1e-4 of the largest
+component. The trainers across processes:
+tests/test_torch_multihost_train.py.
 """
 
 import os
@@ -118,11 +122,17 @@ def test_blocks_cover_the_agents(blocks):
 
 
 def test_autograd_and_uneven_blocks_are_refused(blocks):
-    """Each process refused an input that requires grad (the distributed
-    ring is the forward only) and blocks of 31 and 32 agents (N=63 does
-    not divide over the processes)."""
+    """Autograd crosses the boundary: each process's gradients of ring
+    gravity and of the differentiable disc eye ring (positions and
+    velocities) equal one process's on 4 shards; and each process refused
+    blocks of 31 and 32 agents (N=63 does not divide over the processes)."""
     for b in blocks:
-        assert bool(b["refused_grad"]) and bool(b["refused_uneven"])
+        assert bool(b["refused_uneven"])
+        for name in ("grad_gravity", "grad_eye_pos", "grad_eye_vel"):
+            got, want = b[f"{name}_dist"], b[f"{name}_one"]
+            assert np.abs(want).max() > 0, name
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max(),
+                                       err_msg=name)
 
 
 def test_a_one_process_mesh_makes_no_global_tensor():
@@ -134,9 +144,10 @@ def test_a_one_process_mesh_makes_no_global_tensor():
 
 def test_plain_tensors_and_one_process_paths_are_refused(blocks):
     """On the mesh across processes each process refused plain tensors
-    (the ring's gravity, boids and differentiable eye, gspmd gravity), and
-    Scene's ring backend (its default mesh), a trainer's state and a
-    trainer's step: they run on one process."""
+    (the ring's gravity, boids and differentiable eye, gspmd gravity, and
+    Scene's ring backend on plain states over its default mesh), and
+    datagen and BC (make_collect_fn, distill, fit_streaming): they run on
+    one process, their chunks reaching the host whole."""
     for b in blocks:
         assert bool(b["refused_plain"]) and bool(b["refused_one_process"])
 

@@ -10,10 +10,12 @@ from one numpy seed, lift their local agent block to global tensors
 (parallel.mesh.global_state), run ring gravity (one env and a batch of 2),
 ring boids, the disc and wireframe eye rings and gspmd gravity across the
 boundary, and write their local blocks of the results to <out.npz>, which
-the test holds against the JAX package's dense functions, with whether a
-distributed input that requires grad, blocks of 31 and 32 agents, plain
-tensors on the mesh across processes, and Scene and a trainer on it were
-refused. Exit code 0 = every step ran and the round trip
+the test holds against the JAX package's dense functions. It also writes
+the gradients of ring gravity and of the differentiable disc eye ring
+across the boundary beside one process's on a 4-shard CPU mesh, and
+whether blocks of 31 and 32 agents, plain tensors on the mesh across
+processes (the ring, gspmd, and Scene's plain states) and datagen and BC on
+it were refused. Exit code 0 = every step ran and the round trip
 host_local_state(global_state(x)) gave x bit for bit.
 """
 
@@ -27,7 +29,7 @@ torch.set_num_threads(1)
 from nenbody_tpu_torch import Scene, SceneState, SimConfig, VisionConfig
 from nenbody_tpu_torch.parallel import auto, ring
 from nenbody_tpu_torch.parallel import mesh as mesh_lib
-from nenbody_tpu_torch.rl import train
+from nenbody_tpu_torch.rl import bc, datagen
 from nenbody_tpu_torch.rl.env import VisionEnv
 
 N, WIDTH, FAR, SEED = 64, 32, 200.0, 0
@@ -76,13 +78,30 @@ def main() -> None:
     for name in ("pos", "vel", "t"):
         assert torch.equal(getattr(back, name), getattr(local, name)), name
 
-    # refusals: autograd across the boundary, and N that does not divide
-    try:
-        ring.ring_gravity_forces(gstate.pos.with_local(local.pos.clone().requires_grad_()), cfg,
-                                 mesh=mesh)
-        results["refused_grad"] = False
-    except NotImplementedError:
-        results["refused_grad"] = True
+    # gradients across the boundary: of sum(w * forces) and of sum(w * shade)
+    # (the antialiased disc eye), against one process on 4 CPU shards
+    one = mesh_lib.make_mesh({"agents": 2 * nproc}, devices=["cpu"] * (2 * nproc))
+    aa = VisionConfig(width=WIDTH, far=FAR, antialias=True)
+    w_g = torch.from_numpy(np.random.RandomState(7).randn(N, 2).astype(np.float32))
+    w_s = torch.from_numpy(np.random.RandomState(8).randn(N, WIDTH).astype(np.float32))
+    for label, grads in (("dist", None), ("one", None)):
+        p = torch.from_numpy(pos if label == "one" else pos[lo:hi]).requires_grad_()
+        v = torch.from_numpy(vel if label == "one" else vel[lo:hi]).requires_grad_()
+        m = one if label == "one" else mesh
+        lift = (lambda x: x) if label == "one" else (
+            lambda x: mesh_lib.GlobalTensor(x, mesh, ("agents", None), torch.Size((N, 2))))
+        local = (lambda x: x) if label == "one" else (lambda x: x.local)
+        rows = slice(None) if label == "one" else slice(lo, hi)
+        g = local(ring.ring_gravity_forces(lift(p), cfg, mesh=m))
+        (g * w_g[rows]).sum().backward()
+        results[f"grad_gravity_{label}"] = p.grad[lo:hi] if label == "one" else p.grad
+        p.grad = None
+        shade = local(ring.ring_render_rows_diff(lift(p), lift(v), aa, mesh=m)[0])
+        (shade * w_s[rows]).sum().backward()
+        for name, x in (("pos", p), ("vel", v)):
+            results[f"grad_eye_{name}_{label}"] = x.grad[lo:hi] if label == "one" else x.grad
+
+    # refusals: N that does not divide
     pos63 = inputs(n=63)[0]
     lo63, hi63 = pid * 63 // nproc, (pid + 1) * 63 // nproc
     try:
@@ -101,6 +120,10 @@ def main() -> None:
         return False
 
     whole = torch.from_numpy(pos)
+    # Scene's plain states: the default mesh spans the processes now
+    gcfg = SimConfig(n=N, controller="gravity", backend="ring",
+                     vision=VisionConfig(width=WIDTH, far=FAR))
+    scene = Scene(gcfg, device="cpu")
     results["refused_plain"] = all([
         refused(lambda: ring.ring_gravity_forces(whole, cfg, mesh=mesh), "GlobalTensors"),
         refused(lambda: ring.ring_boids_velocity(whole, torch.from_numpy(vel), cfg, mesh=mesh),
@@ -109,19 +132,17 @@ def main() -> None:
                                                    torch.from_numpy(vel), cfg.vision, mesh=mesh),
                 "GlobalTensors"),
         refused(lambda: auto.auto_gravity_forces(whole, cfg, mesh=mesh), "GlobalTensors"),
-    ])
-    # Scene (the default mesh spans the processes now) and the trainers run
-    # on one process
-    gcfg = SimConfig(n=N, controller="gravity", backend="ring",
-                     vision=VisionConfig(width=WIDTH, far=FAR))
-    scene = Scene(gcfg, device="cpu")
-    env = VisionEnv(gcfg)
-    results["refused_one_process"] = all([
         refused(lambda: scene.step(scene.spawn(0)), "runs on one process"),
         refused(lambda: scene.observe(scene.spawn(0)), "runs on one process"),
-        refused(lambda: train.init_train_state(env, 2, device="cpu", mesh=mesh),
+    ])
+    # datagen and BC run on one process: their chunks reach the host whole
+    env = VisionEnv(gcfg)
+    results["refused_one_process"] = all([
+        refused(lambda: datagen.make_collect_fn(env, mesh=mesh), "runs on one process"),
+        refused(lambda: bc.distill(env, lambda obs: obs[..., -2:], num_envs=2, device="cpu",
+                                   mesh=mesh), "runs on one process"),
+        refused(lambda: bc.fit_streaming(env, num_envs=2, device="cpu", mesh=mesh),
                 "runs on one process"),
-        refused(lambda: train.make_train_step(env, mesh=mesh), "runs on one process"),
     ])
 
     np.savez(out, **{k: np.asarray(v) for k, v in results.items()})
