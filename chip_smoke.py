@@ -189,7 +189,27 @@ kernels, whose `ms` is a host loop of 10 calls, wrapper time included,
 while `shapes` holds device times);
 the last line is {"ok": true, "device": {...}}.
 `python3 chip_smoke.py --rdma-cards N` runs the RDMA phases alone with one
-shard on each of N cards; `--kernel-times [GROUP ...]` the device timings
+shard on each of N cards. `--cards N` (an even N of visible cards) runs
+the multi-device half on N real cards and nothing else, logging the peer
+access matrix, each part's peak memory on every card (a card of the
+part's mesh that took no work fails the run) and its launch counts:
+cards-ring (one process, one shard a card: the ring calls at configs 4
+and 2 and the eye rings at config-5 width against one card, timed on the
+cards against one card and against N shards of cuda:0, whose result they
+equal bit for bit; Scene(backend="ring"/"gspmd") at configs 3 and 4; APG
+diff_vision's gradients through the ring), cards-train (`train --mesh
+2x(N/2)` and `--mesh auto` of the CLI, the trainer API's steps on two
+layouts held against the same layout on one card), cards-dryrun
+(dryrun_multichip(N) and (2N)), cards-nccl (N processes, one card each,
+under torchrun's environment and a bare init_distributed() on NCCL: the
+ring calls, then NCCL_TRAIN on both cards_layouts held against one
+process; NCCL's transport lines; then the same N processes on gloo),
+cards-fleet (the fleet step on {"data": 2, "agents": N/2} of the cards;
+its artifact loaded three ways), the RDMA phases, the kernels held and
+timed as the one-card run holds and times them, and cards-weak
+(REINFORCE with N x 4,096 envs on `--mesh Nx1`); its `kernels` line
+holds the kernels these launched.
+`--kernel-times [GROUP ...]` the device timings
 of phase 5 and the serving steps alone, or only the GROUPs named (of
 TIME_GROUPS), with another checkout first on sys.path its kernels under
 the same harness. Imports no jax.
@@ -204,6 +224,7 @@ import io
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1933,23 +1954,23 @@ def phase_vjp_partials_plans(errors: Errors) -> None:
         expect(same, f"{label}: repeated launches to give the same bits")
 
 
-def hold_scaled(label: str, got, want, bound: float) -> float:
+def hold_scaled(label: str, got, want, bound: float, phase: str = "ring") -> float:
     """|got - want| / max|want| < bound for one path against another."""
     torch.cuda.synchronize()
     expect(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{label}: finite")
     err = ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
-    log("ring", f"{label}: err/max|one device| {err:.3e} (bound {bound:.1e})")
+    log(phase, f"{label}: err/max|one device| {err:.3e} (bound {bound:.1e})")
     expect(err < bound, f"{label} within its bound")
     return err
 
 
-def hold_rows(label: str, got, want, vcfg: VisionConfig) -> None:
+def hold_rows(label: str, got, want, vcfg: VisionConfig, phase: str = "ring") -> None:
     """Rows at the eye's tolerances (depth rtol 1e-5 / atol 1e-4, shade
     rtol 1e-5 / atol 1e-5, the wireframe's 2e-4), no pixel flipped."""
     torch.cuda.synchronize()
     shade_atol = 2e-4 if vcfg.sprite_mode == "wireframe" else 1e-5
     flips = int(((got[1] < vcfg.far) != (want[1] < vcfg.far)).sum())
-    log("ring", f"{label}: max|d depth| {(got[1] - want[1]).abs().max().item():.3e}, "
+    log(phase, f"{label}: max|d depth| {(got[1] - want[1]).abs().max().item():.3e}, "
         f"max|d shade| {(got[0] - want[0]).abs().max().item():.3e}, flipped pixels {flips} "
         f"(bound 0)")
     expect(flips == 0, f"{label}: no flipped pixel")
@@ -2013,6 +2034,26 @@ def hold_rows_edges(label: str, got, want, vcfg: VisionConfig, pos, vel) -> None
         f"{witnessed} of them edge-decided (|off| within {EDGE_OFF} of 1 in float64)")
     expect(witnessed == beyond and share <= EDGE_SHARE,
            f"{label}: every differing pixel edge-decided, at most {EDGE_SHARE} of them")
+
+
+def hold_rows_ties(label: str, got, want, vcfg: VisionConfig, phase: str = "ring") -> None:
+    """hold_rows for a ring's rows against one device's at shapes where two
+    sprites of different blocks may lie at exactly one depth at a pixel:
+    the ring keeps the earlier hop's (render.merge_rows), one device the
+    lower (edge, target) key, so the shades differ at equal depths. Every
+    pixel within the eye's tolerances but such ties (the depths bit-equal),
+    at most EDGE_SHARE of the pixels; no pixel flipped."""
+    torch.cuda.synchronize()
+    shade_atol = 2e-4 if vcfg.sprite_mode == "wireframe" else 1e-5
+    flips = int(((got[1] < vcfg.far) != (want[1] < vcfg.far)).sum())
+    bad = ~(torch.isclose(got[1], want[1], rtol=1e-5, atol=1e-4)
+            & torch.isclose(got[0], want[0], rtol=1e-5, atol=shade_atol))
+    beyond, ties = int(bad.sum()), int((bad & (got[1] == want[1])).sum())
+    log(phase, f"{label}: max|d depth| {(got[1] - want[1]).abs().max().item():.3e}, flipped "
+        f"pixels {flips} (bound 0); {beyond} of {bad.numel()} pixels beyond the eye's "
+        f"tolerances, {ties} of them depth ties (bound: all, at most {EDGE_SHARE} of the pixels)")
+    expect(flips == 0 and ties == beyond and beyond <= EDGE_SHARE * bad.numel(),
+           f"{label}: no flipped pixel, every differing pixel a depth tie")
 
 
 def phase_ring(card: str):
@@ -2144,22 +2185,27 @@ def phase_ring(card: str):
     return total, runs
 
 
-def hold_mesh_grads(label: str, env: VisionEnv, mesh) -> None:
+def hold_mesh_grads(label: str, env: VisionEnv, mesh, phase: str = "ring", wrap=None) -> None:
     """APG diff_vision's parameter gradients at horizon 1 (where they are
     well conditioned) on `mesh` against one device's, same seed, at the
     trainers' width: the ring's composed backward (each hop's eye Function,
     merge_rows' routing, the gravity VJP's cross form, the copies'
-    transposes) held at RING_GRAD_BOUND of their norm."""
+    transposes) held at RING_GRAD_BOUND of their norm. `wrap(fn)` runs the
+    mesh's step (fn()), to count its launches."""
     grads = {}
     for name, m in (("mesh", mesh), ("one", None)):
         ts = apg.init_apg_state(env, seed=0, device="cuda")
-        apg.make_apg_step(env, horizon=1, num_envs=TRAIN_ENVS, mesh=m, diff_vision=True)(ts)
+        step = apg.make_apg_step(env, horizon=1, num_envs=TRAIN_ENVS, mesh=m, diff_vision=True)
+        if m is not None and wrap is not None:
+            wrap(lambda: step(ts))
+        else:
+            step(ts)
         grads[name] = torch.cat([p.grad.flatten() for p in ts.policy.parameters()])
     got, want = grads["mesh"], grads["one"]
     expect(bool(torch.isfinite(got).all()) and want.norm().item() > 0,
            f"{label}: finite nonzero gradients at horizon 1")
     rel = ((got - want).norm() / want.norm()).item()
-    log("ring", f"{label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon 1: grad_norm "
+    log(phase, f"{label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon 1: grad_norm "
         f"mesh {got.norm().item():.6e}, one device {want.norm().item():.6e}, |difference| / "
         f"|one device| {rel:.3e} (bound {RING_GRAD_BOUND:.0e})")
     expect(rel < RING_GRAD_BOUND, f"{label}: the mesh's gradients agree with one device's")
@@ -2179,12 +2225,41 @@ MULTICHIP_WORKER_S = 300  # the most seconds the two worker processes may take t
 TWO_PROCESS_TRAIN = ("apg diff_vision disc", "apg diff_vision wireframe", "ppo central critic",
                      "reinforce")
 TWO_PROCESS_ITERS = 2
+# The --cards mode (main_cards): the trainers its N processes run on NCCL,
+# on each layout of cards_layouts, held against one process on that layout
+# of the cards; the CLI's trainers it runs across the cards in one process,
+# each with the metric its iterations are held by and how many of its first
+# iterations are held (held_metric's reason for REINFORCE; PPO's loss is the
+# mean over 16 Adam minibatch steps of bf16 nets, which rounding moves by
+# far more than RING_LOSS_RTOL, so its rollout's return_mean). REINFORCE's
+# second iteration reads the first update: its rollouts and its policy's
+# batch on the home card are those of one card. APG's and PPO's CLI holds
+# read the forward alone (the first rollout, before any update): APG's
+# update runs through the ring's backward, whose sums run in another
+# order, and on a mesh PPO draws its minibatches along the time axis;
+# train_across holds their gradients;
+# the kernels train_across launches; Scene(backend="gspmd")'s observation,
+# the dense eye's, held at phase_small_reference's bound for the dense path
+NCCL_TRAIN = ("apg diff_vision disc", "ppo central critic", "reinforce")
+CARDS_CLI = {"reinforce": ([], "return_mean", 2), "apg": (["--algo", "apg"], "loss", 1),
+             "ppo central critic": (["--algo", "ppo", "--critic", "central"], "return_mean", 1)}
+TRAINER_KERNELS = ("gravity", "gravity_vjp", "disc_eye", "disc_eye_bwd", "wireframe_eye",
+                   "wireframe_eye_bwd")
+GSPMD_OBS_PIXELS = 1e-3
 MULTICHIP_REPS = 5  # timed calls of each ring call, after the counted one
 MULTICHIP_STEPS = 20  # chained fleet steps a timing
 # The fleet step's action against the one-device step's: the bf16
 # policy-head allowance (ROADMAP queue 3); its pos and vel are held to
 # RING_GRAVITY_BOUND (err / max|one device|)
 FLEET_ACTION_ATOL = 5e-3
+
+
+def cards_layouts(world: int) -> dict:
+    """{name: mesh axes} of the --cards mode's training over `world` cards,
+    in one process and across `world` processes of one card each: the
+    agent ring across them all, and two mesh rows of world / 2 (across
+    processes, the rows' and columns' process groups)."""
+    return {"agents": {"agents": world}, "data2": {"data": 2, "agents": world // 2}}
 
 
 def host_ms(fn, reps: int) -> float:
@@ -2225,6 +2300,18 @@ def ring_calls(mesh, cfg4, pos, vel, cfg2, s2, lift=lambda x: x):
     return calls
 
 
+def ring_calls_ms(mesh) -> dict:
+    """{label: ms per call} of ring_calls on a one-process `mesh` (host
+    clock, MULTICHIP_REPS calls after a warm-up call), the times the
+    processes' calls are logged beside."""
+    out = {}
+    with torch.no_grad():
+        for label, call in ring_calls(mesh, *ring_inputs()).items():
+            call()
+            out[label] = host_ms(call, MULTICHIP_REPS)
+    return out
+
+
 def two_process_step(label: str, mesh, hold: bool):
     """(train state, step) of one of TWO_PROCESS_TRAIN at config-5 width on
     `mesh`. With `hold`: float32 nets (a bf16 layer rounds each process's
@@ -2256,13 +2343,14 @@ def two_process_step(label: str, mesh, hold: bool):
     return ts, train.make_train_step(env, horizon=TRAIN_HORIZON, mesh=mesh)
 
 
-def train_across(mesh) -> dict:
-    """Each of TWO_PROCESS_TRAIN on `mesh` (this process's block where it
-    spans processes): the held step's metrics and the flat gradients and
-    parameters after it (on the host), then the timed iterations' seconds
-    each and the peak device memory of the timed runs."""
+def train_across(mesh, labels=TWO_PROCESS_TRAIN) -> dict:
+    """Each of `labels` (of TWO_PROCESS_TRAIN) on `mesh` (this process's
+    block where it spans processes): the held step's metrics and the flat
+    gradients and parameters after it (on the host), then the timed
+    iterations' seconds each and the peak device memory of the timed runs
+    (on the current card)."""
     out = {}
-    for label in TWO_PROCESS_TRAIN:
+    for label in labels:
         ts, step = two_process_step(label, mesh, hold=True)
         ts, metrics = step(ts)
         modules = [ts.policy] + ([ts.value] if hasattr(ts, "value") else [])
@@ -2314,34 +2402,59 @@ def hold_trained(label: str, got: dict, want: dict) -> tuple:
     return rel_loss, rel_grad
 
 
-def multichip_worker(rank: str, port: str, out: str) -> None:
-    """`chip_smoke.py --multichip-worker RANK PORT OUT`: one of the
-    multichip phase's two processes. Two shards of cuda:0 each, joined on
-    gloo (NCCL refuses two ranks on one card), form a 4-shard agent ring
-    across the process boundary; each process holds its half of the agents
-    of ring_calls' inputs, runs each call once with the launch counts set to
-    0 just before and read just after, holds its block against the
-    one-device kernels (phase_ring's bounds), times MULTICHIP_REPS more
-    calls, and writes counts and times as JSON to OUT. Then the training
-    part (train_across) with the launch counts set to 0 just before it and
-    read just after, its results written beside OUT (`.train.pt`)."""
+def multichip_worker(out: str, backend: str = "", devices: str = "") -> None:
+    """`chip_smoke.py --multichip-worker OUT [BACKEND [DEVICES]]`: one
+    process of a ring across processes, started by run_processes with
+    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT). The multichip phase's two: BACKEND gloo and DEVICES 0,0,
+    two shards of cuda:0 each (NCCL refuses two ranks on one card). The
+    --cards mode's N: no DEVICES, so init_distributed() takes the card of
+    LOCAL_RANK, and no BACKEND (a bare init_distributed(), NCCL) or gloo
+    (the same layout on gloo's transport; gloo's default is every visible
+    card, so the worker names LOCAL_RANK's). The processes' shards form one agent ring
+    across the process boundaries; each process holds its block of the
+    agents of ring_calls' inputs, runs each call once with the launch
+    counts set to 0 just before and read just after, holds its block
+    against the one-device kernels (phase_ring's bounds), times
+    MULTICHIP_REPS more calls, and writes counts and times as JSON to OUT.
+    Then the training part (train_across: the multichip phase's
+    TWO_PROCESS_TRAIN on the agent ring; the --cards mode's NCCL_TRAIN on
+    each of cards_layouts) with the launch
+    counts set to 0 just before it and read just after, its results written
+    beside OUT (`.train.pt`, by layout)."""
+    import os
+
     import torch.distributed as dist
 
     from nenbody_tpu_torch.parallel import mesh as mesh_lib
 
-    rank = int(rank)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh_lib.init_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=rank,
-                              local_device_ids=[0, 0], backend="gloo")
-    mesh = make_mesh({"agents": 4})
-    log("multichip", f"p{rank}: {mesh}; transport {dist.get_backend()} (CUDA blocks staged "
-        f"through pinned host memory, the partials on the card)")
+    local = int(os.environ["LOCAL_RANK"])
+    mesh_lib.init_distributed(
+        local_device_ids=([int(d) for d in devices.split(",")] if devices
+                          else [local] if backend == "gloo" else None),
+        backend=backend or None)
+    if devices:
+        phase, layouts, labels = "multichip", {"agents": None}, TWO_PROCESS_TRAIN
+    else:
+        phase, layouts, labels = f"cards-{dist.get_backend()}", cards_layouts(world), NCCL_TRAIN
+        expect(dist.get_backend() == (backend or "nccl"), f"p{rank}: init_distributed() joins "
+               f"on {backend or 'nccl'}, got {dist.get_backend()}")
+        expect(torch.cuda.current_device() == local,
+               f"p{rank}: init_distributed() takes the card of LOCAL_RANK")
+    shards = len(make_mesh().devices) // world
+    mesh = make_mesh({"agents": world * shards})
+    staged = (" (CUDA blocks staged through pinned host memory, the partials on the card)"
+              if dist.get_backend() == "gloo" else "")
+    log(phase, f"p{rank}: {mesh}; transport {dist.get_backend()}{staged}")
+    where = f"{world} processes x {shards} shard{'s' if shards > 1 else ''}"
     cfg4, pos, vel, cfg2, s2 = ring_inputs()
 
     def lift(x):
         n = x.shape[-2]
-        return mesh_lib.lift(x[rank * n // 2:(rank + 1) * n // 2].contiguous(), mesh,
+        return mesh_lib.lift(x[rank * n // world:(rank + 1) * n // world].contiguous(), mesh,
                              ("agents", None))
 
     result = {"counts": {}, "ms": {}}
@@ -2354,23 +2467,23 @@ def multichip_worker(rank: str, port: str, out: str) -> None:
             torch.cuda.synchronize()
             result["counts"][label] = common.launch_counts()
             n = pos.shape[0] if "config 4" in label or "N=65,536" in label else s2.pos.shape[0]
-            lo, hi = rank * n // 2, (rank + 1) * n // 2
+            lo, hi = rank * n // world, (rank + 1) * n // world
             if label.startswith("ring gravity"):
-                hold_scaled(f"p{rank} {label} (2 processes x 2 shards)", got.local,
+                hold_scaled(f"p{rank} {label} ({where})", got.local,
                             pairwise.gravity_forces_tiled(pos, cfg4.gravity)[lo:hi],
-                            RING_GRAVITY_BOUND)
+                            RING_GRAVITY_BOUND, phase)
             elif label.startswith("ring boids"):
-                hold_scaled(f"p{rank} {label} (2 processes x 2 shards)", got.local,
+                hold_scaled(f"p{rank} {label} ({where})", got.local,
                             boids_ops.boids_velocity_tiled(
                                 pos, vel, SimConfig(n=pos.shape[0], controller="boids").boids)[lo:hi],
-                            RING_BOIDS_BOUND)
+                            RING_BOIDS_BOUND, phase)
             else:
                 sprite = label.split()[1]
                 vcfg = dataclasses.replace(cfg2.vision, sprite_mode=sprite)
                 one = (wireframe.render_rows_wireframe_tiled(s2.pos, s2.vel, vcfg)
                        if sprite == "wireframe" else raycast.render_rows_tiled(s2.pos, s2.vel, vcfg))
-                hold_rows(f"p{rank} {label} (2 processes x 2 shards)",
-                          (got[0].local, got[1].local), (one[0][lo:hi], one[1][lo:hi]), vcfg)
+                hold_rows(f"p{rank} {label} ({where})",
+                          (got[0].local, got[1].local), (one[0][lo:hi], one[1][lo:hi]), vcfg, phase)
             dist.barrier()
             result["ms"][label] = host_ms(call, MULTICHIP_REPS)
     del pos, vel, s2
@@ -2378,26 +2491,53 @@ def multichip_worker(rank: str, port: str, out: str) -> None:
     dist.barrier()
     torch.cuda.synchronize()
     common.reset_launch_counts()
-    trained = train_across(mesh)
+    trained = {name: train_across(mesh if axes is None else make_mesh(axes), labels)
+               for name, axes in layouts.items()}
     torch.cuda.synchronize()
     result["counts"]["training"] = common.launch_counts()
-    for label, r in trained.items():
-        log("multichip", f"p{rank}: {label} across 2 processes, loss {r['metrics']['loss']:.8e}; "
-            f"s/iteration {', '.join('%.4f' % t for t in r['sec'])} at horizon {TRAIN_HORIZON}; "
-            f"peak device memory {r['peak_gib']:.2f} GiB")
+    for name, runs in trained.items():
+        for label, r in runs.items():
+            log(phase, f"p{rank}: {label} across {world} processes"
+                + (f" on {name}" if len(trained) > 1 else "")
+                + f", loss {r['metrics']['loss']:.8e}; s/iteration "
+                f"{', '.join('%.4f' % t for t in r['sec'])} at horizon {TRAIN_HORIZON}; peak "
+                f"device memory {r['peak_gib']:.2f} GiB")
     torch.save(trained, out + ".train.pt")
     with open(out, "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
 
 
-def two_processes(card: str, single_ms: dict, single_train: dict) -> dict:
-    """The multichip phase's part (c): two worker processes
-    (multichip_worker) started with sys.executable after this process has
-    built the kernel library; either's non-zero exit or a timeout fails the
-    smoke. Their ring calls are logged beside one process's times
-    (`single_ms`), their training steps held against one process's
-    (`single_train`, train_across on 4 shards of cuda:0) and their two
+# NCCL's debug lines naming the channels and transports it chose
+NCCL_TRANSPORT = ("via", "transport", "Connected all", "NVLS", "P2P/", "SHM", "NET/")
+NCCL_LINES_SHOWN = 40  # distinct such lines logged a process
+
+
+def nccl_lines(text: str) -> tuple:
+    """(NCCL's channel and transport lines of a worker's output, without
+    their host:pid:tid prefix and channel numbers, deduplicated, capped at
+    NCCL_LINES_SHOWN; every other line)."""
+    picked, other = [], []
+    for line in text.splitlines():
+        if "NCCL INFO" not in line:
+            other.append(line)
+            continue
+        body = re.sub(r"Channel \d+/\d+", "Channel */*", line.split("NCCL INFO", 1)[1].strip())
+        if any(k in body for k in NCCL_TRANSPORT) and body not in picked:
+            picked.append(body)
+    return picked[:NCCL_LINES_SHOWN], other
+
+
+def run_processes(card: str, world: int, args: list, where: str, phase: str, one: str,
+                  single_ms: dict, single_train: dict, env: dict | None = None) -> dict:
+    """`world` worker processes (multichip_worker, `chip_smoke.py
+    --multichip-worker OUT *args`) started with sys.executable after this
+    process has built the kernel library, with torchrun's environment (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and `env`; any one's
+    non-zero exit or a timeout fails the smoke. Their ring calls are logged
+    beside one process's times (`single_ms`, on the mesh `one` names),
+    their training steps held against one process's on the same layout
+    (`single_train`, by layout and label, train_across) and their
     replicas' parameters against each other, bit for bit. Returns their
     launch counts, summed."""
     import os
@@ -2407,10 +2547,13 @@ def two_processes(card: str, single_ms: dict, single_train: dict) -> dict:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     os.makedirs("build/chip_smoke_multichip", exist_ok=True)
-    outs = [f"build/chip_smoke_multichip/p{rank}.json" for rank in range(2)]
-    procs = [subprocess.Popen([sys.executable, __file__, "--multichip-worker", str(rank),
-                               str(port), outs[rank]], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outs = [f"build/chip_smoke_multichip/p{rank}.json" for rank in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--multichip-worker", outs[rank], *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, **(env or {}), "RANK": str(rank), "WORLD_SIZE": str(world),
+             "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+        for rank in range(world)]
     deadline, logs = time.monotonic() + MULTICHIP_WORKER_S, []
     try:
         for p in procs:
@@ -2421,9 +2564,12 @@ def two_processes(card: str, single_ms: dict, single_train: dict) -> dict:
                 p.kill()
                 p.communicate()
     for rank, (p, text) in enumerate(zip(procs, logs)):
-        for line in text.splitlines():
+        transport, lines = nccl_lines(text)
+        for line in lines:
             print(f"  [p{rank}] {line}", flush=True)
-        expect(p.returncode == 0, f"multichip worker process {rank} exits 0 (got {p.returncode})")
+        for line in transport:
+            print(f"  [p{rank}] NCCL {line}", flush=True)
+        expect(p.returncode == 0, f"{phase} worker process {rank} exits 0 (got {p.returncode})")
     results = []
     for out in outs:
         with open(out) as f:
@@ -2433,81 +2579,66 @@ def two_processes(card: str, single_ms: dict, single_train: dict) -> dict:
         for k, v in r["counts"]["training"].items():
             total[k] += v
     trains = [torch.load(out + ".train.pt") for out in outs]
-    for label in TWO_PROCESS_TRAIN:
-        want = single_train[label]
-        held = [hold_trained(f"p{rank} {label}", t[label], want) for rank, t in enumerate(trains)]
-        expect(torch.equal(trains[0][label]["params"], trains[1][label]["params"]),
-               f"{label}: both processes' parameters are equal bit for bit after the step")
-        log("multichip", f"{label} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH} on 2 processes "
-            f"x 2 shards of cuda:0 (gloo), held at horizon "
-            f"{1 if label.startswith('apg') else TRAIN_HORIZON} with float32 nets: "
-            f"{held_metric(label)} |difference| / |one process| "
-            f"{', '.join('%.3e' % h[0] for h in held)} (bound "
-            f"{RING_LOSS_RTOL:.0e}), gradients {', '.join('%.3e' % h[1] for h in held)} of "
-            f"their norm (bound {RING_GRAD_BOUND:.0e}); parameters of the two processes equal bit "
-            f"for bit; loss {', '.join('%.8e' % t[label]['metrics']['loss'] for t in trains)}, "
-            f"one process {want['metrics']['loss']:.8e}; s/iteration at horizon {TRAIN_HORIZON} "
-            f"(default nets) "
-            f"{'; '.join(', '.join('%.4f' % x for x in t[label]['sec']) for t in trains)} "
-            f"(each process), one process x 4 shards "
-            f"{', '.join('%.4f' % x for x in want['sec'])}; peak device memory "
-            f"{', '.join('%.2f' % t[label]['peak_gib'] for t in trains)} GiB (one process "
-            f"{want['peak_gib']:.2f}) [{card}]")
-    log("multichip", f"the two processes' training launches "
+    for name, runs in trains[0].items():
+        on = f" on {name}" if len(trains[0]) > 1 else ""
+        for label in runs:
+            want = single_train[name][label]
+            got = [t[name][label] for t in trains]
+            held = [hold_trained(f"p{rank} {label}{on}", g, want) for rank, g in enumerate(got)]
+            expect(all(torch.equal(g["params"], got[0]["params"]) for g in got),
+                   f"{label}{on}: every process's parameters are equal bit for bit after the step")
+            log(phase, f"{label}{on} at {TRAIN_ENVS} x {TRAIN_AGENTS} x {TRAIN_WIDTH} on "
+                f"{where}, held at horizon "
+                f"{1 if label.startswith('apg') else TRAIN_HORIZON} with float32 nets: "
+                f"{held_metric(label)} |difference| / |one process| "
+                f"{', '.join('%.3e' % h[0] for h in held)} (bound "
+                f"{RING_LOSS_RTOL:.0e}), gradients {', '.join('%.3e' % h[1] for h in held)} of "
+                f"their norm (bound {RING_GRAD_BOUND:.0e}); parameters of the {world} processes "
+                f"equal bit for bit; loss {', '.join('%.8e' % g['metrics']['loss'] for g in got)}"
+                f", one process {want['metrics']['loss']:.8e}; s/iteration at horizon "
+                f"{TRAIN_HORIZON} (default nets) "
+                f"{'; '.join(', '.join('%.4f' % x for x in g['sec']) for g in got)} "
+                f"(each process), one process {one} "
+                f"{', '.join('%.4f' % x for x in want['sec'])}; peak device memory "
+                f"{', '.join('%.2f' % g['peak_gib'] for g in got)} GiB (one process "
+                f"{want['peak_gib']:.2f}) [{card}]")
+    log(phase, f"the {world} processes' training launches "
         f"{[{k: v for k, v in r['counts']['training'].items() if v} for r in results]} [{card}]")
     for label in results[0]["ms"]:
         for r in results:
             for k, v in r["counts"][label].items():
                 total[k] += v
-        log("multichip", f"{label} on 2 processes x 2 shards of cuda:0 (gloo): "
+        log(phase, f"{label} on {where}: "
             f"{', '.join('%.3f' % r['ms'][label] for r in results)} ms per call (each process, "
-            f"host clock, {MULTICHIP_REPS} calls); one process x 4 shards {single_ms[label]:.3f} "
-            f"ms; launches {[{k: v for k, v in r['counts'][label].items() if v} for r in results]} "
-            f"[{card}]")
+            f"host clock, {MULTICHIP_REPS} calls); one process {one} "
+            f"{single_ms[label]:.3f} ms; launches "
+            f"{[{k: v for k, v in r['counts'][label].items() if v} for r in results]} [{card}]")
     return total
 
 
-def phase_multichip(card: str) -> dict:
-    """The multi-device half that spans processes and the fleet step, each
-    part's launch counts set to 0 just before it and read just after: (a)
-    dryrun_multichip(8) on a mesh that repeats cuda:0; (b) the fleet step
-    at config-5 width (4,096 envs x 256 agents x 64 px) on {"data": 2,
-    "agents": 2} over cuda:0, its .pt2 step bit-equal to the live one,
-    held against the one-device .pt2 step (pos and vel at
-    RING_GRAVITY_BOUND, the action at FLEET_ACTION_ATOL) and timed beside
-    it; (c) two processes
-    (two_processes): the ring calls, then REINFORCE, APG diff_vision (both
-    sprites) and PPO with the central critic at config-5 width across them,
-    held against one process (train_across). Returns the launch counts of
-    all three."""
-    from nenbody_tpu_torch.entry import dryrun_multichip
+def fleet_step(card: str, mesh, total: dict, phase: str, where: str):
+    """The fleet step (utils/export.py) at config-5 width (4,096 envs x 256
+    agents x 64 px) on `mesh` (`where` names it), the policy on cuda:0: its
+    .pt2 step bit-equal to the live fleet step, held against the one-device
+    .pt2 step (pos and vel at RING_GRAVITY_BOUND, the action at
+    FLEET_ACTION_ATOL) and timed beside it (MULTICHIP_STEPS chained steps,
+    CUDA events); its launch counts added into `total`. Returns (the
+    artifact's bytes, the inputs (pos, vel), the loaded step's outputs)."""
     from nenbody_tpu_torch.rl.policy import init_mlp_policy
     from nenbody_tpu_torch.state import spawn_batch
     from nenbody_tpu_torch.utils import export as export_lib
 
-    total = dict.fromkeys(KERNEL_INFO, 0)
-    t0 = time.perf_counter()
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        counts = counted(total, lambda: dryrun_multichip(8), MULTICHIP["dryrun_multichip(8)"],
-                         "dryrun_multichip(8)")[1]
-    line = printed.getvalue().strip().splitlines()[-1]
-    expect(line.startswith("dryrun_multichip ok: mesh=(data=2, agents=4)"), "the dry run's line")
-    log("multichip", f"{line}; launches {({k: v for k, v in counts.items() if v})}; "
-        f"{time.perf_counter() - t0:.2f} s [{card}]")
-
     cuda = torch.device("cuda", 0)
-    mesh22 = make_mesh({"data": 2, "agents": 2}, devices=[cuda] * 4)
     env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity",
                               vision=VisionConfig(width=TRAIN_WIDTH)))
     policy = init_mlp_policy(env.obs_width, 0).to(cuda)
     t1 = time.perf_counter()
-    fleet = export_lib.load_policy_step(
-        export_lib.export_policy_step(env, policy, num_envs=TRAIN_ENVS, mesh=mesh22))
+    blob = export_lib.export_policy_step(env, policy, num_envs=TRAIN_ENVS, mesh=mesh)
+    fleet = export_lib.load_policy_step(blob)
     one = export_lib.load_policy_step(
         export_lib.export_policy_step(env, policy, num_envs=TRAIN_ENVS))
     export_s = time.perf_counter() - t1
-    live = export_lib.make_fleet_step(env, policy, mesh22)
+    live = export_lib.make_fleet_step(env, policy, mesh)
     s = spawn_batch(env.cfg, torch.Generator(device="cuda").manual_seed(3), TRAIN_ENVS, "cuda")
     torch.cuda.reset_peak_memory_stats()
     got, counts = counted(total, lambda: fleet(s.pos, s.vel), MULTICHIP["fleet step"],
@@ -2521,7 +2652,7 @@ def phase_multichip(card: str) -> dict:
     with torch.no_grad():
         base = one(s.pos, s.vel)
     err_pos, err_vel = (hold_scaled(f"the fleet step's {name} against the one-device .pt2 step",
-                                    g, w, RING_GRAVITY_BOUND)
+                                    g, w, RING_GRAVITY_BOUND, phase)
                         for name, g, w in zip(("pos", "vel"), got, base))
     d_action = (got[2].double() - base[2].double()).abs().max().item()
     expect(d_action <= FLEET_ACTION_ATOL,
@@ -2540,8 +2671,8 @@ def phase_multichip(card: str) -> dict:
     chained(one)
     chained(fleet)
     one_a, fleet_a, fleet_b, one_b = chained(one), chained(fleet), chained(fleet), chained(one)
-    log("multichip", f"fleet step at config-5 width ({TRAIN_ENVS} envs x {TRAIN_AGENTS} agents "
-        f"x {TRAIN_WIDTH} px) on {{'data': 2, 'agents': 2}} over cuda:0: the .pt2 step equals "
+    log(phase, f"fleet step at config-5 width ({TRAIN_ENVS} envs x {TRAIN_AGENTS} agents "
+        f"x {TRAIN_WIDTH} px) on {where}: the .pt2 step equals "
         f"the live fleet step bit for bit; against the one-device .pt2 step err/max| | pos "
         f"{err_pos:.3e}, vel {err_vel:.3e} (bound {RING_GRAVITY_BOUND:.0e}), max|d action| "
         f"{d_action:.3e} (bound {FLEET_ACTION_ATOL:.0e}); {fleet_a:.4f}, {fleet_b:.4f} ms per step against the "
@@ -2549,17 +2680,46 @@ def phase_multichip(card: str) -> dict:
         f"events); launches per step {({k: v for k, v in counts.items() if v})}; peak device "
         f"memory of the fleet step {peak:.2f} GiB; both exports and loads {export_s:.1f} s [{card}]")
 
+    return blob, (s.pos, s.vel), got
+
+
+def phase_multichip(card: str) -> dict:
+    """The multi-device half that spans processes and the fleet step, each
+    part's launch counts set to 0 just before it and read just after: (a)
+    dryrun_multichip(8) on a mesh that repeats cuda:0; (b) the fleet step
+    at config-5 width (4,096 envs x 256 agents x 64 px) on {"data": 2,
+    "agents": 2} over cuda:0, its .pt2 step bit-equal to the live one,
+    held against the one-device .pt2 step (pos and vel at
+    RING_GRAVITY_BOUND, the action at FLEET_ACTION_ATOL) and timed beside
+    it; (c) two processes
+    (run_processes): the ring calls, then REINFORCE, APG diff_vision (both
+    sprites) and PPO with the central critic at config-5 width across them,
+    held against one process (train_across). Returns the launch counts of
+    all three."""
+    from nenbody_tpu_torch.entry import dryrun_multichip
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        counts = counted(total, lambda: dryrun_multichip(8), MULTICHIP["dryrun_multichip(8)"],
+                         "dryrun_multichip(8)")[1]
+    line = printed.getvalue().strip().splitlines()[-1]
+    expect(line.startswith("dryrun_multichip ok: mesh=(data=2, agents=4)"), "the dry run's line")
+    log("multichip", f"{line}; launches {({k: v for k, v in counts.items() if v})}; "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    cuda = torch.device("cuda", 0)
+    mesh22 = make_mesh({"data": 2, "agents": 2}, devices=[cuda] * 4)
+    fleet_step(card, mesh22, total, "multichip", "{'data': 2, 'agents': 2} over cuda:0")
+
     mesh4 = make_mesh({"agents": 4}, devices=[cuda] * 4)
-    single_ms = {}
-    with torch.no_grad():
-        for label, call in ring_calls(mesh4, *ring_inputs()).items():
-            call()
-            single_ms[label] = host_ms(call, MULTICHIP_REPS)
-    single_train = train_across(mesh4)
-    del fleet, one, live, s, got, want, base
+    single_ms = ring_calls_ms(mesh4)
+    single_train = {"agents": train_across(mesh4)}
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    two = two_processes(card, single_ms, single_train)
+    two = run_processes(card, 2, ["gloo", "0,0"], "2 processes x 2 shards of cuda:0 (gloo)",
+                        "multichip", "x 4 shards", single_ms, single_train)
     missing = [k for k in MULTICHIP["two processes"] if two[k] == 0]
     if missing:
         raise AssertionError(f"the two processes never launched {missing}")
@@ -3136,15 +3296,24 @@ def wireframe_covered(pos, dirs, vcfg) -> int:
     return int(((hi[..., None] > u_p - hp) & (lo[..., None] < u_p + hp)).sum())
 
 
+def sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def cuda_ms(fn, iters: int) -> float:
+    """ms per call over `iters` chained calls of fn after a warm-up call:
+    CUDA events on the current card (cuda:0, where a ring across cards
+    gathers its results, so the stop event follows every card's work),
+    every card synchronized before and after."""
     fn()
-    torch.cuda.synchronize()
+    sync_cards()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
-    torch.cuda.synchronize()
+    sync_cards()
     return start.elapsed_time(stop) / iters
 
 
@@ -3483,19 +3652,22 @@ def log_serving(card: str) -> None:
             f"+ observe, median of 5 runs of {steps} steps [{card}]")
 
 
-def phase_times(gen, card: str) -> dict:
-    times = {}
+def gravity_vjp_times(gen, card: str) -> dict:
+    """The gravity VJP at N=65,536 against its plain version: the `kernels`
+    line's time."""
     n = 65536
     pos = uniform(gen, (n, 2), -100, 100)
     gcfg = GravityConfig()
-
-    # the gravity VJP against its plain version
     u = torch.randn((n, 2), generator=gen, device="cuda")
     p_ms, k_ms = alternate(lambda: pairwise.gravity_vjp_plain(pos, u, gcfg),
                            lambda: pairwise.gravity_vjp_tiled(pos, u, gcfg), 2, 5)
-    times["gravity_vjp"] = (k_ms, p_ms, *bound(n * n * GRAVITY_VJP_OPS, nbytes(pos, u, u)))
     log("times", f"gravity_vjp N=65536: kernel {k_ms:.3f} ms = {n * n / k_ms * 1e3:.4e} pair "
         f"evals/s; plain {p_ms:.3f} ms = {n * n / p_ms * 1e3:.4e} pair evals/s [{card}]")
+    return {"gravity_vjp": (k_ms, p_ms, *bound(n * n * GRAVITY_VJP_OPS, nbytes(pos, u, u)))}
+
+
+def phase_times(gen, card: str) -> dict:
+    times = gravity_vjp_times(gen, card)
     # what writing the winner index costs the forward, at the trainers' shape
     shape = (TRAIN_ENVS, TRAIN_AGENTS, 2)
     epos = uniform(gen, shape, -100, 100)
@@ -3631,7 +3803,8 @@ def main_rdma_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) ->
     """`chip_smoke.py --rdma-cards N`: the RDMA phases alone with one shard
     on each of N cards (peer stores and flags across cards), nothing else."""
     if len(sys.argv) != 3 or sys.argv[1] != "--rdma-cards":
-        raise SystemExit("usage: chip_smoke.py [--rdma-cards N]")
+        raise SystemExit("usage: chip_smoke.py [--rdma-cards N | --cards N | --kernel-times "
+                         "[GROUP ...]]")
     cards = int(sys.argv[2])
     expect(2 <= cards <= torch.cuda.device_count(), f"{cards} visible cards")
     mesh = rdma_mesh(cards)
@@ -3646,6 +3819,422 @@ def main_rdma_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) ->
                    "plain_ms": times[name][1], "bound_ms": times[name][2],
                    "bound_by": times[name][3], "library_ms": None}
                   for name in RDMA_KERNEL.values()], smi, kind)
+
+
+# -- the --cards N mode: the multi-device half across real cards ---------------
+
+
+class CardWork:
+    """Each card's peak device memory over a part, above what the card held
+    when the part began (torch.cuda.max_memory_allocated after a reset),
+    logged; a card of `devices` whose peak did not rise took no work, which
+    fails the run: the check that a mesh's work did not all land on
+    cuda:0."""
+
+    def __init__(self, phase: str, label: str, devices):
+        self.phase, self.label = phase, label
+        self.need = sorted({torch.device(d).index for d in devices})
+
+    def __enter__(self):
+        sync_cards()
+        self.base = []
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+            self.base.append(torch.cuda.memory_allocated(i))
+        return self
+
+    def __exit__(self, kind, *rest):
+        if kind is not None:
+            return False
+        sync_cards()
+        self.peak = [(torch.cuda.max_memory_allocated(i) - b) / 2 ** 20
+                     for i, b in enumerate(self.base)]
+        log(self.phase, f"{self.label}: peak device memory above the start, per card "
+            f"{', '.join('%.2f' % p for p in self.peak)} MiB")
+        idle = [i for i in self.need if self.peak[i] <= 0]
+        expect(not idle, f"{self.label}: every card of the mesh took work (cards {idle} did not)")
+        return False
+
+
+def three_ways(one, cards, shards, iters: int) -> tuple:
+    """(one card, the cards, the shards of cuda:0): ms per call, each the
+    mean of two runs in the order one, cards, shards, shards, cards, one."""
+    t = [cuda_ms(fn, iters) for fn in (one, cards, shards, shards, cards, one)]
+    return (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+
+
+def phase_cards_ring(cards: int, card: str) -> dict:
+    """cards-ring: one process, one shard a card (make_mesh({"agents": N}),
+    default_mesh()): ring gravity at config 4, ring boids at N=65,536, the
+    disc and wireframe eye rings at config 2 and at config-5 width, each
+    held against the one-card kernels (phase_ring's bounds) and timed on
+    the cards against one card and against N shards of cuda:0 (whose
+    result it must equal bit for bit: the same kernels on the same
+    blocks); Scene(backend="ring") and Scene(backend="gspmd") one step
+    (plus observe at config 3) at configs 3 and 4 against
+    backend="pallas" on one card; the ring's VJP (the gravity cross form
+    #6) at config 4 and APG diff_vision's gradients at horizon 1 (the
+    eyes' backward across the cards) against one card's. Launch counts read around the
+    calls on the cards alone. Returns them."""
+    phase = "cards-ring"
+    cuda0 = torch.device("cuda", 0)
+    mesh_c = make_mesh({"agents": cards})
+    mesh_s = make_mesh({"agents": cards}, devices=[cuda0] * cards)
+    expect(mesh_c.devices == [torch.device("cuda", i) for i in range(cards)]
+           and default_mesh().devices == mesh_c.devices,
+           f"make_mesh() and default_mesh() put one shard on each card, got {mesh_c}")
+    log(phase, f"{mesh_c}; against {mesh_s} and one card")
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cfg4, pos, vel, cfg2, s2 = ring_inputs()
+        bcfg = SimConfig(n=cfg4.n, controller="boids")
+        cfg5 = PRESETS["envs-4096x256"]()
+        s5 = Scene(cfg5, device="cuda").spawn_envs(TRAIN_ENVS, seed=0)
+        # (label, the call on a mesh, the one-card call, the hold, kernels it needs, iters)
+        cases = [("ring gravity config 4", lambda m: ring.ring_gravity_forces(pos, cfg4, mesh=m),
+                  lambda: pairwise.gravity_forces_tiled(pos, cfg4.gravity),
+                  lambda label, g, w: hold_scaled(label, g, w, RING_GRAVITY_BOUND, phase),
+                  ("gravity",), 10),
+                 ("ring boids N=65,536",
+                  lambda m: ring.ring_boids_velocity(pos, vel, bcfg, mesh=m),
+                  lambda: boids_ops.boids_velocity_tiled(pos, vel, bcfg.boids),
+                  lambda label, g, w: hold_scaled(label, g, w, RING_BOIDS_BOUND, phase),
+                  ("boids_partials",), 10)]
+        # config-5 width's 67M pixels hold exact depth ties (hold_rows_ties)
+        for where, st, base, iters, hold in (("config 2", s2, cfg2, 20, hold_rows),
+                                             ("config-5 width", s5, cfg5, 3, hold_rows_ties)):
+            for sprite in ("disc", "wireframe"):
+                vcfg = dataclasses.replace(base.vision, sprite_mode=sprite)
+                one = (wireframe.render_rows_wireframe_tiled if sprite == "wireframe"
+                       else raycast.render_rows_tiled)
+                cases.append((f"ring_render_rows {sprite} {where}",
+                              lambda m, st=st, vcfg=vcfg: ring.ring_render_rows(
+                                  st.pos, st.vel, vcfg, mesh=m),
+                              lambda st=st, vcfg=vcfg, one=one: one(st.pos, st.vel, vcfg),
+                              lambda label, g, w, vcfg=vcfg, hold=hold: hold(label, g, w, vcfg,
+                                                                             phase),
+                              (f"{sprite}_eye",), iters))
+        for label, call, one, hold, need, iters in cases:
+            with CardWork(phase, f"{label} on {cards} cards", mesh_c.devices):
+                got = counted(total, lambda: call(mesh_c), need, label)[0]
+            hold(f"{label} on {cards} cards", got, one())
+            shards = call(mesh_s)
+            same = (all(torch.equal(a, b) for a, b in zip(got, shards)) if isinstance(got, tuple)
+                    else torch.equal(got, shards))
+            expect(same, f"{label}: the cards' result equals the shards of cuda:0 bit for bit")
+            o_ms, c_ms, s_ms = three_ways(one, lambda: call(mesh_c), lambda: call(mesh_s), iters)
+            log(phase, f"{label}: {cards} cards {c_ms:.4f} ms, {cards} shards of cuda:0 "
+                f"{s_ms:.4f} ms, one card {o_ms:.4f} ms per call (CUDA events over {iters} "
+                f"chained calls); bit-equal to the shards of cuda:0 [{card}]")
+
+        for preset in ("boids-4096", "gravity-65536"):
+            base = PRESETS[preset]()
+            ref = Scene(dataclasses.replace(base, backend="pallas"), device="cuda")
+            s0 = ref.spawn(0)
+            seen = base.vision is not None
+
+            def go(scene):
+                return scene.step(s0), (scene.observe(s0) if seen else None)
+
+            want = go(ref)
+            for backend in ("ring", "gspmd"):
+                scenes = [Scene(dataclasses.replace(base, backend=backend), device="cuda",
+                                mesh=m) for m in (mesh_c, mesh_s)]
+                label = f"Scene(backend={backend!r}) {preset} step" + (" + observe" if seen
+                                                                       else "")
+                need = (() if backend == "gspmd" else
+                        ("boids_partials" if base.controller == "boids" else "gravity",)
+                        + (("disc_eye",) if seen else ()))
+                with CardWork(phase, f"{label} on {cards} cards", mesh_c.devices):
+                    got = counted(total, lambda: go(scenes[0]), need, label)[0]
+                if base.controller == "boids":  # the velocity, as phase_ring holds it
+                    hold_scaled(f"{label} on {cards} cards: vel against backend 'pallas'",
+                                got[0].vel, want[0].vel, RING_BOIDS_BOUND, phase)
+                else:  # the step's change of velocity: the forces
+                    hold_scaled(f"{label} on {cards} cards: d vel against backend 'pallas'",
+                                got[0].vel - s0.vel, want[0].vel - s0.vel, RING_GRAVITY_BOUND,
+                                phase)
+                if seen:
+                    bound = RING_SCENE_PIXELS if backend == "ring" else GSPMD_OBS_PIXELS
+                    off = ((got[1] - want[1]).abs() > 1e-3).double().mean().item()
+                    log(phase, f"{label} on {cards} cards: obs pixels off by >1e-3 against "
+                        f"backend 'pallas' {off:.2e} (bound {bound:.0e})")
+                    expect(off < bound, f"{label}: the observation agrees")
+                iters = 1 if (backend, preset) == ("gspmd", "gravity-65536") else 3
+                o_ms, c_ms, s_ms = three_ways(lambda: go(ref), lambda: go(scenes[0]),
+                                              lambda: go(scenes[1]), iters)
+                log(phase, f"{label}: {cards} cards {c_ms:.4f} ms, {cards} shards of cuda:0 "
+                    f"{s_ms:.4f} ms, backend 'pallas' on one card {o_ms:.4f} ms (CUDA events "
+                    f"over {iters} chained calls) [{card}]")
+                del scenes, got
+                torch.cuda.empty_cache()
+
+    # the ring's VJP across the cards: d sum(w * forces) / d pos at config 4
+    # through each hop's GravityForcesDiff / GravityForcesCrossDiff (#6),
+    # the copies' transposes carrying the blocks' cotangents home
+    w = torch.randn(pos.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+    grads = {}
+    for where, fn in (("cards", lambda p: ring.ring_gravity_forces(p, cfg4, mesh=mesh_c)),
+                      ("one", lambda p: pairwise.gravity_forces_tiled(p, cfg4.gravity))):
+        p = pos.clone().requires_grad_()
+        backward = lambda: (fn(p) * w).sum().backward()
+        if where == "cards":
+            with CardWork(phase, f"the ring's gravity VJP at config 4 on {cards} cards",
+                          mesh_c.devices):
+                counted(total, backward, ("gravity", "gravity_vjp"), "the ring's gravity VJP")
+        else:
+            backward()
+        grads[where] = p.grad
+    hold_scaled(f"d sum(w * ring gravity) / d pos at config 4 on {cards} cards", grads["cards"],
+                grads["one"], RING_GRAVITY_BOUND, phase)
+    # the eyes' backward across the cards: APG diff_vision at horizon 1
+    env = VisionEnv(SimConfig(n=TRAIN_AGENTS, controller="gravity",
+                              vision=VisionConfig(width=TRAIN_WIDTH, antialias=True)),
+                    reward_mode="visibility")
+    label = f"apg diff_vision disc on {cards} cards"
+    with CardWork(phase, f"{label}, horizon 1", mesh_c.devices):
+        hold_mesh_grads(label, env, mesh_c, phase, wrap=lambda fn: counted(
+            total, fn, ("gravity", "disc_eye", "disc_eye_bwd"), label))
+    log(phase, f"the phase ran in {time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} } [{card}]")
+    return total
+
+
+def phase_cards_train(cards: int, card: str) -> tuple:
+    """cards-train: one process across the cards. The CLI's `train` at
+    config-5 width (CARDS_CLI: REINFORCE, APG, PPO with the central
+    critic) with `--mesh 2x(N/2)` and `--mesh auto` against one card, the
+    first iterations' metric of CARDS_CLI at RING_LOSS_RTOL; the trainer
+    API's steps (train_across: APG diff_vision with each sprite, PPO with
+    the central critic, REINFORCE) on {"data": 2, "agents": N/2} and
+    {"agents": N} held against the same layout on one card (hold_trained)
+    and timed beside one card without a mesh. Every part's per-card peak
+    memory. Returns (the launch counts, train_across's results by layout:
+    the NCCL part's references, the one-card REINFORCE's CLI rows)."""
+    phase = "cards-train"
+    half = cards // 2
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    t0 = time.perf_counter()
+    meshes = {f"2x{half}": make_mesh({"data": 2, "agents": half}), "auto": make_mesh()}
+    argv = ["train", "--envs", str(TRAIN_ENVS), "--agents", str(TRAIN_AGENTS), "--vision-width",
+            str(TRAIN_WIDTH), "--horizon", str(TRAIN_HORIZON), "--iters", "3", "--seed", "0"]
+    sec = lambda rows: sum(r["sec"] for r in rows[1:]) / (len(rows) - 1)
+    ones = {}
+    for label, (extra, key, held) in CARDS_CLI.items():
+        with CardWork(phase, f"train {label} on one card", [0]):
+            one = ones[label] = cli_rows(argv + extra)
+        for spec, mesh in meshes.items():
+            with CardWork(phase, f"train {label} --mesh {spec}", mesh.devices):
+                rows = counted(total, lambda: cli_rows(argv + extra + ["--mesh", spec]),
+                               ("gravity", "disc_eye"), f"train {label} --mesh {spec}")[0]
+            rel = [abs(r[key] - o[key]) / abs(o[key]) for r, o in zip(rows[:held], one)]
+            log(phase, f"train {label} --mesh {spec} ({mesh.shape}) at {TRAIN_ENVS} x "
+                f"{TRAIN_AGENTS} x {TRAIN_WIDTH}, horizon {TRAIN_HORIZON}: {key} of iterations "
+                f"1-{held} {', '.join('%.8e' % r[key] for r in rows[:held])} against one card's "
+                f"{', '.join('%.8e' % o[key] for o in one[:held])}, |difference| / |one card| "
+                f"{', '.join('%.3e' % x for x in rel)} (bound {RING_LOSS_RTOL:.0e}); "
+                f"{sec(rows):.4f} s/iteration against one card's {sec(one):.4f} [{card}]")
+            expect(max(rel) < RING_LOSS_RTOL, f"train {label} --mesh {spec} agrees with one card")
+
+    with CardWork(phase, "the trainers' steps on one card without a mesh", [0]):
+        alone = train_across(None)
+    trained = {}
+    for name, axes in cards_layouts(cards).items():
+        mesh = make_mesh(axes)
+        # the reference: the same layout on one card (on a mesh PPO draws its
+        # minibatches along the time axis, as the JAX trainer does)
+        want = train_across(make_mesh(axes, devices=[torch.device("cuda", 0)] * cards))
+        with CardWork(phase, f"the trainers' steps on {axes}", mesh.devices):
+            got = trained[name] = counted(total, lambda: train_across(mesh), TRAINER_KERNELS,
+                                          f"the trainers on {axes}")[0]
+        for label in TWO_PROCESS_TRAIN:
+            rel_loss, rel_grad = hold_trained(f"{label} on {axes}", got[label], want[label])
+            log(phase, f"{label} on {axes} over {cards} cards at {TRAIN_ENVS} x {TRAIN_AGENTS} x "
+                f"{TRAIN_WIDTH}, held at horizon {1 if label.startswith('apg') else TRAIN_HORIZON}"
+                f" with float32 nets against {cards} shards of cuda:0: {held_metric(label)} "
+                f"|difference| / |one card| {rel_loss:.3e} (bound {RING_LOSS_RTOL:.0e}), "
+                f"gradients {rel_grad:.3e} of their norm (bound {RING_GRAD_BOUND:.0e}); "
+                f"s/iteration at horizon {TRAIN_HORIZON} (default nets) "
+                f"{', '.join('%.4f' % x for x in got[label]['sec'])}, {cards} shards of cuda:0 "
+                f"{', '.join('%.4f' % x for x in want[label]['sec'])}, one card without a mesh "
+                f"{', '.join('%.4f' % x for x in alone[label]['sec'])} [{card}]")
+
+    log(phase, f"the phase ran in {time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} } [{card}]")
+    return total, trained, ones["reinforce"]
+
+
+def phase_cards_weak(cards: int, card: str, one: list) -> dict:
+    """cards-weak: REINFORCE with N x 4,096 envs on `--mesh Nx1` (the
+    CLI's data-only mesh) against 4,096 envs on one card (`one`, its CLI
+    rows from phase_cards_train): s/iteration, agent-frames/s and each
+    card's peak memory (weak scaling; the policy's batch stays on cuda:0).
+    Run last: the home card holds N times one card's policy batch."""
+    phase = "cards-weak"
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    envs = TRAIN_ENVS * cards
+    argv = ["train", "--envs", str(envs), "--agents", str(TRAIN_AGENTS), "--vision-width",
+            str(TRAIN_WIDTH), "--horizon", str(TRAIN_HORIZON), "--iters", "3", "--seed", "0",
+            "--mesh", f"{cards}x1"]
+    with CardWork(phase, f"train reinforce --envs {envs} --mesh {cards}x1",
+                  range(cards)) as work:
+        rows = counted(total, lambda: cli_rows(argv), ("gravity", "disc_eye"),
+                       "the weak-scaling REINFORCE")[0]
+    sec = lambda rows: sum(r["sec"] for r in rows[1:]) / (len(rows) - 1)
+    frames = lambda rows: rows[0]["agent_frames"] / sec(rows)
+    expect(all(math.isfinite(r["return_mean"]) for r in rows), "finite returns")
+    log(phase, f"weak scaling: train (REINFORCE) --envs {envs} --mesh {cards}x1 at {TRAIN_AGENTS} "
+        f"x {TRAIN_WIDTH}, horizon {TRAIN_HORIZON}: {sec(rows):.4f} s/iteration = "
+        f"{frames(rows):.4e} agent-frames/s; {TRAIN_ENVS} envs on one card {sec(one):.4f} = "
+        f"{frames(one):.4e} ({frames(rows) / frames(one):.2f}x the agent-frames/s on {cards} "
+        f"cards); peak memory per card {', '.join('%.1f' % p for p in work.peak)} MiB [{card}]")
+    return total
+
+
+def phase_cards_dryrun(cards: int, card: str) -> dict:
+    """cards-dryrun: entry.dryrun_multichip(N) and (2N) on the real cards
+    (the mesh cycles the visible cards), each summary line logged."""
+    from nenbody_tpu_torch.entry import dryrun_multichip
+
+    phase = "cards-dryrun"
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    for n in (cards, 2 * cards):
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        d_data = 2 if n % 2 == 0 else 1
+        with CardWork(phase, f"dryrun_multichip({n})", range(cards)):
+            with contextlib.redirect_stdout(printed):
+                counts = counted(total, lambda: dryrun_multichip(n),
+                                 MULTICHIP["dryrun_multichip(8)"], f"dryrun_multichip({n})")[1]
+        line = printed.getvalue().strip().splitlines()[-1]
+        expect(line.startswith(f"dryrun_multichip ok: mesh=(data={d_data}, agents={n // d_data})"),
+               f"dryrun_multichip({n})'s line")
+        log(phase, f"{line}; launches {({k: v for k, v in counts.items() if v})}; "
+            f"{time.perf_counter() - t0:.2f} s [{card}]")
+    return total
+
+
+def phase_cards_nccl(cards: int, card: str, trained: dict) -> dict:
+    """cards-nccl: N processes, one card each, joined by a bare
+    init_distributed() under torchrun's environment (run_processes,
+    multichip_worker): the ring calls on {"agents": N}, held against the
+    one-card kernels and timed against one process on the N cards; then
+    NCCL_TRAIN on both cards_layouts, held against one process on the same
+    layout of the cards (`trained`, phase_cards_train's). NCCL's transport
+    lines (NCCL_DEBUG=INFO) logged. Then the same N processes on gloo
+    (init_distributed(backend="gloo"), still one card each), whose blocks
+    go through pinned host memory: beside the multichip phase's two gloo
+    processes sharing one card, it splits a process boundary's cost
+    between the transport and the shared card. Returns the processes' launch counts."""
+    phase = "cards-nccl"
+    mesh_c = make_mesh({"agents": cards})
+    single_ms = ring_calls_ms(mesh_c)
+    for i in range(cards):
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    for backend, args, env in (("nccl", [], {"NCCL_DEBUG": "INFO"}), ("gloo", ["gloo"], {})):
+        t0 = time.perf_counter()
+        counts = run_processes(card, cards, args, f"{cards} processes x 1 card ({backend})",
+                               f"cards-{backend}", f"on {cards} cards", single_ms, trained, env)
+        missing = [k for k in MULTICHIP["two processes"]
+                   if k != "wireframe_eye_bwd" and counts[k] == 0]
+        expect(not missing, f"the {cards} processes on {backend} launched every kernel of their "
+               f"path (never {missing})")
+        for k, v in counts.items():
+            total[k] += v
+        log(phase, f"the {cards} processes on {backend} ran in {time.perf_counter() - t0:.2f} s "
+            f"[{card}]")
+    return total
+
+
+def phase_cards_fleet(cards: int, card: str) -> dict:
+    """cards-fleet: the fleet step at config-5 width on {"data": 2,
+    "agents": N/2} over the cards (fleet_step: the .pt2 step bit-equal to
+    the live one, held against the one-device .pt2 step, timed); then the
+    artifact as a file, loaded where its recorded cards are present
+    (load_policy_step(path)), with mesh= the same cards, and with mesh= the
+    cards in reverse order (its program moved onto them, the inputs on the
+    card the policy moved to): each equal to the first bit for bit."""
+    import os
+
+    from nenbody_tpu_torch.utils import export as export_lib
+
+    phase = "cards-fleet"
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    mesh = make_mesh({"data": 2, "agents": cards // 2})
+    with CardWork(phase, "the fleet step", mesh.devices):
+        blob, (pos, vel), got = fleet_step(card, mesh, total, phase,
+                                           f"{mesh.shape} over {cards} cards")
+    path = "build/chip_smoke_fleet.pt2"
+    with open(path, "wb") as f:
+        f.write(blob)
+    rev = make_mesh(mesh.shape, devices=list(reversed(mesh.devices)))
+    home = rev.devices[0]
+    with CardWork(phase, "the artifact from a file, three ways", mesh.devices):
+        loads = {"recorded cards": counted(
+                     total, lambda: export_lib.load_policy_step(path)(pos, vel),
+                     MULTICHIP["fleet step"], "the fleet artifact")[0],
+                 "mesh= the same cards": export_lib.load_policy_step(path, mesh=mesh)(pos, vel),
+                 "mesh= the cards reversed": export_lib.load_policy_step(path, mesh=rev)(
+                     pos.to(home), vel.to(home))}
+    for how, out in loads.items():
+        expect(all(torch.equal(a.to(got[0].device), b) for a, b in zip(out, got)),
+               f"the fleet artifact loaded with {how} equals the first load bit for bit")
+    os.remove(path)
+    log(phase, f"the fleet artifact loaded from {path} with its recorded cards present, with "
+        f"mesh= the same cards and with mesh= {[str(d) for d in rev.devices]} (inputs on {home}): "
+        f"each equal to the first load bit for bit [{card}]")
+    return total
+
+
+def main_cards(errors: Errors, gen, smi: str, kind: str, t_start: float) -> None:
+    """`chip_smoke.py --cards N`: the multi-device half on N real cards and
+    nothing else: cards-ring, cards-train, cards-dryrun, cards-nccl,
+    cards-fleet, the RDMA phases with one shard a card (as --rdma-cards),
+    the kernels' holds and times, then cards-weak; the `kernels` line over
+    the kernels these launched, each held against its plain version and
+    timed by the one-card run's phases."""
+    if len(sys.argv) != 3:
+        raise SystemExit("usage: chip_smoke.py --cards N")
+    cards = int(sys.argv[2])
+    expect(2 <= cards <= torch.cuda.device_count() and cards % 2 == 0,
+           f"an even count of 2 to {torch.cuda.device_count()} visible cards, got {cards}")
+    peers = [[int(torch.cuda.can_device_access_peer(i, j)) if i != j else 1
+              for j in range(cards)] for i in range(cards)]
+    log("cards", f"{cards} of {torch.cuda.device_count()} cards; peer access (row i: can card i "
+        f"reach card j) {peers}; nvidia-smi: {smi}")
+    paths = [phase_cards_ring(cards, smi)]
+    counts, trained, one = phase_cards_train(cards, smi)
+    paths += [counts, phase_cards_dryrun(cards, smi), phase_cards_nccl(cards, smi, trained),
+              phase_cards_fleet(cards, smi)]
+    mesh = rdma_mesh(cards)
+    paths.append(phase_rdma(errors, smi, mesh))
+    # the kernels against their plain versions and timed, as the one-card
+    # run holds and times them (the ring's at one hop's shape on 4 cards)
+    with torch.no_grad():
+        phase_kernels(errors, gen)
+        phase_backward_kernels(errors, gen)
+        phase_wireframe_kernel(errors, gen)
+        phase_ring_kernels(errors, gen)
+        times = phase_kernel_times(gen, smi, ("gravity", "disc_eye", "wireframe_eye",
+                                              "backward"))[0]
+        times.update(gravity_vjp_times(gen, smi))
+        times.update(phase_ring_times(gen, smi))
+        times.update(phase_rdma_times(gen, smi, mesh))
+    paths.append(phase_cards_weak(cards, smi, one))
+    launches = {k: sum(c[k] for c in paths) for k in KERNEL_INFO}
+    untimed = [k for k, v in launches.items() if v and k not in times]
+    expect(not untimed, f"a time for every kernel the paths launched (none for {untimed})")
+    log("done", f"the --cards {cards} phases ran in {time.perf_counter() - t_start:.1f} s; "
+        f"launches {launches}")
+    print_result([{"name": name, "route": "cuda", **KERNEL_INFO[name],
+                   "launches": launches[name], "max_abs_err": errors.max_abs[name],
+                   "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
+                   "bound_by": times[name][3], "library_ms": None}
+                  for name in KERNEL_INFO if launches[name]], smi, kind)
 
 
 def registers_of(report: str, source: str, entry: str = "") -> list:
@@ -3712,6 +4301,8 @@ def main() -> None:
     errors = Errors()
     if sys.argv[1:2] == ["--kernel-times"]:
         return main_kernel_times(gen, smi)
+    if sys.argv[1:2] == ["--cards"]:
+        return main_cards(errors, gen, smi, kind, t_start)
     if len(sys.argv) > 1:
         return main_rdma_cards(errors, gen, smi, kind, t_start)
     with torch.no_grad():

@@ -43,6 +43,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -212,11 +213,36 @@ class _Group:
 _GROUP: Optional[_Group] = None  # torch.distributed's default group is per process too
 
 
-def _local_devices(local_device_ids) -> List[torch.device]:
-    if local_device_ids is None:
-        return visible_devices()
-    return [torch.device("cuda", d) if isinstance(d, int) else _device(d)
-            for d in local_device_ids]
+def _local_devices(local_device_ids: Optional[Sequence] = None,
+                   backend: Optional[str] = None) -> Tuple[List[torch.device], str]:
+    """(this process's devices on the mesh, the backend) as
+    init_distributed resolves them, before it joins any group.
+    local_device_ids: ints name CUDA devices, a str or torch.device any
+    device; a device may repeat. Default: every visible card (an error
+    where there is none: no silent move to the CPU), and under NCCL the
+    card of torchrun's LOCAL_RANK where that is set; gloo keeps every
+    visible card. backend: default "nccl" for CUDA devices, "gloo" for CPU
+    ones. NCCL takes one card a process, so the default on several cards
+    without LOCAL_RANK raises under it."""
+    if local_device_ids is not None:
+        local = [torch.device("cuda", d) if isinstance(d, int) else _device(d)
+                 for d in local_device_ids]
+    else:
+        local = visible_devices()
+    if backend is None:
+        backend = "nccl" if local[0].type == "cuda" else "gloo"
+    rank = os.environ.get("LOCAL_RANK")
+    if local_device_ids is None and backend == "nccl" and rank is not None:  # torchrun's
+        if not 0 <= int(rank) < len(local):
+            raise ValueError(f"LOCAL_RANK={rank}, and {len(local)} card(s) are visible")
+        local = [local[int(rank)]]
+    if backend == "nccl" and any(d.type != "cuda" for d in local):
+        raise ValueError(f"the nccl backend moves CUDA tensors only; devices {local}")
+    if backend == "nccl" and len(set(local)) > 1:
+        raise ValueError(f"under the nccl backend a process takes one card, got {local}: set "
+                         f"LOCAL_RANK (torchrun sets it) or pass local_device_ids=[this rank's "
+                         f"card], or backend='gloo'")
+    return local, backend
 
 
 def init_distributed(
@@ -232,29 +258,19 @@ def init_distributed(
     coordinator_address: "host:port" of rank 0 (a tcp:// init), with
     num_processes (the world size) and process_id (this rank); None reads
     the env:// variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) that
-    torchrun sets. local_device_ids: this process's devices on the mesh, in
-    order: ints name CUDA devices, a str or torch.device any device (["cpu",
-    "cpu"] for two CPU shards); a device may repeat. Default: every visible
-    card, and an error where there is none (no silent move to the CPU).
-    backend: default "nccl" for CUDA devices, "gloo" for CPU ones. Under
-    NCCL a process takes one card (a mesh device may repeat it): the ring's
-    hop sends from its last shard and receives into its first in one
-    batch, which NCCL refuses across two cards of one process; so with
-    several cards a process, pass one per rank (torchrun's LOCAL_RANK) or
-    backend="gloo". NCCL also refuses two ranks on one card: pass
-    backend="gloo" there, which moves CUDA blocks through pinned host
+    torchrun sets. local_device_ids and backend: as _local_devices resolves
+    them. Under `torchrun --nproc-per-node N` a bare init_distributed()
+    takes the card of LOCAL_RANK and joins on NCCL. Under NCCL a process
+    takes one card (a mesh device may repeat it): the ring's hop sends from
+    its last shard and receives into its first in one batch, which NCCL
+    refuses across two cards of one process; so with several cards a
+    process, pass backend="gloo". NCCL also refuses two ranks on one card:
+    pass backend="gloo" there, which moves CUDA blocks through pinned host
     memory (the transport only; every partial still runs on the card).
     After this, make_mesh() spans every process's devices in rank-major
     order."""
     global _GROUP
-    local = _local_devices(local_device_ids)
-    if backend is None:
-        backend = "nccl" if local[0].type == "cuda" else "gloo"
-    if backend == "nccl" and any(d.type != "cuda" for d in local):
-        raise ValueError(f"the nccl backend moves CUDA tensors only; devices {local}")
-    if backend == "nccl" and len(set(local)) > 1:
-        raise ValueError(f"under the nccl backend a process takes one card, got {local}: pass "
-                         f"local_device_ids=[this rank's card], or backend='gloo'")
+    local, backend = _local_devices(local_device_ids, backend)
     if local[0].type == "cuda":
         torch.cuda.set_device(local[0])
     init_method = "env://"

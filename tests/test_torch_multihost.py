@@ -12,8 +12,11 @@ worker's, gravity and boids rtol 3e-5 / atol 1e-6, the disc eye atol
 3e-5; the wireframe eye test_torch_ring_train.py's shade atol 2e-4; the
 gradients through the ring across the boundary against one process's
 test_torch_ring_train.py's, rtol 1e-4 / atol 1e-4 of the largest
-component. The trainers across processes:
-tests/test_torch_multihost_train.py.
+component. The same runs on NCCL's layout, 4 processes x 1 CPU shard
+(ONE_SHARD), once with the tags as written and once with every tag forced
+to 0, so that gloo matches messages by their order as NCCL does. Then
+init_distributed's device resolution (torchrun's LOCAL_RANK), without a
+GPU. The trainers across processes: tests/test_torch_multihost_train.py.
 """
 
 import os
@@ -51,18 +54,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module")
-def blocks(tmp_path_factory):
-    """Each process's .npz of local results, after both exited 0."""
-    tmp = tmp_path_factory.mktemp("multihost")
-    port, nproc = _free_port(), 2
+def run_workers(script: str, tmp, nproc: int, *args: str, marker: str) -> list:
+    """Start `nproc` processes of tests/`script` (pid, nproc, port, out,
+    *args) on a free port; after each exited 0 with `marker` in its log,
+    their outputs' paths."""
+    port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
     outs = [str(tmp / f"p{pid}.npz") for pid in range(nproc)]
-    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests",
-                                                            "torch_multihost_worker.py"),
-                               str(pid), str(nproc), str(port), outs[pid]],
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", script),
+                               str(pid), str(nproc), str(port), outs[pid], *args],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               cwd=ROOT, env=env)
              for pid in range(nproc)]
@@ -78,7 +80,30 @@ def blocks(tmp_path_factory):
                 p.communicate()
     for pid, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"process {pid} failed:\n{log[-3000:]}"
-        assert "torch multihost ring OK" in log, log[-2000:]
+        assert marker in log, log[-2000:]
+    return outs
+
+
+@pytest.fixture(scope="module")
+def blocks(tmp_path_factory):
+    """Each process's .npz of local results, after both exited 0: 2
+    processes x 2 CPU shards."""
+    outs = run_workers("torch_multihost_worker.py", tmp_path_factory.mktemp("multihost"), 2,
+                       marker="torch multihost ring OK")
+    return [dict(np.load(o)) for o in outs]
+
+
+# NCCL's layout, one card a process: 4 processes x 1 CPU shard, with the
+# tags as the program writes them and with every tag forced to 0 (gloo
+# then matches by order within a pair of ranks, as NCCL does)
+ONE_SHARD = {"4x1": ("1",), "4x1 tags 0": ("1", "tags0")}
+
+
+@pytest.fixture(scope="module", params=list(ONE_SHARD))
+def blocks_one_shard(request, tmp_path_factory):
+    """As `blocks`, on 4 processes x 1 CPU shard (ONE_SHARD)."""
+    outs = run_workers("torch_multihost_worker.py", tmp_path_factory.mktemp("one_shard"), 4,
+                       *ONE_SHARD[request.param], marker="torch multihost ring OK")
     return [dict(np.load(o)) for o in outs]
 
 
@@ -88,6 +113,10 @@ def _cfgs():
 
 
 def test_ring_physics_across_processes_matches_jax_dense(blocks):
+    hold_ring_physics(blocks)
+
+
+def hold_ring_physics(blocks):
     jcfg, _ = _cfgs()
     pos, vel, pos_b = (jnp.asarray(x) for x in worker.inputs())
     want = {"gravity": np.asarray(jdense.gravity_forces(pos, jcfg.gravity)),
@@ -103,6 +132,10 @@ def test_ring_physics_across_processes_matches_jax_dense(blocks):
 
 @pytest.mark.parametrize("sprite", ["disc", "wireframe"])
 def test_eye_ring_across_processes_matches_jax_dense(blocks, sprite):
+    hold_eye_ring(blocks, sprite)
+
+
+def hold_eye_ring(blocks, sprite):
     _, kw = _cfgs()
     pos, vel, _ = (jnp.asarray(x) for x in worker.inputs())
     shade, depth = (np.asarray(x) for x in jrender.render_rows(
@@ -126,6 +159,10 @@ def test_autograd_and_uneven_blocks_are_refused(blocks):
     gravity and of the differentiable disc eye ring (positions and
     velocities) equal one process's on 4 shards; and each process refused
     blocks of 31 and 32 agents (N=63 does not divide over the processes)."""
+    hold_autograd(blocks)
+
+
+def hold_autograd(blocks):
     for b in blocks:
         assert bool(b["refused_uneven"])
         for name in ("grad_gravity", "grad_eye_pos", "grad_eye_vel"):
@@ -152,6 +189,32 @@ def test_plain_tensors_and_one_process_paths_are_refused(blocks):
         assert bool(b["refused_plain"]) and bool(b["refused_one_process"])
 
 
+def test_ring_physics_one_shard_a_process(blocks_one_shard):
+    """NCCL's layout (ONE_SHARD): ring gravity (one env and a batch), boids
+    and gspmd gravity against JAX dense; each process's blocks are its
+    quarter of the agents."""
+    hold_ring_physics(blocks_one_shard)
+    assert [(int(b["lo"]), int(b["hi"])) for b in blocks_one_shard] == [
+        (0, 16), (16, 32), (32, 48), (48, 64)]
+
+
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+def test_eye_ring_one_shard_a_process(blocks_one_shard, sprite):
+    """Both eye rings in NCCL's layout against JAX dense: the wireframe
+    ring sends two blocks of one shape a hop, which come out swapped where
+    a pair's messages are matched out of order."""
+    hold_eye_ring(blocks_one_shard, sprite)
+
+
+def test_autograd_one_shard_a_process(blocks_one_shard):
+    """The gradients through the ring in NCCL's layout against one process
+    on 4 shards (the backward exchange keeps the forward's order), and the
+    uneven and plain inputs refused."""
+    hold_autograd(blocks_one_shard)
+    for b in blocks_one_shard:
+        assert bool(b["refused_plain"]) and bool(b["refused_one_process"])
+
+
 @pytest.mark.parametrize("backend", [None, "nccl"])
 def test_nccl_takes_one_card_a_process(backend):
     """Two cards in one process under NCCL raise before the group forms."""
@@ -159,3 +222,62 @@ def test_nccl_takes_one_card_a_process(backend):
         mesh_lib.init_distributed("127.0.0.1:1", num_processes=1, process_id=0,
                                   local_device_ids=[0, 1], backend=backend)
     assert not mesh_lib.is_distributed()
+
+
+def _cards(monkeypatch, count: int, local_rank=None) -> None:
+    """`count` visible cards, and torchrun's LOCAL_RANK (unset for None),
+    without a GPU: init_distributed's device resolution only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", str(local_rank))
+
+
+@pytest.mark.parametrize("backend", [None, "nccl"])
+def test_local_rank_picks_the_card(monkeypatch, backend):
+    """Under torchrun (LOCAL_RANK set) the default is that one card, and
+    NCCL the default backend: `torchrun --nproc-per-node 4` and a bare
+    init_distributed() on a 4-card node."""
+    _cards(monkeypatch, 4, local_rank=2)
+    assert mesh_lib._local_devices(None, backend) == ([torch.device("cuda", 2)], "nccl")
+    # explicit devices win over LOCAL_RANK; a LOCAL_RANK without its card raises
+    assert mesh_lib._local_devices([0, 0], "gloo") == ([torch.device("cuda", 0)] * 2, "gloo")
+    _cards(monkeypatch, 2, local_rank=2)
+    with pytest.raises(ValueError, match="LOCAL_RANK=2"):
+        mesh_lib._local_devices()
+
+
+def test_gloo_keeps_every_card_under_local_rank(monkeypatch):
+    """LOCAL_RANK picks a card under NCCL only: gloo's default stays every
+    visible card, as without torchrun."""
+    _cards(monkeypatch, 4, local_rank=2)
+    assert mesh_lib._local_devices(None, "gloo") == (
+        [torch.device("cuda", i) for i in range(4)], "gloo")
+
+
+@pytest.mark.parametrize("backend", [None, "nccl"])
+def test_several_cards_without_local_rank_raise_under_nccl(monkeypatch, backend):
+    """Every visible card in one process under NCCL still raises before the
+    group forms, and the message names LOCAL_RANK."""
+    _cards(monkeypatch, 4)
+    with pytest.raises(ValueError, match="takes one card.*LOCAL_RANK"):
+        mesh_lib._local_devices(None, backend)
+    with pytest.raises(ValueError, match="LOCAL_RANK"):
+        mesh_lib.init_distributed("127.0.0.1:1", num_processes=1, process_id=0, backend=backend)
+    assert not mesh_lib.is_distributed()
+
+
+def test_one_card_and_gloo_resolve_as_before(monkeypatch):
+    """Without LOCAL_RANK: one card is that card on NCCL; under gloo a
+    process takes every visible card; CPU shards default to gloo."""
+    _cards(monkeypatch, 1)
+    assert mesh_lib._local_devices() == ([torch.device("cuda", 0)], "nccl")
+    _cards(monkeypatch, 4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert mesh_lib._local_devices(None, "gloo") == (cards, "gloo")
+    assert mesh_lib._local_devices(["cpu", "cpu"]) == ([torch.device("cpu")] * 2, "gloo")
+    _cards(monkeypatch, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_lib._local_devices()

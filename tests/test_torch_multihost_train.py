@@ -22,10 +22,7 @@ imports no JAX), as tests/test_torch_train.py holds one process's.
 
 import functools
 import os
-import socket
-import subprocess
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -45,59 +42,60 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import torch_multihost_train_worker as worker  # noqa: E402
+from test_torch_multihost import ONE_SHARD, run_workers  # noqa: E402
 from test_torch_train import _envs, _grad_recorder  # noqa: E402
 
-DEADLINE_S = 240  # both processes, start to exit
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4, 1e-4
 BF16_GRAD_ATOL = 2.0 ** -8
 TRAINERS = [c for c in worker.CASES if not c.startswith("scene")]
 SCENES = [c for c in worker.CASES if c.startswith("scene")]
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both processes' results, merged (each wrote its own steps across the
-    processes, under "dist", and its share of the one-process references,
-    under "one"), after both exited 0."""
-    tmp = tmp_path_factory.mktemp("multihost_train")
-    port, nproc = _free_port(), 2
-    env = dict(os.environ)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    env["OMP_NUM_THREADS"] = "1"
-    outs = [str(tmp / f"p{pid}.npz") for pid in range(nproc)]
-    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests",
-                                                            "torch_multihost_train_worker.py"),
-                               str(pid), str(nproc), str(port), outs[pid]],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              cwd=ROOT, env=env)
-             for pid in range(nproc)]
-    deadline = time.monotonic() + DEADLINE_S
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for pid, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"process {pid} failed:\n{log[-3000:]}"
-        assert "torch multihost training OK" in log, log[-2000:]
+def _merged(outs) -> tuple:
+    """Each process's results, and the one-process references merged (each
+    wrote its own steps across the processes, under "dist", and its share
+    of the references, under "one")."""
     per_process = [dict(np.load(o)) for o in outs]
     refs = {k: v for r in per_process for k, v in r.items() if "/one/" in k}
     return per_process, refs
 
 
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both processes' results (_merged), after both exited 0: 2 processes
+    x 2 CPU shards."""
+    return _merged(run_workers("torch_multihost_train_worker.py",
+                               tmp_path_factory.mktemp("multihost_train"), 2,
+                               marker="torch multihost training OK"))
+
+
+@pytest.fixture(scope="module", params=list(ONE_SHARD))
+def runs_one_shard(request, tmp_path_factory):
+    """As `runs`, on NCCL's layout, 4 processes x 1 CPU shard, with the tags
+    as written and with every tag forced to 0 (ONE_SHARD): the worker's
+    ONE_SHARD_CASES."""
+    return _merged(run_workers("torch_multihost_train_worker.py",
+                               tmp_path_factory.mktemp("one_shard_train"), 4,
+                               *ONE_SHARD[request.param], marker="torch multihost training OK"))
+
+
 def _metrics(d: dict, prefix: str) -> dict:
     head = f"{prefix}/metric/"
     return {k[len(head):]: float(v) for k, v in d.items() if k.startswith(head)}
+
+
+def _assemble(blocks, layout: str, env_axis: int):
+    """The whole [.., B, N, ..] array from the processes' blocks, in rank
+    order, of a `layout` mesh (rank-major): the envs over "data", the
+    agents (the next axis) over "agents", a data2_agents2 process holding
+    one or both agent blocks of its row."""
+    if layout == "agents4":
+        return np.concatenate(blocks, axis=env_axis + 1)
+    if layout == "data4":
+        return np.concatenate(blocks, axis=env_axis)
+    k = len(blocks) // 2  # processes a mesh row
+    return np.concatenate([np.concatenate(blocks[i:i + k], axis=env_axis + 1)
+                           for i in range(0, len(blocks), k)], axis=env_axis)
 
 
 def _hold_grads(got, want, what: str, bf16: bool) -> None:
@@ -110,6 +108,10 @@ def _hold_grads(got, want, what: str, bf16: bool) -> None:
 @pytest.mark.parametrize("case", TRAINERS)
 @pytest.mark.parametrize("layout", list(worker.LAYOUTS))
 def test_trainer_across_processes_matches_one_process(runs, layout, case):
+    hold_trainer(runs, layout, case)
+
+
+def hold_trainer(runs, layout, case):
     per_process, refs = runs
     one = f"{layout}/{case}/one"
     want = _metrics(refs, one)
@@ -123,11 +125,11 @@ def test_trainer_across_processes_matches_one_process(runs, layout, case):
         _hold_grads(r[f"{layout}/{case}/dist/grads"], refs[f"{one}/grads"], f"p{pid} grads",
                     case.endswith("_bf16"))
     # every replica took the same step
-    a, b = (r[f"{layout}/{case}/dist/params"] for r in per_process)
-    assert np.array_equal(a, b)
+    first = per_process[0][f"{layout}/{case}/dist/params"]
+    assert all(np.array_equal(r[f"{layout}/{case}/dist/params"], first) for r in per_process)
     if f"{one}/env_pos" in refs:  # each process kept its block of the envs
-        spmd_rows = np.concatenate([r[f"{layout}/{case}/dist/env_pos"] for r in per_process],
-                                   axis=0 if layout.startswith("data") else 1)
+        spmd_rows = _assemble([r[f"{layout}/{case}/dist/env_pos"] for r in per_process],
+                              layout, 0)
         np.testing.assert_allclose(spmd_rows, refs[f"{one}/env_pos"], rtol=1e-5, atol=1e-5)
 
 
@@ -138,13 +140,16 @@ def test_scene_rollout_of_global_states_matches_one_process(runs, layout, case):
     global_state states across the processes: each process's block of the
     final positions and of the recorded positions and shade rows equals
     one process's rollout there."""
+    hold_scene(runs, layout, case)
+
+
+def hold_scene(runs, layout, case):
     per_process, refs = runs
     one = f"{layout}/{case}/one"
-    by_data = layout.startswith("data")
     for key, tol in (("pos", dict(rtol=3e-5, atol=1e-6)), ("traj_pos", dict(rtol=3e-5, atol=1e-6)),
                      ("traj_obs", dict(rtol=1e-5, atol=1e-5))):
-        axis = (0 if by_data else 1) + (1 if key.startswith("traj") else 0)
-        got = np.concatenate([r[f"{layout}/{case}/dist/{key}"] for r in per_process], axis=axis)
+        got = _assemble([r[f"{layout}/{case}/dist/{key}"] for r in per_process], layout,
+                        1 if key.startswith("traj") else 0)
         np.testing.assert_allclose(got, refs[f"{one}/{key}"], err_msg=key, **tol)
     t = np.concatenate([r[f"{layout}/{case}/dist/t"] for r in per_process])
     assert (t == 3).all()
@@ -197,6 +202,10 @@ def _jax_step(case: str):
 def test_trainer_across_processes_matches_jax(runs, layout, case):
     """Loss and metrics at rtol 1e-4 and every gradient at atol 1e-4 of its
     largest component (tests/test_torch_train.py's), each process's."""
+    hold_jax(runs, layout, case)
+
+
+def hold_jax(runs, layout, case):
     per_process, _ = runs
     jm, jgrads = _jax_step(case)
     policy = init_mlp_policy(worker.shared_inputs(case)[3].obs_width, worker.SEED,
@@ -212,6 +221,33 @@ def test_trainer_across_processes_matches_jax(runs, layout, case):
             np.testing.assert_allclose(got[k], jm[k], rtol=LOSS_RTOL, err_msg=f"p{pid} {k}")
         np.testing.assert_allclose(r[f"{layout}/jax_{case}/dist/grads"], want, rtol=0,
                                    atol=GRAD_ATOL * np.abs(want).max(), err_msg=f"p{pid}")
+
+
+ONE_SHARD_TRAINERS = [c for c in worker.ONE_SHARD_CASES if not c.startswith("scene")]
+ONE_SHARD_SCENES = [c for c in worker.ONE_SHARD_CASES if c.startswith("scene")]
+
+
+@pytest.mark.parametrize("case", ONE_SHARD_TRAINERS)
+@pytest.mark.parametrize("layout", list(worker.LAYOUTS))
+def test_trainer_one_shard_a_process_matches_one_process(runs_one_shard, layout, case):
+    """NCCL's layout, 4 processes x 1 shard (ONE_SHARD): the step held
+    against one process as above, all four replicas equal bit for bit; on
+    data2_agents2 the rows' and columns' groups are two processes each."""
+    hold_trainer(runs_one_shard, layout, case)
+
+
+@pytest.mark.parametrize("case", ONE_SHARD_SCENES)
+@pytest.mark.parametrize("layout", worker.RING_LAYOUTS)
+def test_scene_one_shard_a_process_matches_one_process(runs_one_shard, layout, case):
+    hold_scene(runs_one_shard, layout, case)
+
+
+@pytest.mark.parametrize("case", worker.JAX_CASES)
+@pytest.mark.parametrize("layout", list(worker.LAYOUTS))
+def test_trainer_one_shard_a_process_matches_jax(runs_one_shard, layout, case):
+    """REINFORCE and APG diff_vision in NCCL's layout against the JAX
+    trainers' step, as above."""
+    hold_jax(runs_one_shard, layout, case)
 
 
 def test_the_one_process_paths_stay_plain():

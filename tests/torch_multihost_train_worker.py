@@ -2,8 +2,12 @@
 2-process CPU mesh of the port training across the process boundary.
 
 Run as:  python tests/torch_multihost_train_worker.py <process_id> <num_processes> <port> <out.npz>
+             [<shards a process> [tags0]]
 
-Each process owns 2 CPU shards; joined through
+Each process owns 2 CPU shards (or <shards a process> of them: with 1 on
+4 processes, NCCL's layout, it runs ONE_SHARD_CASES only; `tags0` forces
+every point-to-point tag to 0, as tests/torch_multihost_worker.py
+describes); joined through
 parallel.mesh.init_distributed on gloo they form the 4-shard meshes of
 LAYOUTS: {"agents": 4}, where each process holds half the agents of every
 env (the agent reductions and the ring cross the boundary),
@@ -35,6 +39,7 @@ from nenbody_tpu_torch.rl.env import VisionEnv  # noqa: E402
 from nenbody_tpu_torch.rl.policy import CentralValueMLP, GRUPolicy, ValueMLP  # noqa: E402
 from nenbody_tpu_torch.rl.policy import init_mlp_policy, seeded  # noqa: E402
 from nenbody_tpu_torch.rl.spmd import Spmd  # noqa: E402
+from torch_multihost_worker import set_p2p_tags_to_zero  # noqa: E402
 
 N, W, B, H = 16, 16, 4, 2
 FAR, LR, SEED = 200.0, 1e-3, 3
@@ -49,6 +54,9 @@ CASES = ("reinforce_visibility", "reinforce_cohesion", "reinforce_gru", "apg_sem
          "ppo_central_critic", "ac", "es", "reinforce_cohesion_bf16", "ppo_central_critic_bf16",
          "scene_ring_gravity", "scene_ring_boids", "scene_ring_random", "scene_gspmd_gravity")
 JAX_CASES = ("reinforce_visibility", "apg_diff_visibility")
+# NCCL's layout (one shard a process) runs these
+ONE_SHARD_CASES = ("reinforce_visibility", "apg_diff_disc", "apg_diff_wireframe",
+                   "ppo_central_critic", "scene_ring_gravity")
 
 
 def env_of(reward_mode="cohesion", sprite="disc", antialias=True, far=FAR, spread=100.0, **kw):
@@ -209,15 +217,19 @@ def run_jax_case(case: str, mesh, out: dict, prefix: str) -> None:
 
 def main() -> None:
     pid, nproc, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    shards = int(sys.argv[5]) if len(sys.argv) > 5 else 2
+    if sys.argv[6:] == ["tags0"]:
+        set_p2p_tags_to_zero()
     mesh_lib.init_distributed(f"127.0.0.1:{port}", num_processes=nproc, process_id=pid,
-                              local_device_ids=["cpu", "cpu"])
+                              local_device_ids=["cpu"] * shards)
     out = {}
-    jobs = [(name, case) for name in LAYOUTS for case in CASES
+    cases = ONE_SHARD_CASES if shards == 1 else CASES
+    jobs = [(name, case) for name in LAYOUTS for case in cases
             if name in RING_LAYOUTS or not case.startswith("scene")]
     for name, axes in LAYOUTS.items():
         mesh = mesh_lib.make_mesh(axes)
         assert mesh.distributed, mesh
-        for case in CASES:
+        for case in cases:
             if (name, case) in jobs:
                 run_case(case, mesh, out, f"{name}/{case}/dist")
         for case in JAX_CASES:

@@ -2,10 +2,14 @@
 mesh of the port (the twin of tests/multihost_worker.py).
 
 Run as:  python tests/torch_multihost_worker.py <process_id> <num_processes> <port> <out.npz>
+             [<shards a process> [tags0]]
 
-Each process owns 2 CPU shards; joined through
-parallel.mesh.init_distributed on gloo, they form a 4-shard "agents" ring
-that crosses the process boundary. Both processes build the SAME inputs
+Each process owns 2 CPU shards (or <shards a process>: 1 is the layout
+NCCL runs, one card a process); joined through
+parallel.mesh.init_distributed on gloo, they form an "agents" ring that
+crosses the process boundary. With `tags0` every point-to-point tag is
+forced to 0 (set_p2p_tags_to_zero), so gloo matches messages by their
+order within each pair of ranks, as NCCL does. Both processes build the SAME inputs
 from one numpy seed, lift their local agent block to global tensors
 (parallel.mesh.global_state), run ring gravity (one env and a batch of 2),
 ring boids, the disc and wireframe eye rings and gspmd gravity across the
@@ -23,6 +27,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 torch.set_num_threads(1)
 
@@ -33,6 +38,18 @@ from nenbody_tpu_torch.rl import bc, datagen
 from nenbody_tpu_torch.rl.env import VisionEnv
 
 N, WIDTH, FAR, SEED = 64, 32, 200.0, 0
+
+
+def set_p2p_tags_to_zero() -> None:
+    """Every dist.P2POp this process builds gets tag 0: gloo then matches a
+    pair's messages by their order, as NCCL does (it drops the tag), so
+    blocks sent in another order than they are received come out swapped."""
+    p2p_op = dist.P2POp
+
+    def untagged(op, tensor, peer=None, group=None, tag=0, **kw):
+        return p2p_op(op, tensor, peer, group, 0, **kw)
+
+    dist.P2POp = untagged
 
 
 def inputs(n=N, seed=SEED):
@@ -46,11 +63,14 @@ def inputs(n=N, seed=SEED):
 
 def main() -> None:
     pid, nproc, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    shards = int(sys.argv[5]) if len(sys.argv) > 5 else 2
+    if sys.argv[6:] == ["tags0"]:
+        set_p2p_tags_to_zero()
     mesh_lib.init_distributed(f"127.0.0.1:{port}", num_processes=nproc, process_id=pid,
-                              local_device_ids=["cpu", "cpu"])
+                              local_device_ids=["cpu"] * shards)
     assert mesh_lib.is_distributed()
-    mesh = mesh_lib.make_mesh({"agents": 2 * nproc})
-    assert mesh.ranks == [r for r in range(nproc) for _ in range(2)], mesh
+    mesh = mesh_lib.make_mesh({"agents": shards * nproc})
+    assert mesh.ranks == [r for r in range(nproc) for _ in range(shards)], mesh
 
     cfg = SimConfig(n=N, controller="boids", backend="ring",
                     vision=VisionConfig(width=WIDTH, far=FAR))
@@ -79,8 +99,8 @@ def main() -> None:
         assert torch.equal(getattr(back, name), getattr(local, name)), name
 
     # gradients across the boundary: of sum(w * forces) and of sum(w * shade)
-    # (the antialiased disc eye), against one process on 4 CPU shards
-    one = mesh_lib.make_mesh({"agents": 2 * nproc}, devices=["cpu"] * (2 * nproc))
+    # (the antialiased disc eye), against one process on as many CPU shards
+    one = mesh_lib.make_mesh({"agents": shards * nproc}, devices=["cpu"] * (shards * nproc))
     aa = VisionConfig(width=WIDTH, far=FAR, antialias=True)
     w_g = torch.from_numpy(np.random.RandomState(7).randn(N, 2).astype(np.float32))
     w_s = torch.from_numpy(np.random.RandomState(8).randn(N, WIDTH).astype(np.float32))
