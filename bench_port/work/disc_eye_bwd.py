@@ -1,0 +1,15 @@
+"""Work of one pullback of the disc eye: B envs of N agents, W-pixel lines.
+
+Operations: 60 a pixel that a target wins (the winner's offset, coverage
+and shade and their derivatives), the won pixels counted from the inputs.
+Bytes (chip_smoke.py's count): positions, headings, the forward's int32
+winner index and both float32 cotangent lines read once, the eye, heading
+and target gradients written once.
+"""
+
+PIXEL_OPS = 60
+
+
+def work(batch: int, n: int, width: int, won: int) -> dict:
+    return {"fp32_ops": won * PIXEL_OPS,
+            "bytes": 2 * batch * n * 2 * 4 + 3 * batch * n * width * 4 + 3 * batch * n * 2 * 4}
