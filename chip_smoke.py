@@ -14,7 +14,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
                 at the main paths' shapes (the backward kernels and the
                 wireframe eye also at the trainers'), with the tolerance
                 stated (the disc eye and the wireframe eye equal to it at
-                power-of-two widths, spread and clustered, the wireframe
+                power-of-two widths, spread and clustered, the disc eye's
+                counting launch at config-5 width bit-equal to its launch
+                without counters, with the plain version's covered pairs
+                and triples; the wireframe
                 eye also at rows cut into segments, on sprites straddling
                 the near plane and on edges along a pixel's ray; gravity's
                 split sum and batch 20 more times bit-identical; boids at
@@ -243,6 +246,7 @@ from nenbody_tpu_torch.parallel import default_mesh, make_mesh, rdma, ring
 from nenbody_tpu_torch.physics import dense
 from nenbody_tpu_torch.rl import apg, train
 from nenbody_tpu_torch.rl.env import VisionEnv
+from nenbody_tpu_torch.utils import profiling
 from nenbody_tpu_torch.vision import camera, render
 from nenbody_tpu_torch.viz import image, live
 from nenbody_tpu_torch.viz import viewer as viewer_lib
@@ -608,6 +612,41 @@ def phase_kernels(errors: Errors, gen) -> None:
                              *((0, 0) if exact else (1e-5, 1e-4)))
                 errors.check("disc_eye", label + " shade", gs, ws,
                              *((0, 0) if exact else (1e-5, 1e-5)))
+    eye_counters(errors)
+
+
+def eye_counters(errors: Errors) -> None:
+    """The disc eye's counting launch (inside profiling.recording()) at
+    config-5 width, spread and clustered, AA off and on: its shade, depth
+    and winner bit-equal to a launch without counters, its covered pairs
+    and triples equal to the plain version's (from its own generator)."""
+    own = torch.Generator(device="cuda").manual_seed(11)
+    b, n, w = 4096, 256, 64
+    for half in (100, 8):
+        pos = uniform(own, (b, n, 2), -half, half)
+        dirs = camera.unit_heading(uniform(own, (b, n, 2), -1, 1))
+        for aa in (False, True):
+            vcfg = VisionConfig(width=w, antialias=aa)
+            label = f"disc_eye counting B={b} N={n} W={w} U(-{half}, {half}) aa={aa}"
+            want = raycast.disc_eye_with_winner(pos, dirs, pos, vcfg)
+            profiling.reset_record()
+            with profiling.recording():
+                got = raycast.disc_eye_with_winner(pos, dirs, pos, vcfg)
+            kernel = profiling.record()["counters"]
+            profiling.reset_record()
+            with profiling.recording():
+                raycast.disc_eye_plain(pos, dirs, pos, vcfg)
+            plain = profiling.record()["counters"]
+            profiling.reset_record()
+            same = all(torch.equal(x, y) for x, y in zip(want, got))
+            log("kernels", f"{label}: outputs bit-equal to the launch without counters: {same}; "
+                f"kernel {', '.join(f'{k} {kernel[k]}' for k in raycast.EYE_COUNTERS)}; plain "
+                f"eye.pairs_covering {plain['eye.pairs_covering']} eye.triples "
+                f"{plain['eye.triples']}")
+            expect(same, f"{label}: outputs bit-equal to the launch without counters")
+            for k in ("eye.pairs_covering", "eye.triples"):
+                expect(kernel[k] == plain[k] > 0, f"{label}: the kernel's {k} equal to the plain "
+                       f"version's")
 
 
 def phase_backward_kernels(errors: Errors, gen) -> None:

@@ -29,6 +29,19 @@
 // When the wrapper passes a winner buffer (autograd needs the pixel), the
 // kernel also writes each pixel's winning target index (-1 for background):
 // the residual of the backward kernel, disc_eye_bwd.cu.
+// When the wrapper passes a counter array (three unsigned 64-bit sums; the
+// port's recorder counts: inside its recording() alone, so that a profiler
+// trace without it times disc_eye_kernel), the launch runs
+// disc_eye_kernel_counted, the same block with counters: it also adds, once
+// a block, the (eye, target) pairs
+// that pass the frustum pre-cull, the pairs that cover at least one pixel
+// and the covered (eye, target, pixel) triples. Every pixel of a target's
+// range is then tested, where it can win or not, by a test without a divide
+// that decides all but the pixels within 2^-20 of the footprint's edge
+// (cover_pixel), which take the exact test. A pair is counted in the
+// segment that holds its first covered pixel (a footprint covers a run of
+// pixels: the offset grows with the pixel), its pre-cull in segment 0. With
+// a null array the launch runs disc_eye_kernel, which counts nothing.
 //
 // What bounds it: the projections (16 operations and three IEEE divides per
 // (eye, target) pair that may be visible) and the [B, Ne, W] output write.
@@ -129,12 +142,36 @@ __device__ __forceinline__ void disc_pixel_range(float uc, float du, float thr,
 // p, where it can win: first two cheap exits, a centre farther than
 // reach_plus from uc (thr du and the range's relative slack: the exact test
 // cannot cover it) and a pixel that already holds a lesser key.
-__device__ __forceinline__ void cover_pixel(unsigned long long* key, const float* s_up, int p,
-                                            float uc, float du, float thr, float reach_plus,
-                                            unsigned long long k) {
+//
+// COUNT tests the pixel whatever its key holds and returns 1 where it
+// covers, deciding |a / du| < thr without the divide outside the band
+// [inner, outer) of |a| (edge_band: thr du times 1 -/+ 2^-20): below it the
+// divide rounds under thr, from its top up it rounds to thr or above,
+// whatever the few roundings of thr du and of the band (each 2^-24 of it)
+// and of the divide; inside it the exact test decides. Its outer bound lies
+// below reach_plus (thr du plus 2^-16 of it at least).
+template <bool COUNT>
+__device__ __forceinline__ unsigned cover_pixel(unsigned long long* key, const float* s_up,
+                                                int p, float uc, float du, float thr,
+                                                float reach_plus, unsigned long long k,
+                                                float inner = 0.f, float outer = 0.f) {
   const float a = s_up[p] - uc;
-  if (fabsf(a) >= reach_plus || k >= key[p]) return;
+  if (COUNT) {
+    const float m = fabsf(a);
+    const bool covered = m < inner || (m < outer && fabsf(a / du) < thr);
+    if (covered && k < key[p]) atomicMin(key + p, k);
+    return covered ? 1u : 0u;
+  }
+  if (fabsf(a) >= reach_plus || k >= key[p]) return 0u;
   if (fabsf(a / du) < thr) atomicMin(key + p, k);
+  return 0u;
+}
+
+// cover_pixel's band for COUNT: [inner, outer) around thr du.
+__device__ __forceinline__ void edge_band(float du, float thr, float& inner, float& outer) {
+  const float reach = thr * du;
+  inner = reach * (1.0f - 1.0f / 1048576.0f);
+  outer = reach * (1.0f + 1.0f / 1048576.0f);
 }
 
 // Whether the target at xj may be visible from the eye at (pe, de), without
@@ -150,21 +187,33 @@ __device__ __forceinline__ bool may_be_visible(float2 pe, float2 de, float2 xj,
 // run the exact test on the segment pixels [0, pn) of its range where it can
 // still win. A range of at most NARROW pixels is walked by its own lane;
 // the warp walks the wider ones together, a lane per pixel, reading each
-// one's footprint from `wide` (the warp's staging slots).
+// one's footprint from `wide` (the warp's staging slots). COUNT adds to the
+// warp's counts `cnt` (the same in every lane) the targets drawn (those that
+// passed the pre-cull), those that cover a pixel whose first covered pixel
+// lies in this segment, and their covered pixels.
+template <bool COUNT>
 __device__ __forceinline__ void draw_targets(int j, int lane, float2 pe, float2 de,
                                              const float2* tb, const EyeParams& q, int w,
                                              int p0, int pn, unsigned long long* key,
-                                             const float* s_up, float4 (*wide)[2]) {
+                                             const float* s_up, float4 (*wide)[2],
+                                             uint3& cnt) {
   float f = 0.f, uc = 0.f, du = 1.f, thr = 0.f, rp = 0.f;
   int lo = 1, hi = 0;  // the segment pixels to test, none by default
+  bool first_here = true;  // no pixel before the segment is covered
   if (j >= 0 && project_target(pe, de, tb[j], q, f, uc, du, thr)) {
     disc_pixel_range(uc, du, thr, q, w, lo, hi, rp);
     lo = max(lo, p0) - p0;
     hi = min(hi, p0 + pn - 1) - p0;
+    if (COUNT && p0 > 0) first_here = !(fabsf((pixel_center(p0 - 1, w) - uc) / du) < thr);
   }
   const unsigned long long k = ((unsigned long long)__float_as_uint(f) << 32) | (unsigned)j;
+  unsigned mine = 0u;  // COUNT: this lane's target's covered pixels
   if (hi - lo < NARROW) {
-    for (int p = lo; p <= hi; ++p) cover_pixel(key, s_up, p, uc, du, thr, rp, k);
+    float inner = 0.f, outer = 0.f;
+    if (COUNT) edge_band(du, thr, inner, outer);
+    for (int p = lo; p <= hi; ++p) {
+      mine += cover_pixel<COUNT>(key, s_up, p, uc, du, thr, rp, k, inner, outer);
+    }
   }
   const unsigned wide_lanes = __ballot_sync(FULL, hi - lo >= NARROW);
   if (hi - lo >= NARROW) {
@@ -180,25 +229,44 @@ __device__ __forceinline__ void draw_targets(int j, int lane, float2 pe, float2 
     const unsigned long long kw =
         ((unsigned long long)__float_as_uint(c.y) << 32) | __float_as_uint(c.x);
     const int hi_w = __float_as_int(c.w);
+    float inner = 0.f, outer = 0.f;
+    if (COUNT) edge_band(a.y, a.z, inner, outer);
+    unsigned got = 0u;
     for (int p = __float_as_int(c.z) + lane; p <= hi_w; p += WARP) {
-      cover_pixel(key, s_up, p, a.x, a.y, a.z, a.w, kw);
+      got += cover_pixel<COUNT>(key, s_up, p, a.x, a.y, a.z, a.w, kw, inner, outer);
+    }
+    if (COUNT) {
+      const unsigned all = __reduce_add_sync(FULL, got);
+      if (lane == __ffs(m) - 1) mine = all;  // the target's own lane
     }
   }
   __syncwarp();
+  if (COUNT) {
+    const unsigned drawn = __popc(__ballot_sync(FULL, j >= 0));
+    const unsigned covering = __popc(__ballot_sync(FULL, mine > 0u && first_here));
+    cnt.x += drawn;
+    cnt.y += covering;
+    cnt.z += __reduce_add_sync(FULL, mine);
+  }
 }
 
-__global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
-                                const float2* __restrict__ eye_dir,
-                                const float2* __restrict__ tgt,
-                                const float* __restrict__ albedo,
-                                const float* __restrict__ texture, float* __restrict__ shade,
-                                float* __restrict__ depth, int* __restrict__ winner, int ne,
-                                int nt, int w, int seg, int eb, int ht, int wt, EyeParams q) {
+// One block of either kernel: EB eyes x SEG pixels of one env.
+template <bool COUNT>
+__device__ __forceinline__ void eye_block(const float2* __restrict__ eye_pos,
+                                          const float2* __restrict__ eye_dir,
+                                          const float2* __restrict__ tgt,
+                                          const float* __restrict__ albedo,
+                                          const float* __restrict__ texture,
+                                          float* __restrict__ shade, float* __restrict__ depth,
+                                          int* __restrict__ winner, int ne, int nt, int w,
+                                          int seg, int eb, int ht, int wt, const EyeParams& q,
+                                          unsigned long long* __restrict__ counters) {
   extern __shared__ float s_tex[];  // the staged texture (texture.cuh)
   __shared__ unsigned long long s_key[KEY_PIXELS];
   __shared__ float s_up[SEG_MAX];  // the segment's pixel centres
   __shared__ int s_queue[WARPS][2 * WARP];  // each warp's targets that may be visible
   __shared__ float4 s_wide[WARPS][WARP][2];
+  __shared__ unsigned s_count[WARPS][3];  // COUNT: each warp's pairs passed, covering, triples
   const int b = blockIdx.z;
   const int e0 = blockIdx.x * eb;
   const int p0 = blockIdx.y * seg;
@@ -207,6 +275,7 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
   const int warp = threadIdx.x / WARP;
   for (int i = threadIdx.x; i < eb * seg; i += THREADS) s_key[i] = NO_KEY;
   for (int i = threadIdx.x; i < pn; i += THREADS) s_up[i] = pixel_center(p0 + i, w);
+  if (COUNT && threadIdx.x < WARPS * 3) s_count[threadIdx.x / 3][threadIdx.x % 3] = 0u;
   bool staged;
   const float* tex = stage_texture(texture, ht * wt, s_tex, staged);
   __syncthreads();
@@ -222,6 +291,7 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
     unsigned long long* key = s_key + el * seg;
     int* queue = s_queue[warp];
     int queued = 0;
+    uint3 cnt = make_uint3(0u, 0u, 0u);  // COUNT: the warp's pairs drawn, covering, triples
     for (int j0 = (warp / eb) * WARP; j0 < nt; j0 += WARP * (WARPS / eb)) {
       const int j = j0 + lane;
       const bool maybe = j < nt && may_be_visible(pe, de, tb[j], q);
@@ -230,7 +300,8 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
       queued += __popc(mask);
       __syncwarp();
       if (queued >= WARP) {
-        draw_targets(queue[lane], lane, pe, de, tb, q, w, p0, pn, key, s_up, s_wide[warp]);
+        draw_targets<COUNT>(queue[lane], lane, pe, de, tb, q, w, p0, pn, key, s_up,
+                            s_wide[warp], cnt);
         queued -= WARP;
         const int moved = lane < queued ? queue[WARP + lane] : 0;
         __syncwarp();
@@ -239,11 +310,22 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
       }
     }
     if (queued > 0) {
-      draw_targets(lane < queued ? queue[lane] : -1, lane, pe, de, tb, q, w, p0, pn, key, s_up,
-                   s_wide[warp]);
+      draw_targets<COUNT>(lane < queued ? queue[lane] : -1, lane, pe, de, tb, q, w, p0, pn, key,
+                          s_up, s_wide[warp], cnt);
+    }
+    if (COUNT && lane == 0) {
+      s_count[warp][0] = cnt.x;
+      s_count[warp][1] = cnt.y;
+      s_count[warp][2] = cnt.z;
     }
   }
   __syncthreads();
+  // COUNT: the warps' counts into the launch's, the pre-cull's from segment 0 alone
+  if (COUNT && threadIdx.x < 3 && (threadIdx.x > 0 || blockIdx.y == 0)) {
+    unsigned long long sum = 0ull;
+    for (int i = 0; i < WARPS; ++i) sum += s_count[i][threadIdx.x];
+    atomicAdd(counters + threadIdx.x, sum);
+  }
 
   for (int i = threadIdx.x; i < eb * seg; i += THREADS) {
     const int p = i % seg;
@@ -280,6 +362,31 @@ __global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
   }
 }
 
+__global__ void disc_eye_kernel(const float2* __restrict__ eye_pos,
+                                const float2* __restrict__ eye_dir,
+                                const float2* __restrict__ tgt,
+                                const float* __restrict__ albedo,
+                                const float* __restrict__ texture, float* __restrict__ shade,
+                                float* __restrict__ depth, int* __restrict__ winner, int ne,
+                                int nt, int w, int seg, int eb, int ht, int wt, EyeParams q) {
+  eye_block<false>(eye_pos, eye_dir, tgt, albedo, texture, shade, depth, winner, ne, nt, w, seg,
+                   eb, ht, wt, q, nullptr);
+}
+
+// The counters cost registers: held to disc_eye_kernel's 48 (five blocks of
+// 256 threads an SM on a Hopper card's 64K registers), so that a traced run
+// keeps the occupancy of an untraced one.
+__global__ void __launch_bounds__(THREADS, 5)
+    disc_eye_kernel_counted(const float2* __restrict__ eye_pos,
+                            const float2* __restrict__ eye_dir, const float2* __restrict__ tgt,
+                            const float* __restrict__ albedo, const float* __restrict__ texture,
+                            float* __restrict__ shade, float* __restrict__ depth,
+                            int* __restrict__ winner, int ne, int nt, int w, int seg, int eb,
+                            int ht, int wt, EyeParams q, unsigned long long* __restrict__ counters) {
+  eye_block<true>(eye_pos, eye_dir, tgt, albedo, texture, shade, depth, winner, ne, nt, w, seg,
+                  eb, ht, wt, q, counters);
+}
+
 // Eyes per block, EB (a power of two, so that each eye gets WARPS / EB
 // warps), for SEG-pixel segments: as many as the warps and KEY_PIXELS keys
 // hold, halved while the grid would give an SM fewer than two blocks (each
@@ -301,14 +408,16 @@ int eyes_per_block(int batch, int ne, int segments, int seg) {
 
 // eye_pos, eye_dir [B, Ne, 2]; tgt [B, Nt, 2]; albedo [B, Nt], or null for
 // the scalar; texture [ht, wt], or null for none; shade, depth [B, Ne, W];
-// all fp32, contiguous; winner [B, Ne, W] int32, or null to skip it. Returns
+// all fp32, contiguous; winner [B, Ne, W] int32, or null to skip it;
+// counters: three unsigned 64-bit sums the launch adds its pairs passed,
+// pairs covering and covered triples to, or null to count nothing. Returns
 // cudaGetLastError() after the launch.
 extern "C" int nbt_disc_eye(const void* eye_pos, const void* eye_dir, const void* tgt,
                             const void* albedo, const void* texture, void* shade, void* depth,
                             void* winner, int batch, int ne, int nt, int w, int ht, int wt,
                             float tan_half_fov, float near_plane, float far_plane, float radius,
                             float inv_width, float half_width, float background,
-                            float albedo_scalar, int antialias, void* stream) {
+                            float albedo_scalar, int antialias, void* counters, void* stream) {
   if (batch > 0 && ne > 0 && w > 0) {
     const int seg = min(w, SEG_MAX);
     const int segments = (w + seg - 1) / seg;
@@ -316,12 +425,24 @@ extern "C" int nbt_disc_eye(const void* eye_pos, const void* eye_dir, const void
     dim3 grid((ne + eb - 1) / eb, segments, batch);
     EyeParams q{tan_half_fov, near_plane, far_plane, radius, inv_width,
                 half_width,   background, albedo_scalar, antialias};
-    disc_eye_kernel<<<grid, THREADS, staged_bytes(texture, ht * wt),
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float2*>(eye_pos), static_cast<const float2*>(eye_dir),
-        static_cast<const float2*>(tgt), static_cast<const float*>(albedo),
-        static_cast<const float*>(texture), static_cast<float*>(shade),
-        static_cast<float*>(depth), static_cast<int*>(winner), ne, nt, w, seg, eb, ht, wt, q);
+    const size_t smem = staged_bytes(texture, ht * wt);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto ep = static_cast<const float2*>(eye_pos);
+    const auto ed = static_cast<const float2*>(eye_dir);
+    const auto tp = static_cast<const float2*>(tgt);
+    const auto al = static_cast<const float*>(albedo);
+    const auto tx = static_cast<const float*>(texture);
+    const auto sh = static_cast<float*>(shade);
+    const auto dp = static_cast<float*>(depth);
+    const auto wn = static_cast<int*>(winner);
+    if (counters) {
+      disc_eye_kernel_counted<<<grid, THREADS, smem, s>>>(
+          ep, ed, tp, al, tx, sh, dp, wn, ne, nt, w, seg, eb, ht, wt, q,
+          static_cast<unsigned long long*>(counters));
+    } else {
+      disc_eye_kernel<<<grid, THREADS, smem, s>>>(ep, ed, tp, al, tx, sh, dp, wn, ne, nt, w, seg,
+                                                 eb, ht, wt, q);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

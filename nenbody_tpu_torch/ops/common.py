@@ -17,7 +17,8 @@ No --use_fast_math.
 Dispatch. Each wrapper in the ops modules runs its kernel's plain PyTorch
 version for a tensor on the CPU, and the kernel for a CUDA tensor; for any
 other device, or a tensor the kernel does not take, it raises. A wrapper
-adds one to its kernel's launch count each time it launches the kernel.
+adds one to its kernel's launch count each time it launches the kernel
+(the counter "launches.<kernel>" of utils/profiling.py's store).
 
 Gradients. Under torch.is_grad_enabled(), an input that requires grad
 routes a forward wrapper through its torch.autograd.Function (`needs_grad`),
@@ -40,6 +41,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nenbody_tpu_torch"
 NVCC_FLAGS = (
@@ -58,7 +61,7 @@ SIGNATURES = {
     "nbt_boids_velocity": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     "nbt_boids_plan": [_I, _I, _I, _P],  # the launch shape it picks (no launch)
     "nbt_disc_eye": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+                     _F, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],  # ..., counters, stream
     "nbt_gravity_vjp": [_P, _P, _P, _I, _I, _F, _F, _P],
     "nbt_disc_eye_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
@@ -183,7 +186,7 @@ def kernel_library() -> KernelLibrary:
 
 
 class Kernel:
-    """One hand-written kernel: its C entry point and its launch count. A
+    """One hand-written kernel: its C entry point, counting its launches. A
     kernel may have a second entry point (gravity_vjp.cu's cross form), which
     counts as a launch of the same kernel; a source may hold two kernels
     (boids.cu: the fused rules and the ring's partials, each counted on its
@@ -192,11 +195,11 @@ class Kernel:
     def __init__(self, name: str, symbol: str):
         self.name = name
         self.symbol = symbol
-        self.launches = 0
+        self.counter = profiling.LAUNCHES + name
 
     def launch(self, *args, entry: Optional[str] = None) -> None:
         kernel_library().call(entry or self.symbol, *args)
-        self.launches += 1
+        profiling.tally(self.counter)
 
 
 KERNELS: Dict[str, Kernel] = {
@@ -240,12 +243,12 @@ def enable_peer_access(device: torch.device, peer: torch.device) -> None:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    profiling.reset_counters(profiling.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    counts = profiling.host_counters(profiling.LAUNCHES)
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def use_kernel(*tensors: torch.Tensor | None) -> bool:

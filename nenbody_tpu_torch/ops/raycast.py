@@ -27,6 +27,14 @@ Those two functions are the culls in plain PyTorch with the kernel's
 float32 expressions (they must agree); the CPU tests prove them
 conservative against the exact test.
 
+Work counters (utils/profiling.py), inside its recording(): each render
+adds the pairs it could test, `eye.pairs` (B·N_e·N_t), and its pixels,
+`eye.pixels` (B·N_e·W), on the host; the kernel adds, into a counter array
+on the card, the pairs that pass its pre-cull (`eye.pairs_passed`), the
+pairs that cover at least one pixel (`eye.pairs_covering`) and the covered
+(eye, target, pixel) triples (`eye.triples`). The plain version counts the
+last two from its own coverage; it has no pre-cull, so every pair passes.
+
 Appearance: `albedo` (one per target) and `texture` ([Ht, Wt], shared by
 every env) cover the Pallas kernels' `has_alb` and `raw` forms. The JAX
 package's raw form writes the winner's signed offset, 1/du and albedo for
@@ -44,6 +52,7 @@ from typing import Tuple
 import torch
 
 from ..config import VisionConfig
+from ..utils import profiling
 from ..vision import camera, render
 from .common import (
     KERNELS, appearance_args, check_batch, check_kernel_args, check_pullback_args, flat_batch,
@@ -110,9 +119,26 @@ def disc_pixel_ranges(eye_pos, eye_dir, tgt, cfg: VisionConfig):
     return torch.where(visible, lo, 1), torch.where(visible, hi, 0), reach_plus
 
 
+# the kernel's work counters, in the order of its counter array
+EYE_COUNTERS = ("eye.pairs_passed", "eye.pairs_covering", "eye.triples")
+
+
+def _count_render(eye_pos, tgt, cfg: VisionConfig) -> int:
+    """The host counts of one render: the pairs it could test (returned)
+    and its pixels."""
+    batch, ne, nt = eye_pos[..., 0, 0].numel(), eye_pos.shape[-2], tgt.shape[-2]
+    profiling.count("eye.pairs", batch * ne * nt)
+    profiling.count("eye.pixels", batch * ne * cfg.width)
+    return batch * ne * nt
+
+
 def disc_eye_plain(eye_pos, eye_dir, tgt, cfg: VisionConfig, albedo=None, texture=None):
     """The kernel's plain version: the dense renderer, chunked over eyes."""
-    return render.render_eyes(eye_pos, eye_dir, tgt, cfg, albedo=albedo, texture=texture)
+    count = profiling.counting()
+    if count:  # every pair passes: the plain version has no pre-cull
+        profiling.count("eye.pairs_passed", _count_render(eye_pos, tgt, cfg))
+    return render.render_eyes(eye_pos, eye_dir, tgt, cfg, albedo=albedo, texture=texture,
+                              count=count)
 
 
 def _check_disc(cfg: VisionConfig) -> None:
@@ -151,10 +177,14 @@ def _disc_eye_cuda(eye_pos, eye_dir, tgt, cfg: VisionConfig, with_winner: bool =
     depth = torch.empty(shape, dtype=torch.float32, device=eye_pos.device)
     winner = (torch.empty(shape, dtype=torch.int32, device=eye_pos.device)
               if with_winner else None)
+    counters = profiling.counter_slots(EYE_COUNTERS, eye_pos.device)
+    if counters is not None:
+        _count_render(eye_pos, tgt, cfg)
     KERNELS["disc_eye"].launch(
         ep.data_ptr(), ed.data_ptr(), tp.data_ptr(), *skin[:2], shade.data_ptr(),
         depth.data_ptr(), None if winner is None else winner.data_ptr(),
-        batch, ne, nt, w, *skin[2:], *_eye_args(cfg), stream_handle(),
+        batch, ne, nt, w, *skin[2:], *_eye_args(cfg),
+        None if counters is None else counters.data_ptr(), stream_handle(),
     )
     return shade, depth, winner
 

@@ -50,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..state import SceneState
+from ..utils import profiling
 
 AGENT_AXIS = "agents"
 DATA_AXIS = "data"
@@ -428,10 +429,11 @@ def all_reduce_grads(params, mesh: Optional[Mesh]) -> None:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     group = mesh.process_group(None)
-    for grads in _by_dtype([p.grad for p in params]).values():
-        flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
+    with profiling.span("mesh.all_reduce_grads"):
+        for grads in _by_dtype([p.grad for p in params]).values():
+            flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
 
 
 def broadcast_module(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:

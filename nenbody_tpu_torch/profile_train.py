@@ -18,8 +18,12 @@ runs), then one traced iteration. Device time is the
 sum of the trace's CUDA kernel, memcpy and memset events, by category (one
 per hand-written kernel, GEMMs, Adam, copies, the rest); `busy` is that sum
 over the untraced median. Also the kernels' launch counts in the traced
-iteration and the peak device memory. Writes one JSON object to --out and
-prints it. On the CPU there are no device events: only the host times.
+iteration, the port's record of that iteration (`spans`:
+utils.profiling.record(), each span's calls, host and device ms and self
+time; the eye's counters stay off, so the trace times the kernels an
+untraced iteration runs) and the peak device memory. Writes one JSON object
+to --out and prints it. On the CPU there are no device events: only the
+host times.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from .ops import common
 from .rl import ac, apg, es, ppo, train
 from .rl.env import VisionEnv
 from .rl.policy import CentralValueMLP, seeded
+from .utils import profiling
 
 # (category, substrings of a device event's name), first match wins
 CATEGORIES = (
@@ -137,6 +142,7 @@ def profile_trainer(args, algo, reward_mode, antialias, diff_vision) -> dict:
         runs.append(sec)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     common.reset_launch_counts()
+    profiling.reset_record()
     with profile(activities=activities) as prof:
         ts, traced = iteration(ts)
     cats = device_ms_by_category(prof)
@@ -148,7 +154,7 @@ def profile_trainer(args, algo, reward_mode, antialias, diff_vision) -> dict:
         "agent_frames_per_s": (2 * ES_POPULATION if algo == "es" else 1)
         * args.envs * args.agents * args.horizon / median,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None,
-        "launches": common.launch_counts(), "device_ms": cats,
+        "launches": common.launch_counts(), "device_ms": cats, "spans": profiling.record(),
     }
 
 

@@ -30,6 +30,11 @@ process boundary through the ring's exchanges (remat's recomputation
 included: every process recomputes in one order), the loss is each
 process's share of the global mean, and the gradients are all-reduced
 before grad_norm and the step.
+
+Spans (utils/profiling.py): `apg.iteration` around the step, and inside it
+`apg.rollout` (the spawns and the loss's horizon), `apg.backward`
+(loss.backward()) and `apg.update` (the missing gradients, the sync across
+processes, the grad norm, the optimizer's step and the loss's total).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..state import SceneState, spawn_batch
+from ..utils import profiling
 from .env import VisionEnv
 from .policy import init_mlp_policy
 from .spmd import Spmd
@@ -110,21 +116,25 @@ def make_apg_step(
         return -torch.stack(rewards).mean()
 
     def apg_step(ts: APGState) -> Tuple[APGState, dict]:
-        states = spmd.block_state(spawn_batch(env.cfg, ts.generator, num_envs,
-                                              ts.generator.device))
-        loss = loss_fn(ts.policy, states)
-        ts.optimizer.zero_grad(set_to_none=True)
-        if loss.requires_grad:  # not so for semi-APG with a visibility reward
-            loss.backward()
-        params = [p for group in ts.optimizer.param_groups for p in group["params"]]
-        for p in params:
-            if p.grad is None:  # a zero gradient, as jax.grad gives it
-                p.grad = torch.zeros_like(p)
-        spmd.sync_grads(params)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
-        ts.optimizer.step()
-        loss = spmd.total(loss.detach())
+        with profiling.span("apg.iteration"):
+            with profiling.span("apg.rollout"):
+                states = spmd.block_state(spawn_batch(env.cfg, ts.generator, num_envs,
+                                                      ts.generator.device))
+                loss = loss_fn(ts.policy, states)
+            with profiling.span("apg.backward"):
+                ts.optimizer.zero_grad(set_to_none=True)
+                if loss.requires_grad:  # not so for semi-APG with a visibility reward
+                    loss.backward()
+            with profiling.span("apg.update"):
+                params = [p for group in ts.optimizer.param_groups for p in group["params"]]
+                for p in params:
+                    if p.grad is None:  # a zero gradient, as jax.grad gives it
+                        p.grad = torch.zeros_like(p)
+                spmd.sync_grads(params)
+                grad_norm = torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+                ts.optimizer.step()
+                loss = spmd.total(loss.detach())
         metrics = {"loss": loss, "reward_mean": -loss, "grad_norm": grad_norm}
         return dataclasses.replace(ts, iteration=ts.iteration + 1), metrics
 

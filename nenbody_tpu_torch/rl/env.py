@@ -20,6 +20,10 @@ by cfg.vision.sprite_mode, whenever autograd needs them (rl/apg.py), and
 launch forward-only otherwise. The JAX trainers' `_batched_observe_fast`
 and `_batched_observe_diff` have no counterpart: the eye kernels take the
 batch whole.
+
+Spans (utils/profiling.py): `env.step` around a step, `env.observe` around
+the render and the observation's concatenation, `env.dynamics` around the
+force law and the integration.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from ..config import SimConfig
 from ..physics import dense
 from ..state import SceneState, spawn
+from ..utils import profiling
 
 
 class VisionEnv:
@@ -96,8 +101,9 @@ class VisionEnv:
     def observe(self, state: SceneState) -> torch.Tensor:
         """[..., N, W+2]: the eye line plus the raw ego velocity;
         differentiable through perception when the state requires grad."""
-        lines = self._render(state.pos, state.vel)[0]
-        return torch.cat([lines, state.vel], dim=-1)
+        with profiling.span("env.observe"):
+            lines = self._render(state.pos, state.vel)[0]
+            return torch.cat([lines, state.vel], dim=-1)
 
     def _forces(self, pos: torch.Tensor) -> torch.Tensor:
         if self.backend == "dense":
@@ -110,7 +116,8 @@ class VisionEnv:
     def dynamics(self, state: SceneState, action: torch.Tensor) -> SceneState:
         """Physics-only transition (no observation), differentiable on every
         backend."""
-        return self.integrate(state, action, self._forces(state.pos))
+        with profiling.span("env.dynamics"):
+            return self.integrate(state, action, self._forces(state.pos))
 
     def integrate(self, state: SceneState, action: torch.Tensor, g: torch.Tensor) -> SceneState:
         """The transition given the gravity forces g: v += (g + actuated
@@ -129,11 +136,12 @@ class VisionEnv:
 
         Returns (next_state, obs, reward[..., N]).
         """
-        next_state = self.dynamics(state, action)
-        obs = self.observe(next_state)
-        if self.reward_mode == "visibility":
-            return next_state, obs, self.reward_obs(obs)
-        return next_state, obs, self.reward(next_state)
+        with profiling.span("env.step"):
+            next_state = self.dynamics(state, action)
+            obs = self.observe(next_state)
+            if self.reward_mode == "visibility":
+                return next_state, obs, self.reward_obs(obs)
+            return next_state, obs, self.reward(next_state)
 
     def reward(self, state: SceneState, agent_sum=None) -> torch.Tensor:
         """[..., N] per-agent reward, by reward_mode:

@@ -24,6 +24,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils import profiling
+
 
 def _lecun_normal_(weight: torch.Tensor) -> None:
     """flax's default kernel init: truncated normal, variance 1/fan_in (a
@@ -69,7 +71,8 @@ class MLPPolicy(nn.Module):
 
     Hidden layers of 128 and 128 units with tanh, computed in bf16 when
     `use_bf16` (weights kept in fp32, cast per call, like flax's
-    Dense(dtype=bf16)) and in fp32 otherwise; the head is always fp32.
+    Dense(dtype=bf16)) and in fp32 otherwise; the head is always fp32. The
+    forward is the span `policy.forward` (utils/profiling.py).
     """
 
     def __init__(
@@ -88,9 +91,10 @@ class MLPPolicy(nn.Module):
         _flax_init_(*self.hidden, self.head)
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        dtype = _dtype(self.use_bf16)
-        x = _tanh_layers(obs.to(dtype), self.hidden, dtype)
-        return self.head(x.float()), self.log_std
+        with profiling.span("policy.forward"):
+            dtype = _dtype(self.use_bf16)
+            x = _tanh_layers(obs.to(dtype), self.hidden, dtype)
+            return self.head(x.float()), self.log_std
 
 
 class ValueMLP(nn.Module):

@@ -32,6 +32,7 @@ import torch
 
 from ..config import VisionConfig
 from ..state import SceneState
+from ..utils import profiling
 from . import camera
 
 # Elements of one [..., chunk, M, W] tensor render_eyes materializes.
@@ -45,12 +46,16 @@ def eye_rows(
     cfg: VisionConfig,
     albedo: torch.Tensor | None = None,  # [..., M] per-target albedo
     texture: torch.Tensor | None = None,  # [Ht, Wt] sampled at the splat uv
+    count: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render E eye lines against M targets: (shade, depth) [..., E, W].
 
     `_agent_row` of the JAX renderer with the eye axis written out. The
     self-target is culled for free: rel=0 gives forward depth 0 < near.
-    `albedo` and `texture` as in the module docstring.
+    `albedo` and `texture` as in the module docstring. With `count`, adds
+    the (eye, target) pairs that cover a pixel and the covered (eye,
+    target, pixel) triples to the recorder's `eye.pairs_covering` and
+    `eye.triples` (utils/profiling.py; nothing outside recording()).
     """
     rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]  # [..., E, M, 2]
     u_c, du, f, visible = camera.project(rel, eye_dir, cfg)  # [..., E, M]
@@ -65,6 +70,9 @@ def eye_rows(
         cover = visible[..., None] & (off.abs() < 1.0 + hp[..., None])
     else:
         cover = visible[..., None] & (off.abs() < 1.0)
+    if count:
+        profiling.count("eye.pairs_covering", cover.any(dim=-1).sum())
+        profiling.count("eye.triples", cover.sum())
 
     # Depth test: nearest covering target wins the pixel; argmin returns the
     # first minimum, so a depth tie goes to the lowest target index.
@@ -109,20 +117,22 @@ def render_eyes(
     chunk: int | None = None,
     albedo: torch.Tensor | None = None,
     texture: torch.Tensor | None = None,
+    count: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`eye_rows` chunked over eyes so that the [..., chunk, M, W]
     intermediates stay within PLAIN_PIXEL_BUDGET elements (the dense analog
     of the reference's GRANULARITY=100 command-buffer batching,
-    src/main.rs:584). Leading batch dims are kept whole."""
+    src/main.rs:584). Leading batch dims are kept whole. `count` as in
+    eye_rows."""
     e, m = eye_pos.shape[-2], tgt.shape[-2]
     batch = eye_pos[..., 0, 0].numel()
     if chunk is None:
         chunk = max(1, PLAIN_PIXEL_BUDGET // max(1, batch * m * cfg.width))
     if chunk >= e:
-        return eye_rows(eye_pos, eye_dir, tgt, cfg, albedo, texture)
+        return eye_rows(eye_pos, eye_dir, tgt, cfg, albedo, texture, count)
     rows = [
         eye_rows(eye_pos[..., i:i + chunk, :], eye_dir[..., i:i + chunk, :], tgt, cfg, albedo,
-                 texture)
+                 texture, count)
         for i in range(0, e, chunk)
     ]
     return torch.cat([r[0] for r in rows], dim=-2), torch.cat([r[1] for r in rows], dim=-2)

@@ -45,14 +45,44 @@ def test_device_trace_writes_a_trace(tmp_path, monkeypatch):
     monkeypatch.setenv("NENBODY_TRACE", str(tmp_path / "trace"))
     with profiling.device_trace():
         torch.ones(8).sum()
-    files = os.listdir(tmp_path / "trace")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "trace" / files[0]) as f:
-        assert "traceEvents" in json.load(f)
+        with profiling.span("probe"):
+            torch.ones(8).sum()
+    files = sorted(os.listdir(tmp_path / "trace"))
+    assert len(files) == 2 and all(f.endswith(".json") for f in files)
+    record, trace = files
+    assert record.startswith("record_") and trace.startswith("trace_")
+    assert record[len("record_"):] == trace[len("trace_"):]  # one stamp for both
+    with open(tmp_path / "trace" / trace) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "nenbody.probe" for e in events)
+    with open(tmp_path / "trace" / record) as f:
+        assert json.load(f)["spans"]["probe"]["calls"] == 1
     monkeypatch.delenv("NENBODY_TRACE")
     with profiling.device_trace():  # off: nothing written
         torch.ones(8).sum()
-    assert len(os.listdir(tmp_path / "trace")) == 1
+    assert len(os.listdir(tmp_path / "trace")) == 2
+
+
+def test_profile_train_keeps_the_traced_iterations_record():
+    """profile_train's row of a trainer holds the port's record of its
+    traced iteration under `spans`: one iteration, its three phases inside
+    it, the env's and the policy's spans, and no eye counter (the profiler
+    alone leaves them off, so the trace times the untraced kernels)."""
+    import argparse
+
+    from nenbody_tpu_torch import profile_train
+
+    args = argparse.Namespace(envs=2, agents=12, vision_width=16, horizon=2,
+                              sprite_mode="disc", warmup=1, runs=1, seed=0, device="cpu")
+    row = profile_train.profile_trainer(args, "apg", "visibility", True, True)
+    rec = row["spans"]
+    assert rec["spans"]["apg.iteration"]["calls"] == 1 and rec["dropped"] == 0
+    for phase in ("rollout", "backward", "update"):
+        assert rec["spans"][f"apg.{phase}"]["parents"] == ["apg.iteration"]
+    assert rec["spans"]["env.observe"]["calls"] == 2 + 1  # horizon + 1 renders
+    assert rec["spans"]["policy.forward"]["calls"] == 2
+    assert not any(k.startswith("eye.") for k in rec["counters"])
+    json.dumps(rec)  # the JSON the command writes
 
 
 def test_scan_throughput_times_chained_calls():
