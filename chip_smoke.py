@@ -280,7 +280,12 @@ KERNEL_INFO = {
     "rdma_vision": dict(source="nenbody_tpu_torch/csrc/rdma_ring.cu",
                         replaces="nenbody_tpu/parallel/rdma.py:475"),
 }
-EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64)]
+# the disc eye's (envs, N, W): (8, 300, 64) has an N that is no multiple of
+# 32 or of the kernel's tile of targets, config 3 (N = 4,096) several tiles.
+# The shapes past the first four draw their inputs from a generator of
+# their own (eye_gen), so that the phases after them see the inputs
+# they always saw.
+EYE_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 4096, 256), (64, 256, 64), (8, 300, 64)]
 WF_SHAPES = [(1, 1024, 64), (1, 100, 1024), (1, 1024, 1024), (64, 256, 64)]
 SERVING = ("gravity", "boids", "disc_eye")
 # phase 5's shapes of the serving path's gravity (envs, N) and disc eye
@@ -419,6 +424,15 @@ def log(phase: str, msg: str) -> None:
 
 def uniform(gen, shape, lo, hi):
     return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+
+def eye_gen(gen, b: int, n: int, w: int):
+    """The generator a disc eye shape draws from: its own (seeded by the
+    shape) for the EYE_SHAPES entries past the first four, else the
+    phase's."""
+    if (b, n, w) not in EYE_SHAPES[4:]:
+        return gen
+    return torch.Generator(device="cuda").manual_seed(b * 1_000_003 + n * 1_009 + w)
 
 
 class Errors:
@@ -595,12 +609,12 @@ def phase_kernels(errors: Errors, gen) -> None:
 
     # the disc eye, spread and clustered (a collapsed swarm, where every
     # target reaches every pixel): equal to the plain version at power-of-two
-    # widths (both compute the same float32 expressions), else within
-    # tests/test_kernels.py:209-210's tolerances
+    # widths (both compute the same float32 expressions), the winner buffer
+    # too, else within tests/test_kernels.py:209-210's tolerances
     for b, n, w in EYE_SHAPES:
         shape = (b, n, 2) if b > 1 else (n, 2)
         exact = w & (w - 1) == 0
-        for half, g in ((100, gen), (8, own)):
+        for half, g in ((100, eye_gen(gen, b, n, w)), (8, own)):
             pos = uniform(g, shape, -half, half)
             dirs = camera.unit_heading(uniform(g, shape, -1, 1))
             for aa in (False, True):
@@ -612,6 +626,12 @@ def phase_kernels(errors: Errors, gen) -> None:
                              *((0, 0) if exact else (1e-5, 1e-4)))
                 errors.check("disc_eye", label + " shade", gs, ws,
                              *((0, 0) if exact else (1e-5, 1e-5)))
+                if exact:
+                    out = raycast.disc_eye_with_winner(pos, dirs, pos, vcfg)
+                    same = (torch.equal(out[0], gs) and torch.equal(out[1], gd) and torch.equal(
+                        out[2], raycast.disc_winners_plain(pos, dirs, pos, vcfg)))
+                    expect(same, f"{label}: with the winner buffer, bit-equal to the plain "
+                           f"version and its winners")
     eye_counters(errors)
 
 
@@ -619,7 +639,10 @@ def eye_counters(errors: Errors) -> None:
     """The disc eye's counting launch (inside profiling.recording()) at
     config-5 width, spread and clustered, AA off and on: its shade, depth
     and winner bit-equal to a launch without counters, its covered pairs
-    and triples equal to the plain version's (from its own generator)."""
+    and triples equal to the plain version's (from its own generator); of
+    its fallbacks, the band tests equal to those the plain version implies
+    (raycast.disc_band_pixels), the lists drawn before their tile's cull
+    ended at most the pairs passed, and some under clustered spawns."""
     own = torch.Generator(device="cuda").manual_seed(11)
     b, n, w = 4096, 256, 64
     for half in (100, 8):
@@ -647,6 +670,13 @@ def eye_counters(errors: Errors) -> None:
             for k in ("eye.pairs_covering", "eye.triples"):
                 expect(kernel[k] == plain[k] > 0, f"{label}: the kernel's {k} equal to the plain "
                        f"version's")
+            band = raycast.disc_band_pixels(pos, dirs, pos, vcfg)
+            log("kernels", f"{label}: plain eye.band_divides {band}")
+            expect(kernel["eye.band_divides"] == band, f"{label}: the kernel's eye.band_divides "
+                   f"equal to the plain version's band tests")
+            expect(0 <= kernel["eye.list_flushes"] <= kernel["eye.pairs_passed"]
+                   and (half > 8 or kernel["eye.list_flushes"] > 0),
+                   f"{label}: eye.list_flushes within [0, pairs passed], and above 0 clustered")
 
 
 def phase_backward_kernels(errors: Errors, gen) -> None:
@@ -678,10 +708,11 @@ def phase_backward_kernels(errors: Errors, gen) -> None:
     # at every forward shape and at the trainers' (config-5 width)
     for b, n, w in EYE_SHAPES + [(TRAIN_ENVS, TRAIN_AGENTS, TRAIN_WIDTH)]:
         shape = (b, n, 2) if b > 1 else (n, 2)
-        pos = uniform(gen, shape, -100, 100)
-        dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
-        us = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda")
-        ud = torch.randn(shape[:-1] + (w,), generator=gen, device="cuda") * 1e-3
+        g = eye_gen(gen, b, n, w)
+        pos = uniform(g, shape, -100, 100)
+        dirs = camera.unit_heading(uniform(g, shape, -1, 1))
+        us = torch.randn(shape[:-1] + (w,), generator=g, device="cuda")
+        ud = torch.randn(shape[:-1] + (w,), generator=g, device="cuda") * 1e-3
         for aa in (False, True):
             vcfg = VisionConfig(width=w, antialias=aa)
             _, _, winner = raycast.disc_eye_with_winner(pos, dirs, pos, vcfg)
@@ -3057,9 +3088,10 @@ def phase_appearance_kernels(errors: Errors, gen) -> None:
         name = f"{sprite}_eye"
         for b, n, w in shapes:
             shape = (b, n, 2) if b > 1 else (n, 2)
-            pos = uniform(gen, shape, -100, 100)
-            dirs = camera.unit_heading(uniform(gen, shape, -1, 1))
-            albedo = uniform(gen, shape[:-1], 0.3, 1.0)
+            g = eye_gen(gen, b, n, w) if sprite == "disc" else gen
+            pos = uniform(g, shape, -100, 100)
+            dirs = camera.unit_heading(uniform(g, shape, -1, 1))
+            albedo = uniform(g, shape[:-1], 0.3, 1.0)
             for aa in (False, True):
                 vcfg = VisionConfig(width=w, antialias=aa, sprite_mode=sprite)
                 if sprite == "disc":

@@ -47,7 +47,7 @@
 // quarter of the targets lie in an eye's 90-degree frustum, and a sprite
 // covers one or two pixels of a 64-pixel line. The work the inputs need is
 // one projection and slab clip per (eye, target) that may be visible and the
-// tests on the pixels its edges reach. Design (that of disc_eye.cu):
+// tests on the pixels its edges reach. Design:
 // - A block owns EB eyes x SEG pixels of one env (blockIdx.z; a row wider
 //   than SEG_MAX is cut into segments, blockIdx.y) and keeps one 64-bit key
 //   per pixel in shared memory: the depth's bits above k Nt + j (edge k,

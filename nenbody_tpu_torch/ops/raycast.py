@@ -20,20 +20,26 @@ Function when an input requires grad; the plain backward is autograd
 through the plain renderer, chunk by chunk over eyes.
 
 The kernel projects only the (eye, target) pairs that may be visible
-(`disc_maybe_visible`, a frustum test without a divide), runs the exact
-per-pixel test of each only on the pixels its widened footprint can reach
-(`disc_pixel_ranges`), and keeps each pixel's least (depth, index) key.
-Those two functions are the culls in plain PyTorch with the kernel's
-float32 expressions (they must agree); the CPU tests prove them
-conservative against the exact test.
+(`disc_maybe_visible`, a frustum test without a divide), runs the per-pixel
+test of each only on the pixels its widened footprint can reach
+(`disc_pixel_ranges`), deciding it without the divide outside a narrow band
+around the footprint's edge (`disc_band_cover`), and keeps each pixel's
+least (depth, index) key. Those three functions are the kernel's float32
+expressions in plain PyTorch (they must agree); the CPU tests prove the
+culls conservative against the exact test and the band test equal to it.
 
 Work counters (utils/profiling.py), inside its recording(): each render
 adds the pairs it could test, `eye.pairs` (B·N_e·N_t), and its pixels,
 `eye.pixels` (B·N_e·W), on the host; the kernel adds, into a counter array
 on the card, the pairs that pass its pre-cull (`eye.pairs_passed`), the
-pairs that cover at least one pixel (`eye.pairs_covering`) and the covered
-(eye, target, pixel) triples (`eye.triples`). The plain version counts the
-last two from its own coverage; it has no pre-cull, so every pair passes.
+pairs that cover at least one pixel (`eye.pairs_covering`), the covered
+(eye, target, pixel) triples (`eye.triples`), and two counts of its
+fallbacks: the pair lists it drew before their tile's cull ended because
+the list could not take another round (`eye.list_flushes`), and the pixel
+tests that fell in the band and took the divide (`eye.band_divides`, which
+`disc_band_pixels` counts in plain PyTorch). The plain version counts
+`eye.pairs_covering` and `eye.triples` from its own coverage; it has no
+pre-cull, so every pair passes, and no list or band.
 
 Appearance: `albedo` (one per target) and `texture` ([Ht, Wt], shared by
 every env) cover the Pallas kernels' `has_alb` and `raw` forms. The JAX
@@ -119,8 +125,77 @@ def disc_pixel_ranges(eye_pos, eye_dir, tgt, cfg: VisionConfig):
     return torch.where(visible, lo, 1), torch.where(visible, hi, 0), reach_plus
 
 
+# csrc/disc_eye.cu's cover_pixel decides |a / du| < thr without the divide
+# outside the band [thr du (1 - BAND), thr du (1 + BAND)) of |a|
+BAND = 2.0 ** -20
+
+
+def disc_band_cover(a, du, thr):
+    """(covered, in_band): csrc/disc_eye.cu's cover_pixel decision of
+    |a / du| < thr (a = u_p - u_c, the exact test's numerator), with the
+    same float32 expressions, which must agree: covered below the band
+    around reach = thr du, not from its top up, and by the divide inside
+    it. Equal to the divide test whatever the roundings (the CPU tests hold
+    it so)."""
+    reach = thr * du
+    inner = reach * (1.0 - BAND)
+    outer = reach * (1.0 + BAND)
+    m = a.abs()
+    in_band = (m >= inner) & (m < outer)
+    return (m < inner) | (in_band & ((a / du).abs() < thr)), in_band
+
+
+def _eye_chunks(eye_pos, tgt, cfg: VisionConfig):
+    """Slices of the eyes whose [..., chunk, M, W] tensors stay within
+    render.PLAIN_PIXEL_BUDGET elements."""
+    e, m = eye_pos.shape[-2], tgt.shape[-2]
+    batch = eye_pos[..., 0, 0].numel()
+    chunk = max(1, render.PLAIN_PIXEL_BUDGET // max(1, batch * m * cfg.width))
+    return [slice(i, i + chunk) for i in range(0, e, chunk)]
+
+
+def disc_band_pixels(eye_pos, eye_dir, tgt, cfg: VisionConfig) -> int:
+    """The (eye, target, pixel) tests of visible pairs whose |u_p - u_c|
+    falls in the band: what the counting kernel adds to `eye.band_divides`
+    (it tests every pixel of a visible pair's range, and the band lies
+    within the range), with its float32 expressions."""
+    u_p = camera.pixel_centers(cfg, device=eye_pos.device)
+    inv_w = torch.tensor(1.0 / cfg.width, dtype=torch.float32, device=eye_pos.device)
+    total = 0
+    for part in _eye_chunks(eye_pos, tgt, cfg):
+        rel = tgt[..., None, :, :] - eye_pos[..., part, None, :]
+        u_c, du, _, visible = camera.project(rel, eye_dir[..., part, :], cfg)
+        du = du.clamp(min=1e-30)
+        thr = 1.0 + inv_w / du if cfg.antialias else torch.ones_like(du)
+        _, in_band = disc_band_cover(u_p - u_c[..., None], du[..., None], thr[..., None])
+        total += int((visible[..., None] & in_band).sum())
+    return total
+
+
+def disc_winners_plain(eye_pos, eye_dir, tgt, cfg: VisionConfig) -> torch.Tensor:
+    """[..., N_e, W] int32: each pixel's winning target, -1 for the
+    background, as vision.render.eye_rows's argmin picks it (the lowest
+    index wins a depth tie): the plain version of the winner buffer that
+    disc_eye_with_winner writes."""
+    u_p = camera.pixel_centers(cfg, device=eye_pos.device)
+    rows = []
+    for part in _eye_chunks(eye_pos, tgt, cfg):
+        rel = tgt[..., None, :, :] - eye_pos[..., part, None, :]
+        u_c, du, f, visible = camera.project(rel, eye_dir[..., part, :], cfg)
+        safe_du = du.clamp(min=1e-30)
+        off = (u_p - u_c[..., None]) / safe_du[..., None]
+        thr = 1.0 + ((1.0 / cfg.width) / safe_du)[..., None] if cfg.antialias else 1.0
+        cover = visible[..., None] & (off.abs() < thr)
+        depth_field = torch.where(cover, f[..., None], torch.full_like(off, float("inf")))
+        winner = depth_field.argmin(dim=-2)
+        hit = torch.isfinite(depth_field.gather(-2, winner[..., None, :]).squeeze(-2))
+        rows.append(torch.where(hit, winner, -1).to(torch.int32))
+    return torch.cat(rows, dim=-2)
+
+
 # the kernel's work counters, in the order of its counter array
-EYE_COUNTERS = ("eye.pairs_passed", "eye.pairs_covering", "eye.triples")
+EYE_COUNTERS = ("eye.pairs_passed", "eye.pairs_covering", "eye.triples", "eye.list_flushes",
+                "eye.band_divides")
 
 
 def _count_render(eye_pos, tgt, cfg: VisionConfig) -> int:

@@ -13,6 +13,14 @@ CPU, against the port's plain versions and the JAX package.
   tests/test_torch_vision.py states).
 - The disc eye's frustum test without a divide (disc_maybe_visible):
   every target camera.project calls visible passes it.
+- The kernel's draw order: the pairs that pass the cull, drawn one at a
+  time in a shuffled order with the eyes interleaved (as the kernel's
+  block-wide list draws them), each covering the pixels of its range that
+  the band test (raycast.disc_band_cover) covers, a pixel keeping its least
+  (depth bits, index) key: the winners equal the plain argmin's and the
+  rendering equals eye_rows bit for bit.
+- The band test equal to the divide test, on random draws, on |a| within a
+  few ulps of thr du, and on every geometry of the range tests.
 - Gravity's launch plan (ops.pairwise.gravity_plan, the twin of the
   kernel's) and its split sum: j chunks whose partials the cluster's leader
   adds in rank order, held against the JAX package's dense gravity at
@@ -219,6 +227,104 @@ def test_render_from_candidates_matches_jax(half, w, aa):
         np.testing.assert_allclose(got[1][b].numpy(), np.asarray(want[1]), **DEPTH_TOL)
         np.testing.assert_allclose(got[0][b].numpy(), np.asarray(want[0]),
                                    **(AA_SHADE_TOL if aa else SHADE_TOL))
+
+
+def _render_from_list(eye_pos, eye_dir, tgt, cfg, seed):
+    """(shade, depth, winner): the kernel's draw in plain PyTorch. The pairs
+    that pass disc_maybe_visible, in a shuffled order (a block-wide list
+    mixes eyes), each min its key (its depth's bits above its index) into
+    the pixels of its range that disc_band_cover covers; each pixel is then
+    shaded as eye_rows shades its winner alone."""
+    w = cfg.width
+    rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
+    u_c, du, f, visible = camera.project(rel, eye_dir, cfg)
+    du = du.clamp(min=1e-30)
+    inv_w = torch.tensor(1.0 / w, dtype=torch.float32)
+    thr = 1.0 + inv_w / du if cfg.antialias else torch.ones_like(du)
+    covered, _ = raycast.disc_band_cover(camera.pixel_centers(cfg) - u_c[..., None],
+                                         du[..., None], thr[..., None])
+    lo, hi, _ = raycast.disc_pixel_ranges(eye_pos, eye_dir, tgt, cfg)
+    draws = visible[..., None] & covered & _in_range(lo, hi, w)
+    keys = (f.view(torch.int32).long() << 32) | torch.arange(tgt.shape[-2])
+    none = torch.iinfo(torch.int64).max
+    best = torch.full(eye_pos.shape[:-1] + (w,), none)
+    pairs = raycast.disc_maybe_visible(eye_pos, eye_dir, tgt, cfg).nonzero()
+    for b, e, m in pairs[torch.randperm(len(pairs), generator=torch.Generator().manual_seed(seed))]:
+        px = draws[b, e, m]
+        best[b, e, px] = torch.minimum(best[b, e, px], keys[b, e, m])
+    winner = torch.where(best == none, -1, best & 0xffffffff).to(torch.int32)
+    shade = torch.full(best.shape, cfg.background)
+    depth = torch.full(best.shape, cfg.far)
+    for b in range(eye_pos.shape[0]):
+        for e in range(eye_pos.shape[1]):
+            for j in winner[b, e].unique().tolist():
+                if j < 0:
+                    continue
+                s, d = render.eye_rows(eye_pos[b, e:e + 1], eye_dir[b, e:e + 1],
+                                       tgt[b, j:j + 1], cfg)
+                px = winner[b, e] == j
+                shade[b, e, px], depth[b, e, px] = s[0, px], d[0, px]
+    return shade, depth, winner
+
+
+@pytest.mark.parametrize("aa", [False, True])
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+@pytest.mark.parametrize("w", [64, 1024])
+def test_shuffled_list_draw_equals_eye_rows(w, kind, aa):
+    """The key's least is the plain argmin's winner whatever the order the
+    pairs are drawn in, so the block-wide list may draw them in any order."""
+    cfg = VisionConfig(width=w, antialias=aa)
+    eye_pos, eye_dir, tgt = _inputs(kind, w, seed=w + 3, aa=aa)
+    shade, depth, winner = _render_from_list(eye_pos, eye_dir, tgt, cfg, seed=w)
+    want = render.eye_rows(eye_pos, eye_dir, tgt, cfg)
+    assert (winner >= 0).any()
+    assert torch.equal(winner, raycast.disc_winners_plain(eye_pos, eye_dir, tgt, cfg))
+    assert torch.equal(shade, want[0]) and torch.equal(depth, want[1])
+
+
+def _ulps(x, k):
+    """x moved by k float32 ulps (toward +inf for k > 0)."""
+    bits = torch.as_tensor(x, dtype=torch.float32).view(torch.int32)
+    return (bits + k).view(torch.float32)
+
+
+@pytest.mark.parametrize("draw", ["random", "edge_ulps"])
+@pytest.mark.parametrize("aa", [False, True])
+def test_band_cover_equals_the_divide_test(draw, aa):
+    """|a / du| < thr as disc_band_cover decides it, the divide only in the
+    band, equals the divide everywhere: on random offsets and half-widths,
+    and on |a| within 24 ulps of thr du, where rounding alone decides."""
+    rng = np.random.default_rng(11 + aa)
+    du = _t(10.0 ** rng.uniform(-6, 1, 4096))
+    inv_w = torch.tensor(1.0 / 64, dtype=torch.float32)
+    thr = 1.0 + inv_w / du if aa else torch.ones_like(du)
+    if draw == "random":
+        a = _t(rng.uniform(-2, 2, 4096)) * thr * du
+    else:
+        side = _t(rng.choice([-1.0, 1.0], 4096))
+        a = side * _ulps(thr * du, torch.from_numpy(rng.integers(-24, 25, 4096)).int())
+    covered, in_band = raycast.disc_band_cover(a, du, thr)
+    assert torch.equal(covered, (a / du).abs() < thr)
+    if draw == "edge_ulps":  # the band is 8 to 16 ulps each side: the divide decides there
+        assert in_band.float().mean() > 0.2
+        assert covered[in_band].any() and not covered[in_band].all()
+
+
+@pytest.mark.parametrize("aa", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_band_cover_equals_the_exact_cover(kind, aa):
+    """On the range tests' geometries at every width: the band test covers
+    exactly the (eye, target, pixel) triples eye_rows's test covers."""
+    for w in WIDTHS:
+        cfg = VisionConfig(width=w, antialias=aa)
+        eye_pos, eye_dir, tgt = _inputs(kind, w, seed=w, aa=aa)
+        cover, a = _exact_cover(eye_pos, eye_dir, tgt, cfg)
+        rel = tgt[..., None, :, :] - eye_pos[..., :, None, :]
+        _, du, _, visible = camera.project(rel, eye_dir, cfg)
+        du = du.clamp(min=1e-30)[..., None]
+        thr = 1.0 + (1.0 / w) / du if aa else torch.ones_like(du)  # as _exact_cover's
+        covered, _ = raycast.disc_band_cover(a, du, thr)
+        assert torch.equal(visible[..., None] & covered, cover), f"{kind} W={w}"
 
 
 def _split_gravity(pos, cfg, split, chunk, pos_j=None):

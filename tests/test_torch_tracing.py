@@ -16,6 +16,7 @@ python -m pytest --noconftest -q -m cuda tests/test_torch_tracing.py).
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -286,6 +287,57 @@ def _enumerate(eye_pos, eye_dir, tgt, cfg, chunk=64):
     return covering, triples
 
 
+def test_the_eye_counters_follow_the_kernels_array():
+    """The counting kernel adds five sums in EYE_COUNTERS's order: the three
+    the plain version counts too, then its two fallbacks, the lists drawn
+    before their tile's cull ended and the pixel tests in the band."""
+    assert raycast.EYE_COUNTERS == ("eye.pairs_passed", "eye.pairs_covering", "eye.triples",
+                                    "eye.list_flushes", "eye.band_divides")
+    with profiling.recording():
+        slots = profiling.counter_slots(raycast.EYE_COUNTERS, "cpu")
+    assert slots.shape == (5,) and slots.dtype == torch.int64
+
+
+def _edge_scene(n, w, aa, seed):
+    """(eye_pos, eye_dir, tgt) [1, n, 2] each: every eye at the origin
+    looking along +x, each target placed so that its footprint's edge (thr
+    du from u_c) lies within a few ulps of a pixel centre."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(2.0, 60.0, n)
+    reach = 1.0 / f + (1.0 / w if aa else 0.0)  # t = 1, r = 1
+    centres = 2.0 * (np.arange(w) + 0.5) / w - 1.0
+    u = (centres[rng.integers(0, w, n)] + rng.choice([-1.0, 1.0], n) * reach
+         * (1 + rng.uniform(-4e-7, 4e-7, n)))
+    eye = np.zeros((n, 2))
+    tgt = np.stack([f, -u * f], axis=-1)  # rel . (d.y, -d.x) = -rel.y = u f
+    t = lambda x: torch.from_numpy(np.asarray(x, dtype=np.float32))[None]
+    return t(eye), camera.unit_heading(t(np.tile([1.0, 0.0], (n, 1)))), t(tgt)
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_band_pixels_match_an_enumeration(aa):
+    """raycast.disc_band_pixels (what the counting kernel's eye.band_divides
+    reads) against the band written out eye by eye, where footprint edges
+    lie within a few ulps of pixel centres."""
+    w = 64
+    cfg = VisionConfig(width=w, antialias=aa)
+    eye_pos, eye_dir, tgt = _edge_scene(60, w, aa, 12 + aa)
+    u_p = 2.0 * (torch.arange(w, dtype=torch.float32) + 0.5) / w - 1.0
+    inv_w = torch.tensor(1.0 / w, dtype=torch.float32)
+    band = 0
+    for e in range(eye_pos.shape[1]):
+        rel = tgt[0] - eye_pos[0, e]
+        u_c, du, _, visible = camera.project(rel, eye_dir[0, e], cfg)
+        du = du.clamp(min=1e-30)
+        thr = 1.0 + inv_w / du if aa else torch.ones_like(du)
+        reach = thr * du
+        m = (u_p - u_c[:, None]).abs()
+        near = (m >= reach[:, None] * (1.0 - 2.0 ** -20)) & (m < reach[:, None] * (1.0 + 2.0 ** -20))
+        band += int((visible[:, None] & near).sum())
+    assert band > 20
+    assert raycast.disc_band_pixels(eye_pos, eye_dir, tgt, cfg) == band
+
+
 @pytest.mark.parametrize("aa", [False, True])
 def test_plain_eye_counts_match_a_direct_enumeration(aa):
     """Config 2's sizes (N=1,024, W=64), positions in its spawn range."""
@@ -330,7 +382,7 @@ def cuda():
 @pytest.mark.parametrize("b,n,w,lo,hi", [
     (1, 1024, 64, -100.0, 100.0),  # config 2
     (64, 256, 64, -100.0, 100.0),  # config-5 width, 64 envs
-    (16, 256, 64, -8.0, 8.0),  # clustered: wide ranges the warp walks together
+    (16, 256, 64, -8.0, 8.0),  # clustered: ranges of many pixels, spread over a warp's lanes
     (1, 100, 1024, -100.0, 100.0),  # reference-100's eye: four segments
     (2, 60, 600, -20.0, 20.0),  # a narrow last segment
 ])
@@ -357,6 +409,10 @@ def test_kernel_eye_counters_match_the_plain_path(cuda, b, n, w, lo, hi, aa):
     assert got["eye.pairs"] == want["eye.pairs"] == b * n * n
     assert got["eye.pixels"] == want["eye.pixels"] == b * n * w
     assert got["eye.pairs_covering"] <= got["eye.pairs_passed"] < got["eye.pairs"]
+    # the fallbacks: the band tests the plain version implies, and lists drawn early
+    assert got["eye.band_divides"] == raycast.disc_band_pixels(pos.cpu(), dirs.cpu(), pos.cpu(),
+                                                               cfg)
+    assert 0 <= got["eye.list_flushes"] <= got["eye.pairs_passed"]
     # a profiler alone launches the kernel without counters, as an untraced run does
     profiling.reset_record()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
