@@ -25,20 +25,30 @@ follows, each computes the reference for its share of the envs, and the
 replicas' parameters after the window are compared bit for bit
 (replica_mismatch).
 
-Traffic keys: horizon, lr, reward_mode, antialias, diff_vision, setup_steps,
-trace_iterations, trace_after_s.
+Traffic keys (TRAFFIC_KEYS): horizon, lr, reward_mode, antialias,
+diff_vision, setup_steps, trace_iterations, trace_after_s.
+
+The eye's reference and work are the configuration's sprite_mode's
+(reference/eyes.py, work/<sprite_mode>_eye.py and _eye_bwd.py). A traced
+stretch that the line could not carry is traced again (lib/retrace.py),
+as rank 0 decides from every rank's stretch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bench_port import work
 from bench_port.lib import inputs, program
 from bench_port.lib.harness import Outcome
+from bench_port.lib.retrace import Retrace
 from bench_port.lib.window import Window
 from bench_port.reference import apg as apg_ref
-from bench_port.reference import compare, eye as eye_ref
-from bench_port.work import disc_eye, disc_eye_bwd, gravity, gravity_vjp, mlp, peaks
+from bench_port.reference import compare, eyes
+from bench_port.work import gravity, gravity_vjp, mlp, peaks
+
+TRAFFIC_KEYS = frozenset({"horizon", "lr", "reward_mode", "antialias", "diff_vision",
+                          "setup_steps", "trace_iterations", "trace_after_s"})
 
 
 def run(ctx) -> Outcome:
@@ -48,15 +58,17 @@ def run(ctx) -> Outcome:
 class Control:
     """Whether the window goes on, decided on rank 0's clock and sent to
     every rank over a host-side group (`group`; None on one process):
-    0 stop, 1 go on, 2 go on and trace."""
+    0 stop, 1 go on, 2 go on and trace. A stretch to be traced again
+    (`again`) is traced whether or not the window has closed."""
 
     def __init__(self, ctx, group):
         self.ctx, self.group = ctx, group
 
-    def next(self, win: Window, traced: bool) -> int:
+    def next(self, win: Window, traced: bool, again: bool) -> int:
         ctx = self.ctx
         go = int(win.running())
-        if go and ctx.trace and not traced and win.elapsed() >= ctx.traffic["trace_after_s"]:
+        if again or (go and ctx.trace and not traced
+                     and win.elapsed() >= ctx.traffic["trace_after_s"]):
             go = 2
         if self.group is None:
             return go
@@ -89,6 +101,7 @@ def train(ctx, mesh, group) -> Outcome:
     # the parameters after it
     rec = {"losses": [], "grads": [], "params": []}
     tr = ctx.tracer
+    retrace = Retrace(tr.cuda)
     ctx.mark("state_built")
     for i in range(job["setup_steps"]):
         ts, metrics = step(ts)
@@ -100,9 +113,9 @@ def train(ctx, mesh, group) -> Outcome:
     win = Window(ctx.seconds, ctx.cuda, per_unit=False, card=ctx.card)
     _barrier(group)
     setup_s = win.open() - ctx.t0
-    traced, summary, gen_states = False, None, []
+    traced, again, summary, gen_states = False, False, None, []
     while True:
-        go = control.next(win, traced)
+        go = control.next(win, traced, again)
         if go == 0:
             break
         if go == 2:
@@ -110,7 +123,11 @@ def train(ctx, mesh, group) -> Outcome:
             with tr.span("train_step"):
                 ts, metrics = step(ts)
             win.tick()
+            # the ranks open their stretches together: the line's busy_s, the
+            # mean of theirs, is read against rank 0's stretch (lib/retrace.py)
+            _barrier(group)
             tr.begin()
+            gen_states = []
             for _ in range(job["trace_iterations"]):
                 gen_states.append(ts.generator.get_state())
                 with tr.span("train_step"):
@@ -119,7 +136,8 @@ def train(ctx, mesh, group) -> Outcome:
             with tr.span("barrier"):
                 _barrier(group)
             summary = tr.stop(job["trace_iterations"], "iteration")
-            traced = True
+            again = _retrace(retrace, summary, ctx.rank, group)
+            traced = not again
             continue
         with tr.span("train_step"):
             ts, metrics = step(ts)
@@ -169,6 +187,20 @@ def _barrier(group) -> None:
         dist.barrier(group=group)
 
 
+def _retrace(retrace: Retrace, summary: dict, rank: int, group) -> bool:
+    """Whether the stretch just traced is to be traced again: decided on
+    rank 0 from every rank's stretch (gathered over `group`), which the
+    other ranks follow through the Control."""
+    stretches = [{"busy_s": summary["busy_s"], "window_s": summary["window_s"]}]
+    if group is not None:
+        import torch.distributed as dist
+
+        gathered = [None] * dist.get_world_size(group)
+        dist.all_gather_object(gathered, stretches[0], group=group)
+        stretches = gathered
+    return retrace.again(stretches) if rank == 0 else False
+
+
 def _share(ctx):
     """This process's envs of the batch, for the reference and the work."""
     b = ctx.config["num_envs"]
@@ -197,32 +229,27 @@ def _work(ctx, gen_states, spawn_seed) -> dict:
     """This process's work in the traced iterations: its share of the
     envs' renders (horizon + 1 a iteration) and their pullbacks (horizon),
     gravity (horizon) and its pullbacks (horizon - 1), the policy's
-    forward and backward; the eye's covered and won pixels counted on each
-    iteration's spawns."""
+    forward and backward; the eye's pixels counted by the reference eye on
+    each iteration's spawns, and taken to hold for each of its renders."""
     cfg, job = ctx.config, ctx.traffic
     n, h, w = cfg["n"], job["horizon"], cfg["vision"]["width"]
+    eye_ref, name = eyes.of(cfg["vision"]), eyes.name(cfg["vision"])
     eye = eye_ref.Eye.of(cfg["vision"], job["antialias"])
-    covered = won = 0
+    stats = {}
     for state in gen_states:
         pos, vel = _spawns(ctx, spawn_seed, 1, state)[0]
-        stats = {}
-        win = eye_ref.winners(pos, eye_ref.heading_of(vel), eye, stats=stats)
-        covered += stats.get("covered", 0)
-        won += int((win >= 0).sum())
+        eye_ref.winners(pos, eye_ref.heading_of(vel), eye, stats=stats)
         b = pos.shape[0]
     iters = len(gen_states)
-    e, g = disc_eye.work(b, n, w, 0), gravity.work(b, n)
-    gv = gravity_vjp.work(b, n)
+    g, gv = gravity.work(b, n), gravity_vjp.work(b, n)
     m = mlp.work(b * n, w + 2, cfg["policy"]["hidden"], cfg["policy"]["act_dim"], backward=True)
-    eye_w = {"fp32_ops": iters * (h + 1) * e["fp32_ops"] + (h + 1) * covered * disc_eye.PIXEL_OPS,
-             "bytes": iters * (h + 1) * e["bytes"]}
+    eye_w = work.of(name).renders(b, n, w, iters * (h + 1),
+                                  {k: (h + 1) * v for k, v in stats.items()})
     grav_w = {"fp32_ops": iters * h * g["fp32_ops"], "bytes": iters * h * g["bytes"]}
-    pullback = disc_eye_bwd.work(b, n, w, won)
-    bwd_w = {"fp32_ops": h * pullback["fp32_ops"],
-             "bytes": iters * h * disc_eye_bwd.work(b, n, w, 0)["bytes"]}
+    bwd_w = work.of(f"{name}_bwd").renders(b, n, w, iters * h, {k: h * v for k, v in stats.items()})
     fp32 = (eye_w["fp32_ops"] + grav_w["fp32_ops"] + bwd_w["fp32_ops"]
             + iters * ((h - 1) * gv["fp32_ops"] + h * m["fp32_ops"]))
-    return {"disc_eye_kernel": eye_w, "gravity_kernel": grav_w, "disc_eye_bwd_kernel": bwd_w,
+    return {f"{name}_kernel": eye_w, "gravity_kernel": grav_w, f"{name}_bwd_kernel": bwd_w,
             "op_seconds": peaks.op_seconds(fp32_ops=fp32, bf16_flops=iters * h * m["bf16_flops"])}
 
 

@@ -14,7 +14,8 @@ window's host-side control, and gather to rank 0 their peak memory, their
 traces and the forbidden modules each holds once the window has closed;
 rank 0 prints the line.
 
-Traffic keys: apg_train's, mesh (axis sizes, make_mesh's) and processes.
+Traffic keys (TRAFFIC_KEYS): apg_train's, mesh (axis sizes, make_mesh's)
+and processes.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from bench_port.drivers import apg_train
 from bench_port.lib import harness
 from bench_port.lib.harness import Outcome
 
+TRAFFIC_KEYS = apg_train.TRAFFIC_KEYS | {"mesh", "processes"}
 # seconds the other ranks may take beyond rank 0's own run
 JOIN_S = 120
 

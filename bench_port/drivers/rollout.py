@@ -15,23 +15,31 @@ state and of its output state (obs_mismatch_share), the mean action from
 the input observation (action_gap) and the state the step returned given
 that action (state_gap), for a sample of envs of each kept step.
 
-Traffic keys: episode_steps, reward_mode, antialias, warmup_steps,
-check_steps (kept steps of the window), check_envs (envs a kept step),
-trace_after_s (window seconds before the traced episode).
+Traffic keys (TRAFFIC_KEYS): episode_steps, reward_mode, antialias,
+warmup_steps, check_steps (kept steps of the window), check_envs (envs a
+kept step), trace_after_s (window seconds before the traced episode).
+
+The eye, its reference and its work are the configuration's sprite_mode's
+(reference/eyes.py, work/<sprite_mode>_eye.py). A traced episode whose
+stretch the line could not carry is traced again (lib/retrace.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from bench_port import work
 from bench_port.lib import inputs, program
 from bench_port.lib.checks import Reservoir
 from bench_port.lib.harness import Outcome
+from bench_port.lib.retrace import Retrace
 from bench_port.lib.window import Window, p95
-from bench_port.reference import compare, world
-from bench_port.reference import eye as eye_ref
+from bench_port.reference import compare, eyes, world
 from bench_port.reference import policy as policy_ref
-from bench_port.work import disc_eye, gravity, mlp, peaks
+from bench_port.work import gravity, mlp, peaks
+
+TRAFFIC_KEYS = frozenset({"episode_steps", "reward_mode", "antialias", "warmup_steps",
+                          "check_steps", "check_envs", "trace_after_s"})
 
 
 def run(ctx) -> Outcome:
@@ -57,6 +65,7 @@ def run(ctx) -> Outcome:
                              "pos2": ((ke, n, 2), f32), "vel2": ((ke, n, 2), f32),
                              "obs2": ((ke, n, od), f32)}, dev)
     tr = ctx.tracer
+    retrace = Retrace(tr.cuda)
 
     def keep(slot, unit, s, obs, act, nxt, nobs):
         idx = envs[slot]
@@ -81,9 +90,11 @@ def run(ctx) -> Outcome:
             state, obs = nxt, nobs
         win = Window(ctx.seconds, ctx.cuda, card=ctx.card)
         setup_s = win.open() - ctx.t0
-        phase, kept_states, summary = None, None, None  # the trace: lead, traced, done
-        while win.running() or phase in ("lead", "traced"):
-            if phase is None and ctx.trace and win.elapsed() >= job["trace_after_s"]:
+        # the trace: None, lead, traced, done; "again" where a stretch is traced again
+        phase, kept_states, summary = None, None, None
+        while win.running() or phase in ("lead", "traced", "again"):
+            if phase == "again" or (phase is None and ctx.trace
+                                    and win.elapsed() >= job["trace_after_s"]):
                 tr.start()
                 phase = "lead"
             elif phase == "lead":
@@ -116,6 +127,8 @@ def run(ctx) -> Outcome:
             if tracing:
                 summary = tr.stop(job["episode_steps"], "step")
                 phase = "done"
+                if retrace.again([summary]):
+                    summary, phase = None, "again"
         win.close()
     if summary is not None:
         summary["work"] = _work(kept_states, job, cfg)
@@ -133,26 +146,22 @@ def run(ctx) -> Outcome:
 
 def _work(states, job, cfg) -> dict:
     """The traced episode's work: each render of `states` (the episode's
-    spawn and every step's result), a gravity evaluation and a policy call
-    a step."""
+    spawn and every step's result), its pixels counted by the reference
+    eye, a gravity evaluation and a policy call a step."""
     b, n, w = cfg["num_envs"], cfg["n"], cfg["vision"]["width"]
+    eye_ref, name = eyes.of(cfg["vision"]), eyes.name(cfg["vision"])
     eye = eye_ref.Eye.of(cfg["vision"], job["antialias"])
-    covered = 0
+    stats = {}
     for pos, vel in states:
-        stats = {}
         eye_ref.winners(pos, eye_ref.heading_of(vel), eye, stats=stats)
-        covered += stats.get("covered", 0)
-    renders = len(states)
     steps = job["episode_steps"]
-    e = disc_eye.work(b, n, w, 0)
     g = gravity.work(b, n)
     m = mlp.work(b * n, w + 2, cfg["policy"]["hidden"], cfg["policy"]["act_dim"])
-    eye_w = {"fp32_ops": e["fp32_ops"] * renders + covered * disc_eye.PIXEL_OPS,
-             "bytes": e["bytes"] * renders}
+    eye_w = work.of(name).renders(b, n, w, len(states), stats)
     grav_w = {"fp32_ops": g["fp32_ops"] * steps, "bytes": g["bytes"] * steps}
     flops = {"fp32_ops": eye_w["fp32_ops"] + grav_w["fp32_ops"] + m["fp32_ops"] * steps,
              "bf16_flops": m["bf16_flops"] * steps}
-    return {"disc_eye_kernel": eye_w, "gravity_kernel": grav_w,
+    return {f"{name}_kernel": eye_w, "gravity_kernel": grav_w,
             "op_seconds": peaks.op_seconds(**flops)}
 
 
@@ -160,6 +169,7 @@ def _check(ctx, res: Reservoir, params: dict):
     """The numbers compared, and with ctx.control the control's: the
     reference one precision lower in the program's place."""
     cfg, job = ctx.config, ctx.traffic
+    eye_ref = eyes.of(cfg["vision"])
     eye = eye_ref.Eye.of(cfg["vision"], job["antialias"])
     grav, hid = cfg["gravity"], cfg["policy"]["hidden_dtype"]
     readings = {"": {"bad": 0, "all": 0, "action_gap": 0.0, "state_gap": 0.0}}

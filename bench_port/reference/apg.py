@@ -10,8 +10,9 @@ Per iteration, from spawns (pos, vel) [B, N, 2] of B envs:
                 r_t = mean over envs, agents and pixels of (shade_{t+1} - bg)
     loss = -mean_t r_t
 
-Envs are independent, so the loss is a sum of per-env terms and the
-gradient is taken env block by env block. `reduce`, where given, sums a
+`lines` is the configuration's reference eye (reference/eyes.py, by its
+sprite_mode). Envs are independent, so the loss is a sum of per-env terms
+and the gradient is taken env block by env block. `reduce`, where given, sums a
 tensor over the processes that each hold some of the envs.
 """
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import eye as eye_ref
+from . import eyes
 from . import policy as policy_ref
 from . import world
 
@@ -32,6 +33,7 @@ def episode_loss(params: dict, pos, vel, cfg: dict, job: dict, lower: bool = Fal
     """The loss of one block of envs (not yet divided among blocks): the
     world and the eye computed in float32 (bfloat16 where `lower`)."""
     dtype = torch.bfloat16 if lower else torch.float32
+    eye_ref = eyes.of(cfg["vision"])
     vision = eye_ref.Eye.of(cfg["vision"], job["antialias"])
     grav, env = cfg["gravity"], cfg["env"]
     hidden = cfg["policy"]["hidden_dtype"]

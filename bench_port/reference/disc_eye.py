@@ -87,7 +87,8 @@ def winners(pos: torch.Tensor, dirs: torch.Tensor, eye: Eye, dtype=torch.float32
     agent's line, -1 where none covers it, for agents at `pos` [B, N, 2]
     with unit headings `dirs` seeing each other (the agent itself never
     shows: its depth is 0). Computed in `dtype`. With `stats`, adds the
-    number of covering (eye, target, pixel) triples under "covered"."""
+    number of covering (eye, target, pixel) triples under "covered" and of
+    pixels that a target wins under "won" (work/disc_eye*.py count them)."""
     b_all, n, _ = pos.shape
     w = eye.width
     dev = pos.device
@@ -129,6 +130,8 @@ def winners(pos: torch.Tensor, dirs: torch.Tensor, eye: Eye, dtype=torch.float32
             keys = torch.full((nb * n * w,), NO_KEY, dtype=torch.int64, device=dev)
             keys.scatter_reduce_(0, slot, key, "amin", include_self=True)
             hit = keys != NO_KEY
+            if stats is not None:
+                stats["won"] = stats.get("won", 0) + int(hit.sum())
             out[b0:b0 + nb] = torch.where(hit, keys & 0xFFFFFFFF,
                                           torch.full_like(keys, -1)).view(nb, n, w)
     return out

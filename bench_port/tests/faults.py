@@ -15,7 +15,11 @@ check has to catch: `planted(name)` patches the port for the duration.
                       this process's own part
     grads_not_summed  the gradient all-reduce alone left out: each replica
                       steps on its own block's gradient
-    eye_bwd_zeroed    the eye's pullback (disc_eye_bwd) returns zeros
+    eye_bwd_zeroed    the eye's pullback returns zeros, whichever eye the
+                      run routes through: the disc's (render_rows_vjp_cross,
+                      disc_eye_bwd) and the wireframe sprite's
+                      (wireframe_eye_vjp, wireframe_eye_bwd, which
+                      RenderRowsWireframeDiff.backward calls)
     gravity_vjp_zeroed  the gravity force's pullback (gravity_vjp) returns
                       zeros
 """
@@ -32,7 +36,7 @@ FAULTS = ("state_unchanged", "half_batch", "altered_answer", "no_exchange", "gra
 
 
 def _patches(name: str) -> list:
-    from nenbody_tpu_torch.ops import pairwise, raycast
+    from nenbody_tpu_torch.ops import pairwise, raycast, wireframe
     from nenbody_tpu_torch.parallel import mesh
     from nenbody_tpu_torch.rl import apg, spmd
     from nenbody_tpu_torch.rl.env import VisionEnv
@@ -74,9 +78,14 @@ def _patches(name: str) -> list:
     if name == "grads_not_summed":
         return [mock.patch.object(spmd, "all_reduce_grads", lambda params, mesh: None)]
     if name == "eye_bwd_zeroed":
-        vjp = raycast.render_rows_vjp_cross
-        return [mock.patch.object(raycast, "render_rows_vjp_cross", lambda *a, **kw: tuple(
-            torch.zeros_like(g) for g in vjp(*a, **kw)))]
+        def zeroed(vjp):
+            return lambda *a, **kw: tuple(None if g is None else torch.zeros_like(g)
+                                          for g in vjp(*a, **kw))
+
+        return [mock.patch.object(raycast, "render_rows_vjp_cross",
+                                  zeroed(raycast.render_rows_vjp_cross)),
+                mock.patch.object(wireframe, "wireframe_eye_vjp",
+                                  zeroed(wireframe.wireframe_eye_vjp))]
     if name == "gravity_vjp_zeroed":
         return [mock.patch.object(pairwise, "gravity_vjp_tiled",
                                   lambda pos, u, cfg: torch.zeros_like(pos))]

@@ -75,3 +75,34 @@ def test_a_forbidden_module_on_another_rank_is_reported(cell):
     reports it, and run.py then prints no result."""
     _, out = _across(cell, "forbidden_module")
     assert "rank 1: jax" in out.loaded and "rank 1: jax" in harness.forbidden(out)
+
+
+@pytest.mark.parametrize("sprite", ["disc", "wireframe"])
+def test_eye_pullback_fault_zeroes_either_eyes_gradient(sprite):
+    """eye_bwd_zeroed plants zeros in the pullback of whichever eye the
+    env's differentiable observation routes through."""
+    import torch
+
+    from nenbody_tpu_torch.rl.env import VisionEnv
+
+    from bench_port.lib import program
+
+    cfg = tiny.context("c5-train-apg-dv").config
+    cfg = {**cfg, "vision": {**cfg["vision"], "sprite_mode": sprite}}
+    env = VisionEnv(program.sim_config(cfg, antialias=True), max_accel=cfg["env"]["max_accel"])
+    gen = torch.Generator().manual_seed(4)
+    pos = (torch.rand((2, cfg["n"], 2), generator=gen) * 2 - 1) * 6.0
+    vel = torch.rand((2, cfg["n"], 2), generator=gen) * 2 - 1
+    weights = torch.randn((2, cfg["n"], env.obs_width), generator=gen)
+
+    def grads():
+        p, v = pos.clone().requires_grad_(), vel.clone().requires_grad_()
+        (env.observe(program.state(p, v)) * weights).sum().backward()
+        return p.grad, v.grad
+
+    assert all(bool(g.any()) for g in grads())
+    with faults.planted("eye_bwd_zeroed"):
+        zeroed = grads()
+    # the velocity's own columns of the observation still pull back
+    assert not zeroed[0].any()
+    assert torch.equal(zeroed[1], weights[..., -2:])

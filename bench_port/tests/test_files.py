@@ -1,6 +1,11 @@
 """BENCHMARK.json and the files it names: every configuration, mix, limit
 file and reader loads and names only pieces that exist; nothing under
-bench_port imports jax, jaxlib, flax or the JAX package."""
+bench_port imports jax, jaxlib, flax or the JAX package.
+
+The checks of one cell, one configuration and one per-layer metric take
+the benchmark of any checkout (`check_cell`, `check_config`,
+`check_metric`): tests/test_added_files.py runs them on a copy to which
+new files were added."""
 
 from __future__ import annotations
 
@@ -21,13 +26,9 @@ PORT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "nenbody_tpu"}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-DRIVER_KEYS = {
-    "rollout": {"episode_steps", "reward_mode", "antialias", "warmup_steps", "check_steps",
-                "check_envs", "trace_after_s"},
-    "apg_train": {"horizon", "lr", "reward_mode", "antialias", "diff_vision", "setup_steps",
-                  "trace_iterations", "trace_after_s"},
-}
-DRIVER_KEYS["apg_train_procs"] = DRIVER_KEYS["apg_train"] | {"mesh", "processes"}
+# the configuration whose sizes the others of its preset are held to
+BASE = "c5-envs4096x256-w64"
+SIZES = ("num_envs", "n", "vision", "gravity", "policy", "env")
 
 
 def test_benchmark_keys():
@@ -56,32 +57,63 @@ def test_benchmark_keys():
     assert len(json.dumps(spec)) < 64 * 1024
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH.spec["workloads"]])
-def test_cell_names_known_pieces(cell):
-    w = BENCH.cell(cell)
+def check_cell(bench: Bench, cell: str) -> None:
+    """A cell names pieces that exist: its configuration, its mix, whose
+    driver loads and whose keys hold every key the driver declares
+    (TRAFFIC_KEYS), its limits, and metrics of both kinds."""
+    w = bench.cell(cell)
     assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
     assert len(w["why"]) <= 200
-    cfg, job = BENCH.config(w["config"]), BENCH.traffic(w["traffic"])
+    cfg, job = bench.config(w["config"]), bench.traffic(w["traffic"])
     assert cfg["name"] == w["config"]
-    assert DRIVER_KEYS[job["driver"]] <= set(job)
-    BENCH.driver(job["driver"])
+    assert bench.driver(job["driver"]).TRAFFIC_KEYS <= set(job)
     # a limit is above 0, or 0 for an exact comparison
-    assert set(BENCH.limits(cell)) and all(v >= 0 for v in BENCH.limits(cell).values())
-    e2e = {m["name"] for m in BENCH.metrics_of(cell, "end_to_end")}
+    assert set(bench.limits(cell)) and all(v >= 0 for v in bench.limits(cell).values())
+    e2e = {m["name"] for m in bench.metrics_of(cell, "end_to_end")}
     assert "setup_s" in e2e and len(e2e) >= 2
-    layer = BENCH.metrics_of(cell, "per_layer")
+    layer = bench.metrics_of(cell, "per_layer")
     assert layer and all(m["moves"] in e2e for m in layer)
+
+
+def check_metric(bench: Bench, metric: str) -> None:
+    """A per-layer metric has a reader, moves an end-to-end metric that
+    each cell it lists reports, and a roofline share is named so."""
+    m = next(x for x in bench.spec["per_layer"] if x["name"] == metric)
+    assert callable(bench.reader(metric))
+    assert m["moves"] in {x["name"] for x in bench.spec["end_to_end"]}
+    for cell in m.get("workloads", []):
+        bench.cell(cell)
+        assert m["moves"] in {e["name"] for e in bench.end_to_end_of(cell)}, cell
+    if m["unit"] == "%" and "roofline" in metric:
+        assert metric.split(".")[0].endswith("_roofline")
+
+
+def _sizes(cfg: dict, key: str):
+    """A configuration's `key`, its eye's sprite left out: the source's own
+    sprite is the wireframe triangle, and the disc no cut of it."""
+    if key == "vision":
+        return {k: v for k, v in cfg[key].items() if k != "sprite_mode"}
+    return cfg[key]
+
+
+def check_config(bench: Bench, name: str) -> None:
+    """A configuration of the base's preset keeps the base's sizes but for
+    the keys its `reduced` names."""
+    c = next(x for x in bench.spec["configs"] if x["name"] == name)
+    base, cfg = bench.config(BASE), bench.config(name)
+    if cfg.get("preset") != base["preset"]:
+        return
+    assert {k for k in SIZES if _sizes(cfg, k) != _sizes(base, k)} == set(c["reduced"]), name
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH.spec["workloads"]])
+def test_cell_names_known_pieces(cell):
+    check_cell(BENCH, cell)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH.spec["per_layer"]])
 def test_metric_has_reader(metric):
-    m = next(x for x in BENCH.spec["per_layer"] if x["name"] == metric)
-    assert callable(BENCH.reader(metric))
-    assert m["moves"] in {x["name"] for x in BENCH.spec["end_to_end"]}
-    for cell in m.get("workloads", []):
-        BENCH.cell(cell)
-    if m["unit"] == "%" and "roofline" in metric:
-        assert metric.split(".")[0].endswith("_roofline")
+    check_metric(BENCH, metric)
 
 
 def test_four_chip_cells_are_few():
@@ -100,15 +132,12 @@ def test_per_layer_cells_report_what_it_moves(metric):
 
 def test_reduced_lists_every_changed_key():
     """Each configuration keeps its preset's sizes but for the keys its
-    `reduced` names."""
-    base = BENCH.config("c5-envs4096x256-w64")
+    `reduced` names; the eye's sprite is not a size."""
     for c in BENCH.spec["configs"]:
-        cfg = BENCH.config(c["name"])
-        if cfg.get("preset") != base["preset"]:
-            continue
-        changed = {k for k in ("num_envs", "n", "vision", "gravity", "policy", "env")
-                   if cfg[k] != base[k]}
-        assert changed == set(c["reduced"]), c["name"]
+        check_config(BENCH, c["name"])
+    cfg = BENCH.config(BASE)
+    wireframe = {**cfg, "vision": {**cfg["vision"], "sprite_mode": "wireframe"}}
+    assert all(_sizes(wireframe, k) == _sizes(cfg, k) for k in SIZES)
 
 
 def _imports(path: Path) -> set:
@@ -158,7 +187,8 @@ def test_a_run_loads_no_jax():
 
 def test_the_reference_loads_nothing_of_the_program():
     loaded = _loaded("import bench_port.reference.apg, bench_port.reference.compare, "
-                     "bench_port.reference.eye, bench_port.reference.policy, "
+                     "bench_port.reference.disc_eye, bench_port.reference.eyes, "
+                     "bench_port.reference.policy, "
                      "bench_port.reference.world")
     assert not loaded & (FORBIDDEN | {"nenbody_tpu_torch"})
 

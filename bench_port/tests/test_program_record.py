@@ -13,11 +13,10 @@ import contextlib
 import pytest
 import torch
 
-from bench_port.drivers import rollout
 from bench_port.lib import harness, program_record
 from bench_port.lib.cells import Bench
 from bench_port.lib.trace import Tracer
-from bench_port.reference import eye as eye_ref
+from bench_port.reference import eyes
 from bench_port.tests import rank_worker, tiny
 
 torch.set_num_threads(1)  # the tiny windows: no thread pool oversubscribed beside other workers
@@ -78,18 +77,20 @@ def test_traced_rollout_reads_its_metrics_and_the_eyes_counts(monkeypatch, clean
         return out
 
     covered = []
+    eye_ref = eyes.of(BENCH.config(BENCH.cell("c5-rollout")["config"])["vision"])
     winners = eye_ref.winners
 
     def counting(pos, dirs, eye, dtype=None, stats=None):
+        before = stats.get("covered", 0) if stats is not None else 0
         out = winners(pos, dirs, eye, **({} if dtype is None else {"dtype": dtype}),
                       stats=stats)
-        if stats is not None:
-            covered.append(stats.get("covered", 0))
+        if stats is not None:  # the render's own count: the driver sums them in one dict
+            covered.append(stats["covered"] - before)
         return out
 
     monkeypatch.setattr(Tracer, "begin", begin_afresh)
     monkeypatch.setattr(Tracer, "stop", stop_counting)
-    monkeypatch.setattr(rollout.eye_ref, "winners", counting)
+    monkeypatch.setattr(eye_ref, "winners", counting)
     ctx = tiny.context("c5-rollout", seed=11, seconds=2.0, trace=True)
     out = harness.run_cell(ctx)
     line = harness.result_line(ctx, out)

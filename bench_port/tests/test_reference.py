@@ -11,8 +11,8 @@ import torch
 
 from bench_port.lib import inputs
 from bench_port.reference import apg as apg_ref
-from bench_port.reference import compare
-from bench_port.reference import eye as eye_ref
+from bench_port.reference import compare, eyes
+from bench_port.reference import disc_eye as eye_ref
 from bench_port.reference import policy as policy_ref
 from bench_port.reference import world
 from bench_port.work import disc_eye, disc_eye_bwd, gravity, gravity_vjp, mlp, peaks
@@ -131,6 +131,11 @@ def test_work_counts_by_hand():
     assert m["bf16_flops"] == 10 * 2 * (4 * 8 + 8 * 8) and m["fp32_ops"] == 10 * 2 * 8 * 2
     assert peaks.least_seconds(fp32_ops=67e12) == pytest.approx(1.0)
     assert peaks.least_seconds(bytes_moved=3.35e12, fp32_ops=1.0) == pytest.approx(1.0)
+    # a number of renders from the reference's stats summed over them
+    assert disc_eye.renders(1, 2, 4, 3, {"covered": 5, "won": 2}) == {
+        "fp32_ops": 3 * 4 * 16 + 5 * 6, "bytes": 3 * (2 * 2 * 8 + 2 * 2 * 4 * 4)}
+    assert disc_eye_bwd.renders(1, 2, 4, 3, {"covered": 5, "won": 2}) == {
+        "fp32_ops": 2 * 60, "bytes": 3 * disc_eye_bwd.work(1, 2, 4, 0)["bytes"]}
 
 
 def test_covered_pixels_by_brute_force():
@@ -148,6 +153,7 @@ def test_covered_pixels_by_brute_force():
         off = (eye_ref.pixel_centres(16, "cpu") - u[..., None]) / du.clamp(min=1e-30)[..., None]
         thr = 1.0 + (1.0 / 16) / du.clamp(min=1e-30)[..., None] if aa else 1.0
         assert stats["covered"] == int((vis[..., None] & (off.abs() < thr)).sum())
+        assert stats["won"] == int((eye_ref.winners(pos, dirs, e) >= 0).sum())
 
 
 def test_eye_dataclass_reads_the_config():
@@ -166,3 +172,18 @@ def test_training_comparisons_by_hand():
     flat = torch.arange(4.0)
     assert compare.replica_mismatch([flat, flat.clone(), flat.clone()]) == 0.0
     assert compare.replica_mismatch([flat, flat + torch.tensor([0, 0, 0, 1e-6])]) == 0.25
+
+
+def test_the_eye_is_found_by_its_sprite_mode(tmp_path):
+    from bench_port import work
+
+    assert eyes.of({"width": 8, "sprite_mode": "disc"}) is eye_ref
+    assert eyes.of({"width": 8}) is eye_ref  # the port's default sprite
+    assert eyes.name({"sprite_mode": "disc"}) == "disc_eye"
+    assert work.of("disc_eye") is disc_eye and work.of("disc_eye_bwd") is disc_eye_bwd
+    with pytest.raises(FileNotFoundError, match="reference/cube_eye.py"):
+        eyes.of({"width": 8, "sprite_mode": "cube"})
+    with pytest.raises(FileNotFoundError, match="work/cube_eye.py"):
+        work.of("cube_eye")
+    with pytest.raises(ValueError):
+        eyes.of({"width": 8, "sprite_mode": "../disc"})
